@@ -1,12 +1,15 @@
-"""Model zoo + factory of the port: the causal decoders the generative
-serving path runs (the CNNs and the BERT encoder wait for the training
-slice)."""
+"""Model zoo + factory of the port: the transformer family — the BERT
+encoder with its masked-LM head and the causal decoders (the CNNs wait
+for the ResNet training slice)."""
 
 from __future__ import annotations
 
 from pytorch_distributed_nn_tpu_torch.models.transformer import (
+    BertMLM,
     CausalLM,
     TransformerConfig,
+    bert_base,
+    bert_tiny,
     full_attention,
     gpt_mini,
     gpt_tiny,
@@ -16,14 +19,23 @@ from pytorch_distributed_nn_tpu_torch.ops.reference import (
 )
 
 _REGISTRY = {
+    "BertBase": bert_base,
+    "BertTiny": bert_tiny,
     "GptTiny": gpt_tiny,
     "GptMini": gpt_mini,
 }
 
-INPUT_SPECS = {"GptTiny": (64,), "GptMini": (128,)}
+#: text models take (L,) int tokens; their spec is the sequence length
+TEXT_MODELS = {"BertBase", "BertTiny", "GptTiny", "GptMini"}
+INPUT_SPECS = {"BertBase": (512,), "BertTiny": (128,), "GptTiny": (64,),
+               "GptMini": (128,)}
 
 #: causal decoders: their artifacts serve POST /v1/generate
 GENERATIVE_MODELS = {"GptTiny", "GptMini"}
+
+
+def is_text_model(model_name: str) -> bool:
+    return model_name in TEXT_MODELS
 
 
 def is_generative_model(model_name: str) -> bool:
@@ -50,7 +62,8 @@ def build_model(model_name: str, num_classes: int = 0, **kwargs):
 
 
 __all__ = [
-    "CausalLM", "TransformerConfig", "build_model", "decode_attention",
-    "full_attention", "gpt_mini", "gpt_tiny", "input_spec",
-    "is_generative_model", "GENERATIVE_MODELS",
+    "BertMLM", "CausalLM", "TransformerConfig", "bert_base", "bert_tiny",
+    "build_model", "decode_attention", "full_attention", "gpt_mini",
+    "gpt_tiny", "input_spec", "is_generative_model", "is_text_model",
+    "GENERATIVE_MODELS", "TEXT_MODELS",
 ]

@@ -47,6 +47,7 @@ from pytorch_distributed_nn_tpu_torch.serving.generate.kvcache import (
     KVCachePool,
     StaleKVPage,
 )
+from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -60,18 +61,6 @@ _MIN_SEQ_BUCKET = 16
 #: JAX engine's ``decode_attn="pallas"``), or its plain PyTorch version
 #: on any device (the JAX engine's ``"exact"``), for A/B comparisons
 DECODE_ATTN = {"kernel": None, "plain": reference.decode_attention}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card (raises when there is none); otherwise the
-    named device. Never a silent CPU fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless the caller "
-            "asks for the CPU (device='cpu')"
-        )
-    return dev
 
 
 def default_seq_buckets(max_len: int) -> Tuple[int, ...]:

@@ -63,7 +63,8 @@ def test_kernel_sources_include_no_torch_headers():
     """The kernels bind through a plain C interface: nvcc builds them in
     seconds, without PyTorch's headers."""
     sources = sorted((PORT / "ops" / "csrc").glob("*.cu"))
-    assert [p.stem for p in sources] == ["decode_attention", "layer_norm"]
+    assert [p.stem for p in sources] == ["decode_attention", "flash_attention",
+                                         "layer_norm"]
     for src in sources:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text
