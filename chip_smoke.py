@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: generative serving
-of GptMini and MLM training of BertBase (and GptMini).
+of GptMini, MLM training of BertBase (and GptMini), and data-parallel
+ResNet-18/CIFAR-10 training with the int8 gradient collective.
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
 
@@ -17,8 +18,11 @@ Phases, each printed on its own line:
    shapes (B 1 and 16, L 128 and 512, 12 heads of 64) and GptMini's
    (8 x 128, 4 heads of 32, causal), f32 and bf16, with and without a pad
    mask, causal and not; LayerNorm forward (y, mu, rs) and backward at
-   (16*512, 768) and (1000, 128), f32 and bf16-in/f32-out. Fails past the
-   stated tolerance;
+   (16*512, 768) and (1000, 128), f32 and bf16-in/f32-out; the int8 codec
+   (quantize_int8_scaled at n from 1 to 2,359,296, quantize_int8 and
+   dequantize_int8 at 2-D shapes) bit for bit, then the largest leaf's
+   mean rounding error within 4 standard errors of 0 and another seed
+   giving another q. Fails past the stated tolerance;
 4. serving: write a random-init GptMini artifact, serve it with the
    port's server on an ephemeral port, answer a burst of concurrent
    ``POST /v1/generate`` requests; check the responses, that the serving
@@ -38,21 +42,33 @@ Phases, each printed on its own line:
    size of the plain gradient (``leaf_grad_errors``). Then GptMini for 3
    steps the same way (causal flash kernels; finite losses and exact
    launch counts: 3 steps of a 1k vocabulary move its loss less than
-   one batch differs from the next);
+   one batch differs from the next). Then ResNet-18 at full width on a
+   synthetic CIFAR-10 of 10240 images through the Trainer: B = 1024,
+   bf16, SGD lr 0.05 momentum 0.9 decayed 10x every 20 steps,
+   ``--compress-grad int8`` over a world-size-1 NCCL group, the data on
+   the card, 60 steps and an eval pass: losses finite and falling, eval
+   loss lower after
+   than before, exactly one quantize_int8_scaled launch per gradient
+   leaf of 16384 elements or more per step and no other kernel; then one
+   step's gradients synced through the kernel and through the plain
+   quantizer, bit for bit equal leaf by leaf;
 6. timings: each kernel, its plain version and the nearest single
    PyTorch call by CUDA-graph replay (the serving kernels at GptMini's
    decode shapes as before; the training kernels at BertBase's training
    shapes, bf16), beside the least time the card could take; the
    serving decode step, tokens/s and TTFT; the BertBase training step
    and tokens/s with ``--attn-impl pallas`` and, as a second line,
-   ``--attn-impl full``. ``--out`` adds a per-shape sweep, a profile of
-   decode steps and a ``torch.profiler`` breakdown of 5 training steps;
+   ``--attn-impl full``; the int8 kernels (quantize_int8_scaled over one
+   ResNet-18 step's leaves and per leaf size; the other two at the
+   largest leaf) and the ResNet-18 step with int8 sync and without.
+   ``--out`` adds a per-shape sweep, a profile of decode steps and
+   ``torch.profiler`` breakdowns of 5 BertBase and 5 ResNet-18 steps;
 7. one JSON line listing the kernels (launches on the driven paths, error
    against the plain version, times, least possible time), then the
    result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
-burst, the training steps, the eval pass) and read just after it.
+burst, each model's training steps and eval pass) and read just after.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -93,6 +109,27 @@ N_TIMED = 200
 #: graph-replayed calls per timing at the training shapes (ms-scale calls)
 N_TIMED_TRAIN = 20
 TRAIN_STEPS = 10
+#: the int8 kernels' element counts in phase 3: around the 16384 dispatch
+#: threshold and the TPU kernel's 131072 chunk, up to ResNet-18's largest
+#: gradient leaf
+INT8_SIZES = (1, 1000, 16383, 16384, 131072, 131073, 2359296)
+INT8_SHAPES = ((1, 1), (8, 125), (127, 129), (128, 128), (257, 510),
+               (4608, 512))
+#: ResNet-18 on the synthetic CIFAR-10: 60 steps of SGD at lr 0.05,
+#: momentum 0.9, the lr decayed 10x every 20 steps. The repo's recipe
+#: (lr 0.4 at B 1024) diverges on this set within a few steps, with or
+#: without a 20-step warmup (loss 2.4 -> 19-28), and so does lr 0.1; and
+#: BatchNorm's running statistics (momentum 0.9) trail weights that move
+#: fast, so the test split's eval-mode loss rises for 30 steps unless the
+#: lr decays (``python -m pytorch_distributed_nn_tpu_torch.tools.
+#: resnet_schedules`` measures both)
+RESNET_STEPS = 60
+RESNET_LR = 0.05
+RESNET_DECAY_STEPS = 20
+#: ResNet-18's global batch; the synthetic CIFAR-10 stand-in is cut to
+#: this many images per split to bound the host's data generation
+RESNET_B = 1024
+RESNET_DATA = 10240
 
 
 def log(msg: str) -> None:
@@ -550,13 +587,13 @@ def profile_train(trainer, steps: int = 5):
     from torch.profiler import ProfilerActivity, profile
 
     batches = [trainer.train_loader.next_batch() for _ in range(steps + 1)]
-    trainer.train_step(trainer.state, batches[0])
+    trainer.step(batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[1:]:
-            trainer.train_step(trainer.state, b)
+            trainer.step(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -680,6 +717,254 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
     return entries, train_ln
 
 
+def check_int8_kernels(kernels, reference, gen):
+    """Phase 3, the int8 codec: each kernel against its plain version on
+    the same card tensors and seeds, bit for bit; then two statistical
+    checks on the largest leaf. Returns (cases, max abs err per kernel,
+    the statistics)."""
+    import torch
+
+    cases = []
+    for n in INT8_SIZES:
+        x = (torch.randn(n, generator=gen) * 0.05).cuda()
+        scale = x.abs().amax() / 127.0
+        seed = 1000 + n
+        q = kernels.quantize_int8_scaled(x, scale, seed)
+        torch.cuda.synchronize()
+        want = reference.quantize_int8_scaled(x, scale, seed=seed)
+        if not torch.equal(q, want):
+            fail(f"quantize_int8_scaled n={n}: "
+                 f"{int((q != want).sum())} elements differ")
+        cases.append(("quantize_int8_scaled", f"n={n}", 0.0))
+    for shape in INT8_SHAPES:
+        x = (torch.randn(shape, generator=gen) * 3).cuda()
+        seed = shape[0] * 7919 + shape[1]
+        q, s = kernels.quantize_int8(x, seed)
+        torch.cuda.synchronize()
+        qw, sw = reference.quantize_int8(x, seed=seed)
+        if not (torch.equal(q, qw) and s.item() == sw.item()):
+            fail(f"quantize_int8 {shape}: q equal {torch.equal(q, qw)}, "
+                 f"scale {s.item()} vs {sw.item()}")
+        d = kernels.dequantize_int8(q, s)
+        torch.cuda.synchronize()
+        if not torch.equal(d, reference.dequantize_int8(q, s)):
+            fail(f"dequantize_int8 {shape}: not equal to the plain version")
+        cases += [("quantize_int8", str(shape), 0.0),
+                  ("dequantize_int8", str(shape), 0.0)]
+    # unbiased: the mean error over the largest leaf within 4 of its
+    # standard errors of 0 (each element's error has variance
+    # f (1 - f) scale^2, f the fraction x / scale - floor(x / scale))
+    n = INT8_SIZES[-1]
+    x = (torch.randn(n, generator=gen) * 0.05).cuda()
+    scale = x.abs().amax() / 127.0
+    q = kernels.quantize_int8_scaled(x, scale, 7)
+    err = q.double() * scale.double() - x.double()
+    t = x.double() / scale.double()
+    f = t - torch.floor(t)
+    se = (f * (1 - f)).sum().sqrt().item() * scale.item() / n
+    mean_err = err.mean().item()
+    if not abs(mean_err) <= 4 * se:
+        fail(f"quantize_int8_scaled is biased: mean error {mean_err} > "
+             f"4 x {se}")
+    q2 = kernels.quantize_int8_scaled(x, scale, 8)
+    differ = int((q2 != q).sum())
+    if differ == 0:
+        fail("quantize_int8_scaled: seeds 7 and 8 gave the same q")
+    stats = {"n": n, "mean_err": mean_err, "standard_error": se,
+             "differ_other_seed": differ}
+    return cases, {k: 0.0 for k in ("quantize_int8_scaled", "quantize_int8",
+                                    "dequantize_int8")}, stats
+
+
+def resnet_config(compression, steps, seed):
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+
+    return TrainConfig(
+        network="ResNet18", dataset="Cifar10", batch_size=RESNET_B,
+        lr=RESNET_LR, momentum=0.9, lr_decay_steps=RESNET_DECAY_STEPS,
+        dtype="bfloat16", compression=compression, data_layout="device",
+        synthetic_size=RESNET_DATA, test_batch_size=1000, max_steps=steps,
+        seed=seed)
+
+
+def resnet_leaves(model):
+    """The parameters whose gradients take the quantize kernel."""
+    from pytorch_distributed_nn_tpu_torch.ops.compression import (
+        QUANT_KERNEL_MIN_SIZE,
+    )
+
+    return [p for p in model.parameters() if p.numel() >= QUANT_KERNEL_MIN_SIZE]
+
+
+def resnet_path(kernels, seed):
+    """ResNet-18 on synthetic CIFAR-10 through the Trainer with int8 sync:
+    launch counts read around the steps and around the eval pass."""
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(resnet_config("int8", RESNET_STEPS, seed))
+    per_step = {"quantize_int8_scaled": len(resnet_leaves(trainer.model))}
+    ev0 = trainer.evaluate()
+    kernels.reset_launch_counts()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    ev = trainer.evaluate()
+    torch.cuda.synchronize()
+    eval_launches = kernels.launch_counts()
+    losses = [r["loss"] for r in history]
+    if len(losses) != RESNET_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"ResNet18 training losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"ResNet18 training loss did not fall: {losses}")
+    if not ev or not ev["loss"] < ev0["loss"]:
+        fail(f"ResNet18 eval loss did not fall: {ev0} -> {ev}")
+    expect_launches(kernels, launches, per_step, RESNET_STEPS,
+                    "ResNet18 train")
+    expect_launches(kernels, eval_launches, {}, 1, "ResNet18 eval")
+    step_ms = sorted(r["step_ms"] for r in history[2:])
+    med = step_ms[len(step_ms) // 2]
+    return {"trainer": trainer, "losses": losses, "eval_before": ev0,
+            "eval": ev, "launches": launches, "eval_launches": eval_launches,
+            "per_step": per_step, "step_ms": med,
+            "images_per_s": RESNET_B / (med / 1e3)}
+
+
+def resnet_sync_check(trainer, reference):
+    """One step's gradients at the trainer's weights and next batch,
+    synced by the trainer's GradSync (the kernel on every leaf of 16384
+    or more) and by the same int8 collective with the plain quantizer:
+    bit for bit equal, leaf by leaf. Returns the leaf count and the
+    number of kernel-sized leaves."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import compression
+    from pytorch_distributed_nn_tpu_torch.ops.metrics import (
+        cross_entropy_loss,
+    )
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        sync_seed,
+    )
+
+    model = trainer.model
+    images, labels = trainer.train_loader.next_batch()
+    model.train()
+    model.zero_grad(set_to_none=True)
+    cross_entropy_loss(model(images), labels).backward()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    seed = sync_seed(12345, 0)
+    got = trainer.grad_sync(grads, seed)
+    quant_seed = compression.leaf_seeds(seed, 2)[1]
+
+    def plain(x, scale, s):
+        return reference.quantize_int8_scaled(x, scale, seed=s)
+
+    want = compression.int8_psum_mean(grads, quant_seed, trainer.group,
+                                      scaled_quantizer=plain)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            fail(f"int8 sync check: leaf {i} ({tuple(a.shape)}) differs "
+                 f"between the kernel and the plain quantizer in "
+                 f"{int((a != b).sum())} elements")
+    big = sum(g.numel() >= compression.QUANT_KERNEL_MIN_SIZE for g in grads)
+    return len(grads), big
+
+
+def resnet_step_ms(compression, steps, seed, profile=False):
+    """(median step ms, profile or None) of a fresh ResNet-18 Trainer
+    (the first two steps, cuDNN's autotuning and the allocator's warm-up,
+    left out); ``profile`` adds a torch.profiler breakdown of 5 steps."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(resnet_config(compression, steps, seed))
+    try:
+        history = trainer.train()
+        prof = profile_train(trainer) if profile else None
+    finally:
+        trainer.close()
+    ms = sorted(r["step_ms"] for r in history[2:])
+    del trainer
+    torch.cuda.empty_cache()
+    return ms[len(ms) // 2], prof
+
+
+def time_int8_kernels(kernels, reference, gen, leaf_sizes, launches, errs):
+    """Phase 6 entries of the int8 kernels. Kernel 6 at one training
+    step's work (every kernel-sized leaf of ResNet-18, one launch each);
+    kernels 7 and 8 at ResNet-18's largest leaf, as (4608, 512). Also a
+    per-size sweep of kernel 6. Bounds: 5 bytes an element (f32 read and
+    int8 write, or int8 read and f32 write)."""
+    import torch
+
+    n = N_TIMED_TRAIN
+    xs = [(torch.randn(m, generator=gen) * 0.05).cuda() for m in leaf_sizes]
+    scales = [x.abs().amax() / 127.0 for x in xs]
+    total = sum(leaf_sizes)
+
+    def step_kernel():
+        for i, (x, s) in enumerate(zip(xs, scales)):
+            q = kernels.quantize_int8_scaled(x, s, 100 + i)
+        return q
+
+    def step_plain():
+        for i, (x, s) in enumerate(zip(xs, scales)):
+            q = reference.quantize_int8_scaled(x, s, seed=100 + i)
+        return q
+
+    bms, by = bound_ms(5 * total, 5 * total)
+    entries = [{
+        "name": "quantize_int8_scaled", "route": "cuda",
+        "source": kernels.KERNELS["quantize_int8_scaled"]["source"],
+        "replaces": kernels.KERNELS["quantize_int8_scaled"]["replaces"],
+        "launches": launches["quantize_int8_scaled"],
+        "max_abs_err": errs["quantize_int8_scaled"],
+        "ms": time_ms(step_kernel, n), "plain_ms": time_ms(step_plain, n),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "shape": f"one ResNet-18 step: {len(leaf_sizes)} leaves, {total} "
+                 "f32 elements, one launch each",
+    }]
+    sweep = []
+    for m in sorted(set(leaf_sizes)):
+        x = (torch.randn(m, generator=gen) * 0.05).cuda()
+        s = x.abs().amax() / 127.0
+        sweep.append({"n": m, "leaves": leaf_sizes.count(m),
+                      "ms": time_ms(lambda: kernels.quantize_int8_scaled(
+                          x, s, 3), 100),
+                      "bound_ms": bound_ms(5 * m, 5 * m)[0]})
+    x = (torch.randn((4608, 512), generator=gen) * 0.05).cuda()
+    m = x.numel()
+    q, s = kernels.quantize_int8(x, 5)
+    s0 = s.reshape(())
+    bms, by = bound_ms(5 * m, 5 * m)
+    shape = "(4608, 512) = 2,359,296 elements (ResNet-18's largest leaf)"
+    for name, run, plain, lib in (
+            ("quantize_int8", lambda: kernels.quantize_int8(x, 5)[0],
+             lambda: reference.quantize_int8(x, seed=5)[0], None),
+            ("dequantize_int8", lambda: kernels.dequantize_int8(q, s),
+             lambda: reference.dequantize_int8(q, s),
+             lambda: torch.mul(q, s0))):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": kernels.KERNELS[name]["source"],
+            "replaces": kernels.KERNELS[name]["replaces"],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": time_ms(run, n), "plain_ms": time_ms(plain, n),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": None if lib is None else time_ms(lib, n),
+            "shape": shape,
+        })
+    return entries, sweep
+
+
+
 def post(url, doc, timeout=120.0):
     req = urllib.request.Request(
         url, data=json.dumps(doc).encode(),
@@ -797,7 +1082,18 @@ def main() -> int:
         + f" (flash tol {FLASH_TOL}, LN bwd tol {LN_BWD_TOL})")
     errs.update(train_errs)
     errs["layer_norm"] = max(errs["layer_norm"], train_errs["layer_norm_train"])
-    report["checks"] = checks + train_cases
+    int8_cases, int8_errs, int8_stats = check_int8_kernels(kernels, reference,
+                                                           gen)
+    log(f"phase 3 int8 kernels vs plain: {len(int8_cases)} cases bit for bit "
+        f"equal (quantize_int8_scaled at n = {list(INT8_SIZES)}; "
+        f"quantize_int8 and dequantize_int8 at {list(INT8_SHAPES)}); "
+        f"largest leaf: mean error of q * scale - x {int8_stats['mean_err']:.3e}"
+        f" (4 standard errors {4 * int8_stats['standard_error']:.3e}); "
+        f"another seed changes {int8_stats['differ_other_seed']} of "
+        f"{int8_stats['n']} elements")
+    errs.update(int8_errs)
+    report["checks"] = checks + train_cases + int8_cases
+    report["int8_stats"] = int8_stats
 
     # -- 4. the main path: serve a GptMini artifact -----------------------
     workdir = tempfile.mkdtemp(prefix="pdtn-chip-smoke-")
@@ -912,8 +1208,30 @@ def main() -> int:
     log(f"phase 5 train GptMini (causal flash, B=16, L=128, bf16): losses "
         f"{[round(x, 4) for x in gpt['losses']]}; launches "
         f"{gpt['launches']}; eval launches {gpt['eval_launches']}")
+    resnet = resnet_path(kernels, args.seed)
+    log(f"phase 5 train ResNet18 (B={RESNET_B}, bf16, SGD lr {RESNET_LR} "
+        f"momentum 0.9 decayed 10x every {RESNET_DECAY_STEPS} steps, int8 "
+        f"sync, NCCL world of "
+        f"{resnet['trainer'].n_workers}, data on the card, synthetic "
+        f"CIFAR-10 of {RESNET_DATA} images): losses "
+        f"{[round(x, 4) for x in resnet['losses']]}; eval loss "
+        f"{resnet['eval_before']['loss']:.4f} -> {resnet['eval']['loss']:.4f}"
+        f"; launches per run of {RESNET_STEPS} steps {resnet['launches']} (= "
+        f"{RESNET_STEPS} x {resnet['per_step']}); eval launches "
+        f"{resnet['eval_launches']}; step {resnet['step_ms']:.3f} ms, "
+        f"{resnet['images_per_s']:.1f} images/s")
+    n_leaves, n_big = resnet_sync_check(resnet["trainer"], reference)
+    log(f"phase 5 int8 sync check ResNet18: {n_leaves} gradient leaves "
+        f"({n_big} through quantize_int8_scaled) synced with the kernel and "
+        f"with the plain quantizer at the same weights, batch and seed: "
+        f"bit for bit equal")
+    resnet_profile = profile_train(resnet["trainer"]) if args.out else None
+    leaf_sizes = [p.numel() for p in resnet_leaves(resnet["trainer"].model)]
+    resnet["trainer"].close()
+    del resnet["trainer"]
+    torch.cuda.empty_cache()
     path_launches = {name: serve_launches[name] + sum(
-        run[key][name] for run in (bert, gpt)
+        run[key][name] for run in (bert, gpt, resnet)
         for key in ("launches", "eval_launches")) for name in kernels.KERNELS}
     report["training"] = {
         "bert": {k: v for k, v in bert.items()},
@@ -922,6 +1240,8 @@ def main() -> int:
                        "at": grad_where, "tolerance": GRAD_TOL,
                        "per_parameter": grad_errs},
         "profile": train_profile,
+        "resnet": {**resnet, "sync_check_leaves": n_leaves,
+                   "profile": resnet_profile},
     }
     report["training"]["gpt"].pop("trainer", None)
 
@@ -987,6 +1307,13 @@ def main() -> int:
     entries[1].update(train_ln)
     entries += train_entries
     full_ms = train_step_ms("BertBase", "full", 6, args.seed)
+    int8_entries, int8_sweep = time_int8_kernels(
+        kernels, reference, gen, leaf_sizes, path_launches, errs)
+    entries += int8_entries
+    report["int8_sweep"] = int8_sweep
+    resnet_none_ms, resnet_none_profile = resnet_step_ms(
+        "none", 8, args.seed, profile=bool(args.out))
+    report["training"]["resnet_none_profile"] = resnet_none_profile
     if args.out:
         report["sweep"] = sweep(kernels, reference, F, H, Dh, d_model, gen)
         report["decode_profile"] = profile_decode(engine, kvs)
@@ -1020,6 +1347,21 @@ def main() -> int:
         f"tokens/s")
     log(f"phase 6 training BertBase B=16 L=512 bf16: attn full "
         f"{full_ms:.3f} ms/step, {tokens / full_ms * 1e3:.1f} tokens/s")
+    for row in int8_sweep:
+        log(f"phase 6 quantize_int8_scaled n={row['n']} (x{row['leaves']} "
+            f"per ResNet-18 step): {row['ms']:.6f} ms, bound "
+            f"{row['bound_ms']:.6f} ms")
+    log(f"phase 6 training ResNet18 B={RESNET_B} bf16: int8 sync "
+        f"{resnet['step_ms']:.3f} ms/step, {resnet['images_per_s']:.1f} "
+        f"images/s; no compression {resnet_none_ms:.3f} ms/step, "
+        f"{RESNET_B / resnet_none_ms * 1e3:.1f} images/s; int8 sync overhead "
+        f"{resnet['step_ms'] - resnet_none_ms:.3f} ms/step")
+    for what, prof in (("int8", resnet_profile),
+                       ("no compression", resnet_none_profile)):
+        if prof:
+            log(f"phase 6 ResNet18 {what} profile (5 steps): wall "
+                f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} "
+                f"ms, busy {prof['device_busy_share']:.4f}")
     if train_profile:
         log(f"phase 6 training profile (5 steps): wall "
             f"{train_profile['wall_ms']:.3f} ms, device "
@@ -1027,6 +1369,8 @@ def main() -> int:
             f"{train_profile['device_busy_share']:.4f}")
     report["phases"].update({
         "train_step_ms": bert["step_ms"], "train_full_step_ms": full_ms,
+        "resnet_int8_step_ms": resnet["step_ms"],
+        "resnet_none_step_ms": resnet_none_ms,
         "path_launches": path_launches,
         "warmup_s": warm_s, "launches": launches, "logit_err": logit_err,
         "decode_step_ms": decode_step_ms, "burst_s": burst_s,

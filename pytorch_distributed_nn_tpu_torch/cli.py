@@ -1,17 +1,29 @@
 """Command line of the port.
 
+    python -m pytorch_distributed_nn_tpu_torch train --network ResNet18 \
+        --dataset Cifar10 --batch-size 1024 --learning-rate 0.4 \
+        --dtype bfloat16 --compress-grad int8 --max-steps N [--device cpu]
+
+trains an image model of the CNN zoo, data-parallel over the torchrun
+world (``torchrun --nproc-per-node N -m pytorch_distributed_nn_tpu_torch
+train --num-workers N ...``; one rank without torchrun), with the JAX
+package's gradient sync flags (``--sync-mode``, ``--num-aggregate``,
+``--kill-ranks``, ``--compress-grad none|int8``, ``--bn-stats-sync``)
+and data flags (``--data-layout``, ``--data-dir``, ``--synthetic-size``).
+
     python -m pytorch_distributed_nn_tpu_torch train --network BertBase \
         --dataset MLMSynth --optimizer adam --learning-rate 1e-4 \
         --attn-impl pallas --fused-ln --dtype bfloat16 --batch-size 16 \
         --max-steps N [--device cpu] [...]
 
-trains a text model on one device with the JAX package's ``train`` flags
-(same names, defaults and meanings, so a command line moves across
-unchanged): ``train()`` then ``evaluate()``. ``--attn-impl pallas``
-selects the hand-written flash kernel, ``full`` plain attention in
-PyTorch; ``--fused-ln`` is accepted (the port has one LayerNorm, the
+trains a text model on one device. Both take the JAX package's ``train``
+flags (same names, defaults and meanings, so a command line moves across
+unchanged) and run ``train()`` then ``evaluate()``. ``--attn-impl
+pallas`` selects the hand-written flash kernel, ``full`` plain attention
+in PyTorch; ``--fused-ln`` is accepted (the port has one LayerNorm, the
 kernel). A flag the port cannot honour yet raises, naming the ROADMAP
-item that ports it.
+item that ports it. Training runs on the card unless ``--device cpu`` is
+given, and fails without one.
 
     python -m pytorch_distributed_nn_tpu_torch serve run --artifact DIR \
         [--host 127.0.0.1] [--port 8000] [--device cuda] \
@@ -243,7 +255,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     _add_train_flags(sub.add_parser(
-        "train", help="train a text model on one device"))
+        "train", help="train an image model (data-parallel) or a text "
+                      "model (one device)"))
     serve = sub.add_parser("serve", help="serving commands")
     ssub = serve.add_subparsers(dest="serve_cmd", required=True)
     run = ssub.add_parser("run", help="serve a generative artifact")

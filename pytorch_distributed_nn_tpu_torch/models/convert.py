@@ -1,5 +1,7 @@
 """Weight converter between the JAX package's flax params trees and the
-port's state_dicts, for ``CausalLM`` and ``BertMLM``.
+port's state_dicts, for ``CausalLM`` and ``BertMLM``
+(:func:`flax_to_state_dict`) and for the CNN zoo (:func:`cnn_to_state_dict`,
+at the end of the module).
 
 The flax trees (nested dicts of numpy arrays, as an artifact's or a
 checkpoint's params load) and the port's layouts:
@@ -136,3 +138,81 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor],
                         "bias": sd["mlm_ln.bias"]}
     params["mlm_bias"] = sd["mlm_bias"]
     return params
+
+
+# -- the CNN zoo -----------------------------------------------------------
+#
+# flax ``params`` and ``batch_stats`` trees <-> the port's state_dict. Module
+# names are the flax tree's, except the auto-named ``Conv_j``/``BatchNorm_j``
+# inside a block, which are ``conv_j``/``bn_j`` in the port:
+#
+#   Conv kernel (kh, kw, in, out) HWIO    -> <conv>.weight (out, in, kh, kw)
+#   Dense kernel (in, out)                -> <dense>.weight (out, in)
+#   BatchNorm scale, bias                 -> <bn>.weight, <bn>.bias
+#   batch_stats mean, var                 -> <bn>.running_mean, running_var
+#   every bias                            -> <module>.bias
+#
+# BatchNorm modules are those whose port name starts with "bn".
+
+_AUTO = (("Conv_", "conv_"), ("BatchNorm_", "bn_"))
+
+
+def _rename(name: str, to_port: bool) -> str:
+    for flax_pre, port_pre in _AUTO:
+        src, dst = (flax_pre, port_pre) if to_port else (port_pre, flax_pre)
+        if name.startswith(src) and name[len(src):].isdigit():
+            return dst + name[len(src):]
+    return name
+
+
+def _leaves(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def cnn_to_state_dict(params: dict, batch_stats: dict = None
+                      ) -> Dict[str, torch.Tensor]:
+    """Flax CNN ``params`` (and ``batch_stats``) -> the port's state_dict."""
+    sd = {}
+    for path, a in _leaves(params):
+        mod = ".".join(_rename(m, True) for m in path[:-1])
+        leaf = path[-1]
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            sd[mod + ".weight"] = a
+        elif leaf == "scale":
+            sd[mod + ".weight"] = a
+        else:
+            sd[mod + "." + leaf] = a
+    names = {"mean": "running_mean", "var": "running_var"}
+    for path, a in _leaves(batch_stats or {}):
+        mod = ".".join(_rename(m, True) for m in path[:-1])
+        sd[mod + "." + names[path[-1]]] = a
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def state_dict_to_cnn(state_dict: Dict[str, torch.Tensor]):
+    """The port's CNN state_dict -> (flax params, flax batch_stats), numpy
+    leaves (the inverse of :func:`cnn_to_state_dict`)."""
+    params: dict = {}
+    stats: dict = {}
+    names = {"running_mean": "mean", "running_var": "var"}
+    for key, t in state_dict.items():
+        mod, leaf = key.rsplit(".", 1)
+        parts = mod.split(".")
+        a = t.detach().cpu().numpy()
+        tree = stats if leaf in names else params
+        for p in parts:
+            tree = tree.setdefault(_rename(p, False), {})
+        if leaf in names:
+            tree[names[leaf]] = a
+        elif leaf == "weight" and parts[-1].startswith("bn"):
+            tree["scale"] = a
+        elif leaf == "weight":
+            tree["kernel"] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            tree[leaf] = a
+    return params, stats

@@ -102,7 +102,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
+def dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: inputs and parameters cast to ``dtype``."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
@@ -166,12 +166,12 @@ class MultiHeadAttention(nn.Module):
     def _qkv(self, x):
         B, L, _ = x.shape
         H, D = self.cfg.num_heads, self.cfg.d_model // self.cfg.num_heads
-        return tuple(_dense(x, layer, self.cfg.dtype).view(B, L, H, D)
+        return tuple(dense(x, layer, self.cfg.dtype).view(B, L, H, D)
                      for layer in (self.query, self.key, self.value))
 
     def _out(self, o):
         B, L = o.shape[:2]
-        return self.dropout(_dense(o.reshape(B, L, -1), self.out,
+        return self.dropout(dense(o.reshape(B, L, -1), self.out,
                                    self.cfg.dtype))
 
     def forward(self, x, mask=None):
@@ -223,9 +223,9 @@ class EncoderBlock(nn.Module):
 
     def _mlp(self, x):
         dtype = self.cfg.dtype
-        h = F.gelu(_dense(self.ln_mlp(x), self.mlp_in, dtype),
+        h = F.gelu(dense(self.ln_mlp(x), self.mlp_in, dtype),
                    approximate="tanh")
-        return x + self.dropout(_dense(h, self.mlp_out, dtype))
+        return x + self.dropout(dense(h, self.mlp_out, dtype))
 
     def forward(self, x, mask=None):
         x = x + self.attn(self.ln_attn(x).to(self.cfg.dtype), mask)
@@ -325,12 +325,12 @@ class BertMLM(_Model):
     def forward(self, tokens, mask=None):
         cfg = self.config
         x = self.encoder(tokens, mask)
-        x = F.gelu(_dense(x, self.mlm_transform, cfg.dtype),
+        x = F.gelu(dense(x, self.mlm_transform, cfg.dtype),
                    approximate="tanh")
         x = self.mlm_ln(x)
         if cfg.tie_embeddings:
             return self.encoder._tied_logits(x, self.mlm_bias)
-        return _dense(x, self.mlm_out, cfg.dtype).float() + self.mlm_bias
+        return dense(x, self.mlm_out, cfg.dtype).float() + self.mlm_bias
 
 
 class CausalLM(_Model):

@@ -2,16 +2,19 @@
 
 The counterpart of ``pytorch_distributed_nn_tpu/ops/pallas_kernels.py``:
 
-===================  ========================  ==============================
-kernel (count name)  CUDA source               TPU kernel it replaces
-===================  ========================  ==============================
-decode_attention     csrc/decode_attention.cu  ``_decode_attn_kernel``
-layer_norm           csrc/layer_norm.cu        ``_ln_fwd_kernel``
-layer_norm_bwd       csrc/layer_norm.cu        ``_ln_bwd_kernel``
-flash_attention_fwd  csrc/flash_attention.cu   ``_flash_fwd_kernel_res``
-flash_attention_dq   csrc/flash_attention.cu   ``_flash_dq_kernel_res``
-flash_attention_dkv  csrc/flash_attention.cu   ``_flash_dkv_kernel_res``
-===================  ========================  ==============================
+====================  ========================  ==============================
+kernel (count name)   CUDA source               TPU kernel it replaces
+====================  ========================  ==============================
+decode_attention      csrc/decode_attention.cu  ``_decode_attn_kernel``
+layer_norm            csrc/layer_norm.cu        ``_ln_fwd_kernel``
+layer_norm_bwd        csrc/layer_norm.cu        ``_ln_bwd_kernel``
+flash_attention_fwd   csrc/flash_attention.cu   ``_flash_fwd_kernel_res``
+flash_attention_dq    csrc/flash_attention.cu   ``_flash_dq_kernel_res``
+flash_attention_dkv   csrc/flash_attention.cu   ``_flash_dkv_kernel_res``
+quantize_int8_scaled  csrc/int8_quant.cu        ``_quant_scaled_kernel_prng``
+quantize_int8         csrc/int8_quant.cu        ``_quant_kernel_prng``
+dequantize_int8       csrc/int8_quant.cu        ``_dequant_kernel``
+====================  ========================  ==============================
 
 :func:`flash_attention` and :func:`layer_norm` are differentiable
 (``torch.autograd.Function``): their forward and backward launch the
@@ -49,6 +52,9 @@ KERNELS = {
     "flash_attention_fwd": {"lib": "flash_attention", "replaces": 201},
     "flash_attention_dq": {"lib": "flash_attention", "replaces": 544},
     "flash_attention_dkv": {"lib": "flash_attention", "replaces": 556},
+    "quantize_int8_scaled": {"lib": "int8_quant", "replaces": 907},
+    "quantize_int8": {"lib": "int8_quant", "replaces": 822},
+    "dequantize_int8": {"lib": "int8_quant", "replaces": 933},
 }
 for _k in KERNELS.values():
     _k["source"] = f"{_CSRC}/{_k['lib']}.cu"
@@ -67,6 +73,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 
 def reset_launch_counts() -> None:
@@ -97,6 +104,11 @@ _SIGNATURES = {
                           _F, _P],
         "pdtn_flash_dkv": [_I, _I, _I, *[_P] * 9, _I, _I, _I, *[_LL] * 12,
                            _F, _P],
+    },
+    "int8_quant": {
+        "pdtn_quantize_int8_scaled": [_P, _P, _P, _LL, _U, _I, _P],
+        "pdtn_quantize_int8": [_P, _P, _P, _P, _LL, _U, _I, _P],
+        "pdtn_dequantize_int8": [_P, _P, _P, _LL, _I, _P],
     },
 }
 
@@ -457,3 +469,94 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the port's ``pallas_attention``. Differentiable: one forward launch,
     and one dq plus one dk/dv launch in the backward."""
     return _FlashAttention.apply(q, k, v, mask, causal)
+
+
+# -- int8 gradient codec --------------------------------------------------
+
+
+def _int8_operands(x: torch.Tensor, what: str):
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: x must be float32, got {x.dtype}")
+    return x.contiguous()
+
+
+def _scale_tensor(scale, device) -> torch.Tensor:
+    s = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    if s.numel() != 1:
+        raise ValueError(f"scale must hold one value, got shape "
+                         f"{tuple(s.shape)}")
+    return s.reshape(1)
+
+
+def _aligned(*pairs) -> int:
+    """1 when every (tensor, bytes) pair's data starts on that boundary:
+    the kernels then move whole quads with vector loads and stores."""
+    return int(all(t.data_ptr() % b == 0 for t, b in pairs))
+
+
+def quantize_int8_scaled(x: torch.Tensor, scale, seed: int) -> torch.Tensor:
+    """Stochastic int8 rounding with a given scale: ``clip(floor(x / scale
+    + u), -127, 127)``, x f32 of any shape -> int8 of x's shape. ``scale``
+    is a one-value f32 tensor (read on the device, no host sync) or a
+    number; ``u`` comes from Philox4x32-10 keyed by the 32-bit ``seed``
+    (:func:`.reference.philox_uniform`)."""
+    if _on_cpu(x) and not (torch.is_tensor(scale) and scale.is_cuda):
+        return reference.quantize_int8_scaled(x, scale, seed=seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8_scaled: x on {x.device}, scale on "
+                         "the card")
+    x2 = _int8_operands(x, "quantize_int8_scaled")
+    s = _scale_tensor(scale, x.device)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    n = x2.numel()
+    if n == 0:
+        return q
+    lib = _lib("int8_quant")
+    rc = lib.pdtn_quantize_int8_scaled(
+        x2.data_ptr(), s.data_ptr(), q.data_ptr(), n, int(seed) & 0xFFFFFFFF,
+        _aligned((x2, 16), (q, 4)), _stream(x))
+    _check(lib, "quantize_int8_scaled", rc)
+    return q
+
+
+def quantize_int8(x: torch.Tensor, seed: int):
+    """One-pass int8 quantization with its own scale: (q int8 of x's
+    shape, scale 0-d f32) with ``scale = max|x| / 127`` (1 for an all-zero
+    x) and the rounding of :func:`quantize_int8_scaled`."""
+    if _on_cpu(x):
+        return reference.quantize_int8(x, seed=seed)
+    x2 = _int8_operands(x, "quantize_int8")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.ones((), dtype=torch.float32, device=x.device)
+    n = x2.numel()
+    if n == 0:
+        return q, scale
+    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
+    lib = _lib("int8_quant")
+    rc = lib.pdtn_quantize_int8(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), scratch.data_ptr(), n,
+        int(seed) & 0xFFFFFFFF, _aligned((x2, 16), (q, 4)), _stream(x))
+    _check(lib, "quantize_int8", rc)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale) -> torch.Tensor:
+    """``q * scale`` in f32, q int8 of any shape, scale one f32 value."""
+    if _on_cpu(q) and not (torch.is_tensor(scale) and scale.is_cuda):
+        return reference.dequantize_int8(q, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"dequantize_int8: q on {q.device}, scale on the "
+                         "card")
+    if q.dtype != torch.int8:
+        raise TypeError(f"dequantize_int8: q must be int8, got {q.dtype}")
+    q2 = q.contiguous()
+    s = _scale_tensor(scale, q.device)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    n = q2.numel()
+    if n == 0:
+        return out
+    lib = _lib("int8_quant")
+    rc = lib.pdtn_dequantize_int8(q2.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                  n, _aligned((q2, 4), (out, 16)), _stream(q))
+    _check(lib, "dequantize_int8", rc)
+    return out

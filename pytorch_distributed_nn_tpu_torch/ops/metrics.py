@@ -1,4 +1,5 @@
-"""Masked-LM loss and metrics: the port of the MLM part of
+"""Losses and metrics: the port of ``cross_entropy_loss``,
+``topk_accuracy`` and the masked-LM part of
 ``pytorch_distributed_nn_tpu/ops/metrics.py``.
 
 On one replica the JAX package's "global" forms
@@ -42,6 +43,21 @@ def in_top_k(logits: torch.Tensor, labels: torch.Tensor,
     n_above = (logits >= label_logit).sum(dim=-1) - 1
     hit = (n_above < k) & torch.isfinite(label_logit[..., 0])
     return hit.to(torch.float32)
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over integer labels, f32 (optax's
+    ``softmax_cross_entropy_with_integer_labels(...).mean()``)."""
+    return F.cross_entropy(logits.float(), labels.long())
+
+
+@torch.no_grad()
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  topk=(1, 5)):
+    """Fraction of samples whose label is among the k highest logits, for
+    each k (rank counting, the JAX package's tie conventions)."""
+    return tuple(in_top_k(logits, labels, k).mean() for k in topk)
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

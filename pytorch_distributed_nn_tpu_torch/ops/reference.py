@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 #: additive mask value of the JAX kernels (ops/pallas_kernels._NEG_INF)
@@ -153,6 +154,104 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """LayerNorm over the last axis with f32 two-pass statistics, the
     result written in ``out_dtype`` (default: x's dtype)."""
     return layer_norm_fwd(x, gamma, beta, eps, out_dtype)[0]
+
+
+def f32_reciprocal(n: float) -> float:
+    """1/n rounded to f32. XLA compiles a division by a constant into a
+    product with it, and the port computes what XLA computes: the same
+    value on the CPU and the card, where torch would divide by a Python
+    scalar on one and multiply by its reciprocal on the other."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+_MASK32 = 0xFFFFFFFF
+#: the int8 scales' ``amax / 127.0`` is ``amax * RECIP127`` in XLA (about
+#: 5% of amax values round differently from a true division), so the
+#: port multiplies too, on both devices and in the kernel
+RECIP127 = f32_reciprocal(127.0)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo32(a: torch.Tensor, m: int):
+    """(high, low) 32-bit words of ``a * m`` for int64 tensors ``a`` in
+    [0, 2^32) and a 32-bit constant ``m``, with no int64 overflow: ``a``
+    splits into 16-bit halves, whose products with ``m`` stay below 2^48."""
+    t = (a & 0xFFFF) * m
+    u = (a >> 16) * m
+    hi = (u + (t >> 16)) >> 16
+    lo = (((u & 0xFFFF) << 16) + t) & _MASK32
+    return hi, lo
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11) in int64 torch arithmetic:
+    ``counter`` four and ``key`` two tensors (or ints) of 32-bit words,
+    broadcast together; returns the four output words as int64 tensors.
+    The kernels in ``csrc/int8_quant.cu`` compute the same function."""
+    c = [torch.as_tensor(w, dtype=torch.int64) for w in counter]
+    k0, k1 = (torch.as_tensor(w, dtype=torch.int64) for w in key)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo32(c[0], _PHILOX_M[0])
+        hi1, lo1 = _mulhilo32(c[2], _PHILOX_M[1])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return c
+
+
+def philox_uniform(seed: int, n: int, device=None) -> torch.Tensor:
+    """The int8 kernels' noise: u[i] in [0, 1) f32 from word (i & 3) of
+    Philox4x32-10 at counter (i >> 2, i >> 34, 0, 0), key (seed, 0),
+    mapped as ``(bits >> 8) * 2^-24`` (the TPU kernel's mapping)."""
+    quads = -(-n // 4)
+    t = torch.arange(quads, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = philox4x32((t & _MASK32, t >> 32, zero, zero),
+                       (int(seed) & _MASK32, 0))
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=1).reshape(-1)[:n]
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _round_stochastic(x: torch.Tensor, scale: torch.Tensor,
+                      u: torch.Tensor) -> torch.Tensor:
+    q = torch.floor(x.float() / scale + u)
+    return q.clamp(-127, 127).to(torch.int8)
+
+
+def _noise(x: torch.Tensor, seed: Optional[int], u: Optional[torch.Tensor]):
+    if (seed is None) == (u is None):
+        raise ValueError("give the noise either as a seed or as u")
+    if u is None:
+        return philox_uniform(seed, x.numel(), x.device).reshape(x.shape)
+    return u.to(device=x.device, dtype=torch.float32).reshape(x.shape)
+
+
+def quantize_int8_scaled(x: torch.Tensor, scale, seed: Optional[int] = None,
+                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``quantize_int8_scaled``: ``clip(floor(x / scale + u), -127, 127)``
+    as int8, x's shape, scale a given f32 (0-d tensor or number). The noise
+    ``u`` is given, or drawn from ``seed`` as the kernel draws it."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    return _round_stochastic(x, scale, _noise(x, seed, u))
+
+
+def quantize_int8(x: torch.Tensor, seed: Optional[int] = None,
+                  u: Optional[torch.Tensor] = None):
+    """``quantize_int8``: (q int8 of x's shape, scale 0-d f32) with
+    ``scale = max|x| * f32(1/127)`` (1 when x is all zero; XLA's form of
+    the JAX ``amax / 127.0``, see :data:`RECIP127`) and the rounding of
+    :func:`quantize_int8_scaled`."""
+    amax = x.float().abs().amax()
+    scale = torch.where(amax > 0, amax * RECIP127, torch.ones_like(amax))
+    return _round_stochastic(x, scale, _noise(x, seed, u)), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale) -> torch.Tensor:
+    """``dequantize_int8``: ``q * scale`` in f32."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
+    return q.to(torch.float32) * scale
 
 
 def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mu: torch.Tensor,

@@ -1,8 +1,16 @@
-"""The training step of the port, on one device: the counterpart of
-``pytorch_distributed_nn_tpu/training/train_step.py`` for a single
-replica.
+"""The training steps of the port: the counterpart of
+``pytorch_distributed_nn_tpu/training/train_step.py``.
 
-One step is the forward, the masked-mean MLM loss, the backward, the
+:func:`build_image_train_step` is the data-parallel image step (the JAX
+``per_replica`` + ``_finish``): forward in train mode (BatchNorm on batch
+statistics), cross-entropy, backward, the gradient sync over the process
+group, the optimizer update, the BatchNorm running statistics reduced
+across ranks (``mean``: their average; ``rank0``: rank 0's), and the
+metrics averaged across ranks. Each rank holds the whole model and steps
+on its slice of the global batch.
+
+:func:`build_train_step` is the MLM step of the text models, on one
+device: the forward, the masked-mean MLM loss, the backward, the
 optimizer update and the metrics ``loss``/``acc1``/``acc5``. With
 ``grad_accum = K`` the batch splits into K microbatches whose
 unnormalised sums (``ops.metrics.mlm_sums``: the masked cross-entropy
@@ -21,14 +29,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.ops.metrics import (
+    cross_entropy_loss,
     masked_cross_entropy,
     mlm_metrics,
     mlm_sums,
+    topk_accuracy,
 )
+from pytorch_distributed_nn_tpu_torch.ops.reference import f32_reciprocal
 from pytorch_distributed_nn_tpu_torch.optim import ScheduledOptimizer
+from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
+    all_reduce,
+    rank,
+    world_size,
+)
 
 
 @dataclasses.dataclass
@@ -48,7 +65,9 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, build_opt: Callable,
                        device, seed: int = 0) -> TrainState:
     """Move ``model`` to ``device``, build its optimizer with
-    ``build_opt(params)``, and seed a dropout generator on the device."""
+    ``build_opt(params)``, and seed a dropout generator on the device
+    (each rank passes its own ``seed``: the JAX step folds the dropout
+    key with the rank)."""
     device = torch.device(device)
     model = model.to(device)
     model.set_dropout_generator(
@@ -100,6 +119,108 @@ def build_train_step(grad_accum: int = 1):
         return metrics
 
     return step
+
+
+def sync_seed(seed: int, step: int) -> int:
+    """The gradient sync's seed of one step: the same on every rank (the
+    JAX step folds its sync key with the step, not the rank, so every
+    replica draws the same arrival order and quantization noise) and
+    another at every step."""
+    return int(np.random.SeedSequence([int(seed), int(step)])
+               .generate_state(1)[0])
+
+
+def _classification_metrics(logits, labels) -> Dict[str, torch.Tensor]:
+    acc1, acc5 = topk_accuracy(logits, labels, (1, 5))
+    return {"acc1": acc1, "acc5": acc5}
+
+
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor], group):
+    """Every metric averaged over the ranks, in one collective."""
+    if group is None:
+        return metrics
+    keys = sorted(metrics)
+    packed = torch.stack([metrics[k].float() for k in keys])
+    all_reduce(packed, "sum", group)
+    packed.mul_(f32_reciprocal(world_size(group)))
+    return dict(zip(keys, packed.unbind()))
+
+
+def bn_reduce(model: torch.nn.Module, mode: str, group) -> None:
+    """The JAX ``_bn_reduce`` of the BatchNorm running statistics, in
+    place: ``mean`` averages them over the ranks, ``rank0`` gives every
+    rank rank 0's."""
+    if mode not in ("mean", "rank0"):
+        raise ValueError(f"unknown bn_stats_sync {mode!r}")
+    if group is None:
+        return
+    keep = float(rank(group) == 0)
+    recip = f32_reciprocal(world_size(group))  # lax.pmean's product
+    for buf in model.buffers():
+        if mode == "mean":
+            all_reduce(buf, "sum", group)
+            buf.mul_(recip)
+        else:
+            buf.mul_(keep)
+            all_reduce(buf, "sum", group)
+
+
+def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
+                           grad_accum: int = 1):
+    """``step(state, batch, seed) -> metrics``: one data-parallel update of
+    ``state`` in place from this rank's ``batch = (images, labels)``, with
+    the step's sync ``seed`` (:func:`sync_seed`). ``grad_accum = K`` splits
+    the batch into K microbatches whose gradients are summed and divided
+    by K before the one sync (BatchNorm statistics move once per
+    microbatch, as K small steps would move them)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = grad_sync.group
+
+    def step(state: TrainState, batch, seed: int) -> Dict[str, torch.Tensor]:
+        images, labels = batch
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad()
+        n = images.shape[0]
+        if n % grad_accum:
+            raise ValueError(f"per-replica batch {n} not divisible by "
+                             f"grad_accum={grad_accum}")
+        ms = []
+        for im, lb in zip(images.chunk(grad_accum), labels.chunk(grad_accum)):
+            logits = model(im)
+            loss = cross_entropy_loss(logits, lb)
+            loss.backward()
+            ms.append({"loss": loss.detach(),
+                       **_classification_metrics(logits.detach(), lb)})
+        params = [p for p in model.parameters() if p.grad is not None]
+        grads = [p.grad for p in params]
+        if grad_accum > 1:
+            grads = [g / grad_accum for g in grads]
+        for p, g in zip(params, grad_sync(grads, seed)):
+            p.grad = g
+        opt.step()
+        bn_reduce(model, bn_stats_sync, group)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        return _mean_over_ranks(metrics, group)
+
+    return step
+
+
+def build_image_eval_step(group):
+    """``eval_step(state, batch) -> metrics`` of the image models: eval
+    mode (BatchNorm on running statistics), averaged over the ranks."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        images, labels = batch
+        state.model.eval()
+        logits = state.model(images)
+        return _mean_over_ranks(
+            {"loss": cross_entropy_loss(logits, labels),
+             **_classification_metrics(logits, labels)}, group)
+
+    return eval_step
 
 
 def build_eval_step():

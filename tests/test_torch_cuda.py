@@ -18,7 +18,8 @@ LayerNorm backward sum up to L products per output: f32 at 1e-4 plus
 probabilities are rounded to bf16 against the running max of each
 64-key tile, the plain version's against the row's max). The gradients
 of a whole BertTiny and GptTiny on the card, kernels against plain
-versions, f32: 1e-4 of each parameter's plain gradient size.
+versions, f32: 1e-4 of each parameter's plain gradient size. The int8
+kernels against their plain versions: equal bit for bit.
 """
 
 import importlib.util
@@ -304,3 +305,80 @@ def test_cuda_model_gradients_match_the_plain_model(card, network):
     spec.loader.exec_module(chip_smoke)
     for name, (rel, _) in chip_smoke.leaf_grad_errors(*grads).items():
         assert rel <= chip_smoke.GRAD_TOL, name
+
+
+# -- the int8 gradient codec: kernel and plain version equal bit for bit
+# (the same Philox noise, IEEE division, the same floor and clip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 16383, 16384, 131072, 131073,
+                               2359296])
+def test_cuda_quantize_int8_scaled_equals_plain_bitwise(card, n):
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy((rng.randn(n) * 0.05).astype(np.float32)).to(card)
+    scale = x.abs().amax() / 127.0
+    before = kernels.launch_counts()["quantize_int8_scaled"]
+    q = kernels.quantize_int8_scaled(x, scale, 77 + n)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quantize_int8_scaled"] == before + 1
+    assert torch.equal(q, reference.quantize_int8_scaled(x, scale,
+                                                         seed=77 + n))
+    # a view that starts off the 16-byte boundary takes the scalar path
+    assert torch.equal(kernels.quantize_int8_scaled(x[1:], scale, 5),
+                       reference.quantize_int8_scaled(x[1:], scale, seed=5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (8, 125), (257, 510), (4608, 512)])
+def test_cuda_quantize_and_dequantize_int8_equal_plain(card, shape):
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3).to(card)
+    q, s = kernels.quantize_int8(x, 9)
+    qw, sw = reference.quantize_int8(x, seed=9)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qw) and s.item() == sw.item()
+    assert torch.equal(kernels.dequantize_int8(q, s),
+                       reference.dequantize_int8(q, s))
+    z, sz = kernels.quantize_int8(torch.zeros(shape, device=card), 1)
+    assert sz.item() == 1.0 and not z.any()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
+    with pytest.raises(TypeError):
+        kernels.quantize_int8_scaled(torch.zeros(8, device=card,
+                                                 dtype=torch.float64), 1.0, 0)
+    with pytest.raises(TypeError):
+        kernels.dequantize_int8(torch.zeros(8, device=card,
+                                            dtype=torch.int32), 1.0)
+    with pytest.raises(ValueError):
+        kernels.quantize_int8_scaled(torch.zeros(8, device=card),
+                                     torch.ones(2, device=card), 0)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_sync_on_one_nccl_rank_equals_the_plain_quantizer(card):
+    """GradSync int8 over a world-size-1 NCCL group: the kernel on the
+    large leaves, bit for bit the plain quantizer's result."""
+    from pytorch_distributed_nn_tpu_torch.ops import compression
+    from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
+        make_grad_sync,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.mesh import init_group
+
+    group, dev = init_group(card)
+    rng = np.random.RandomState(2)
+    grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+             for s in ((512, 512, 3, 3), (64,), (100, 64))]
+    sync = make_grad_sync(group, compression="int8")
+    before = kernels.launch_counts()["quantize_int8_scaled"]
+    got = sync(grads, 123)
+    assert kernels.launch_counts()["quantize_int8_scaled"] == before + 1
+    want = compression.int8_psum_mean(
+        grads, compression.leaf_seeds(123, 2)[1], group,
+        scaled_quantizer=lambda x, s, seed: reference.quantize_int8_scaled(
+            x, s, seed=seed))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

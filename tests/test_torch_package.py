@@ -64,7 +64,7 @@ def test_kernel_sources_include_no_torch_headers():
     seconds, without PyTorch's headers."""
     sources = sorted((PORT / "ops" / "csrc").glob("*.cu"))
     assert [p.stem for p in sources] == ["decode_attention", "flash_attention",
-                                         "layer_norm"]
+                                         "int8_quant", "layer_norm"]
     for src in sources:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text

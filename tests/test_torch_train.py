@@ -56,6 +56,7 @@ from pytorch_distributed_nn_tpu_torch.training.train_step import (
     create_train_state,
 )
 from pytorch_distributed_nn_tpu_torch.training.trainer import (
+    TEXT_UNSUPPORTED,
     UNSUPPORTED,
     Trainer,
 )
@@ -325,7 +326,7 @@ _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
     ("warm_start", "ckpt"), ("data_path", "shards"), ("kill_ranks", (1,)),
 ])
 def test_unsupported_flags_raise_naming_their_roadmap_item(field, value):
-    assert field in UNSUPPORTED or field == "sync_mode"
+    assert field in UNSUPPORTED or field in TEXT_UNSUPPORTED
     cfg = TrainConfig(**{**_BASE, field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Trainer(cfg, device="cpu")
