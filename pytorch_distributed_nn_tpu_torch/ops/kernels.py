@@ -18,7 +18,9 @@ dequantize_int8       csrc/int8_quant.cu        ``_dequant_kernel``
 
 :func:`flash_attention` and :func:`layer_norm` are differentiable
 (``torch.autograd.Function``): their forward and backward launch the
-kernels on CUDA tensors. ``layer_norm`` outside autograd (serving, eval)
+kernels on CUDA tensors. The three flash kernels run on the tensor cores
+for bf16 operands (``*_tc_kernel``, ``mma.sync``) and on the CUDA cores
+for f32; one count each either way. ``layer_norm`` outside autograd (serving, eval)
 launches the forward alone, without the mu/rs the backward needs.
 
 Dispatch is by the tensors' device: CPU tensors go to the plain version
@@ -368,14 +370,29 @@ def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _flash_operand(t: torch.Tensor) -> torch.Tensor:
+    """An operand as the flash kernels read it: D contiguous and, for the
+    bf16 tensor-core kernels, whose 16-byte ``cp.async`` copies read
+    whole rows, every row starting on a 16-byte boundary (data pointer
+    and batch / sequence / head strides). Anything else is copied into a
+    fresh contiguous tensor."""
+    if t.dtype != torch.bfloat16:
+        return _inner_contiguous(t)
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+            and all(s % 8 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
                         causal: bool = False):
-    """(out (B, L, H, D), lse (B, H, L) f32) of the forward kernel. q, k
-    and v are read in place through their strides (D contiguous)."""
+    """(out (B, L, H, D), lse (B, H, L) f32) of the forward kernel: the
+    tensor-core kernel for bf16, the CUDA-core one for f32. q, k and v are
+    read in place through their strides (see :func:`_flash_operand`)."""
     if _on_cpu(q, k, v, mask):
         return reference.flash_attention_fwd(q, k, v, mask, causal)
-    q, k, v = map(_inner_contiguous, (q, k, v))
+    q, k, v = map(_flash_operand, (q, k, v))
     B, L, H, D, code = _flash_check(q, k, v)
     bias = _pad_bias(mask, B, L, q.device)
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
@@ -392,7 +409,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_operands(q, k, v, mask, lse, delta, dout):
-    q, k, v, dout = map(_inner_contiguous, (q, k, v, dout))
+    q, k, v, dout = map(_flash_operand, (q, k, v, dout))
     B, L, H, D, code = _flash_check(q, k, v, dout)
     for t in (lse, delta):
         if t.shape != (B, H, L) or t.dtype != torch.float32:

@@ -117,11 +117,23 @@ def flash_attention_dq(q, k, v, mask, lse, delta, dout,
     return dq.to(q.dtype)
 
 
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as the bf16 tensor-core kernels carry it into a product:
+    hi + lo with hi = bf16(x) and lo = bf16(x - hi), summed exactly in f32
+    (17 significant bits at most). Relative error <= 2^-17."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
 def flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of ``_flash_dkv_kernel``: dv = p^T @ dO and dk = ds^T @ Q,
-    with p, ds, Q and dO all in f32."""
+    with p, ds, Q and dO all in f32. For bf16 operands p and ds enter the
+    products as the dk/dv kernel splits them (:func:`split_bf16`): the
+    tensor cores multiply bf16 only, and dO and Q are exact in bf16."""
     p, ds = _probs_and_ds(q, k, v, mask, lse, delta, dout, causal)
+    if q.dtype == torch.bfloat16:
+        p, ds = split_bf16(p), split_bf16(ds)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)

@@ -5,6 +5,8 @@ Two kinds of library, both built from the checkout's own sources:
 - the CUDA kernels under ``ops/csrc/*.cu``: ``nvcc`` compiles each source
   into its own shared library with a plain C interface
   (``-O3 -gencode=arch=compute_90a,code=sm_90a``), loaded with ctypes.
+  ``ptxas``'s resource report (registers, stack, spills per kernel) is
+  kept beside each library and read by :func:`ptxas_usage`.
   The sources include only the CUDA runtime headers, never PyTorch's, so
   a build takes seconds rather than the minutes a
   ``torch.utils.cpp_extension`` binding costs. :func:`build_kernels`
@@ -30,6 +32,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,7 +46,7 @@ NATIVE_DIR = os.path.join(REPO_DIR, "native")
 
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 )
 
 _lock = threading.Lock()
@@ -114,12 +117,74 @@ def build_kernels(names: Iterable[str], timeout: float = 600.0) -> None:
                     errors.append(f"{name}: nvcc exit {proc.returncode}\n"
                                   + log.decode(errors="replace"))
                     continue
+                with open(out + ".log", "wb") as f:
+                    f.write(log)
                 os.replace(out + ".tmp", out)
                 _count_event()
             if errors:
                 raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
         finally:
             fcntl.flock(lf, fcntl.LOCK_UN)
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|Li(\d+)E")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled (template) kernel in a namespace, the
+    arguments read as ``float``, ``bf16`` and integers; anything else
+    comes back as it is."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, None
+    while i < len(mangled) and mangled[i].isdigit():  # length-prefixed
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if name is None or not mangled.startswith("I", i):
+        return name or mangled
+    args, i = [], i + 1
+    while (m := _TEMPLATE_ARG.match(mangled, i)):
+        args.append(m.group(1) or ("float" if m.group(0) == "f" else "bf16"))
+        i = m.end()
+    return f"{name}<{','.join(args)}>"
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """kernel -> {registers, stack, spill_stores, spill_loads} from
+    ``ptxas -v`` output (sm_90a entries)."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptxas` of the build of kernel library ``name`` (built
+    first if missing)."""
+    path = _so_path(name)
+    if not os.path.exists(path + ".log"):
+        build_kernels([name])
+    with open(path + ".log", encoding="utf-8", errors="replace") as f:
+        return parse_ptxas(f.read())
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

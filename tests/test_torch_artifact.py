@@ -21,6 +21,8 @@ from pytorch_distributed_nn_tpu_torch.models.convert import (
 )
 from pytorch_distributed_nn_tpu_torch.serving import artifact
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):

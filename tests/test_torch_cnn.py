@@ -31,6 +31,8 @@ from pytorch_distributed_nn_tpu_torch.models.convert import (
 )
 from pytorch_distributed_nn_tpu_torch.models.layers import BatchNorm, Conv
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 LOGITS_TOL = 1e-4
 STATS_TOL = 1e-5
 

@@ -16,7 +16,10 @@ after 2 layers and a few decode steps). The flash backward and the
 LayerNorm backward sum up to L products per output: f32 at 1e-4 plus
 1e-4 relative; bf16 flash at 3e-2 plus 3e-2 relative (the forward's
 probabilities are rounded to bf16 against the running max of each
-64-key tile, the plain version's against the row's max). The gradients
+64-key tile, the plain version's against the row's max), the bf16 dq and
+dk/dv at 2e-3 plus 2^-7 relative (chip_smoke.py's FLASH_BWD_TOL_BF16:
+one bf16 step apart at most, and dq's ds may round to either side of a
+bf16 boundary on the two sides). The gradients
 of a whole BertTiny and GptTiny on the card, kernels against plain
 versions, f32: 1e-4 of each parameter's plain gradient size. The int8
 kernels against their plain versions: equal bit for bit.
@@ -30,6 +33,8 @@ import pytest
 import torch
 
 from pytorch_distributed_nn_tpu_torch.ops import kernels, reference
+
+import torch_cpu  # noqa: F401  (one intra-op thread)
 
 H, D = 4, 32  # GptMini's heads
 
@@ -150,6 +155,7 @@ def test_cuda_engine_matches_the_cpu_engine(card, tmp_path):
 
 
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2**-7)}
 
 
 def _excess(got, want, atol, rtol):
@@ -157,10 +163,17 @@ def _excess(got, want, atol, rtol):
     return ((got - want).abs() - atol - rtol * want.abs()).max().item()
 
 
-def _flash_inputs(B, L, H, Dh, device, dtype, seed, pad):
+def _flash_inputs(B, L, H, Dh, device, dtype, seed, pad,
+                  dout_layout="contiguous"):
+    """q, k, v, dO and the pad mask. ``dout_layout`` "heads_major" gives
+    dO as a (B, H, L, D) tensor seen as (B, L, H, D), as autograd may hand
+    it over: not contiguous, rows still 16-byte aligned, read in place."""
     rng = np.random.RandomState(seed)
     q, k, v, do = (torch.from_numpy(rng.randn(B, L, H, Dh).astype(np.float32))
                    .to(device, dtype) for _ in range(4))
+    if dout_layout == "heads_major":
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not do.is_contiguous()
     mask = None
     if pad:
         m = np.ones((B, L), np.int32)
@@ -172,12 +185,18 @@ def _flash_inputs(B, L, H, Dh, device, dtype, seed, pad):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("L,Dh,pad", [(64, 64, 0), (100, 32, 7),
-                                      (128, 16, 0), (77, 64, 5)])
-def test_cuda_flash_attention_matches_plain(card, dtype, causal, L, Dh, pad):
+@pytest.mark.parametrize("L,Dh,pad,dout_layout", [
+    (64, 64, 0, "contiguous"), (100, 32, 7, "contiguous"),
+    (128, 16, 0, "contiguous"), (77, 64, 5, "contiguous"),
+    (512, 64, 0, "contiguous"), (200, 16, 9, "heads_major"),
+    (512, 64, 0, "heads_major")])
+def test_cuda_flash_attention_matches_plain(card, dtype, causal, L, Dh, pad,
+                                            dout_layout):
     """Forward (out, lse), dq and dk/dv kernels against their plain
-    versions, ragged L and pad masks included."""
-    q, k, v, do, mask = _flash_inputs(2, L, 3, Dh, card, dtype, L + Dh, pad)
+    versions, ragged L, pad masks, BertBase's L 512 / D 64 and a dO that
+    is not contiguous included; a second launch gives the same bits."""
+    q, k, v, do, mask = _flash_inputs(2, L, 3, Dh, card, dtype, L + Dh, pad,
+                                      dout_layout)
     atol, rtol = FLASH_TOL[dtype]
     before = kernels.launch_counts()
     out, lse = kernels.flash_attention_fwd(q, k, v, mask, causal)
@@ -197,11 +216,18 @@ def test_cuda_flash_attention_matches_plain(card, dtype, causal, L, Dh, pad):
                                                      delta, do, causal)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert got.dtype == dtype and got.shape == q.shape
-        assert _excess(got, want, atol, rtol) <= 0
+        assert _excess(got, want, *FLASH_BWD_TOL[dtype]) <= 0
     after = kernels.launch_counts()
     for name in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv"):
         assert after[name] == before[name] + 1
+    again = (kernels.flash_attention_fwd(q, k, v, mask, causal)[0],
+             kernels.flash_attention_dq(q, k, v, mask, want_lse, delta, do,
+                                        causal),
+             *kernels.flash_attention_dkv(q, k, v, mask, want_lse, delta, do,
+                                          causal))
+    for a, b in zip((out, dq, dk, dv), again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -216,6 +242,44 @@ def test_cuda_flash_attention_autograd_matches_plain(card):
         grads.append([out.detach()] + [t.grad for t in leaves])
     for got, want in zip(*grads):
         assert _excess(got, want, 1e-4, 1e-4) <= 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_copies_misaligned_bf16_operands(card):
+    """The bf16 kernels copy 16-byte rows with cp.async: a view whose data
+    starts off a 16-byte boundary, or whose head stride is not a multiple
+    of 8 elements, is copied by the wrapper (the same bits as the aligned
+    operand give), and the C entry point refuses it outright."""
+    q, k, v, do, _ = _flash_inputs(2, 64, 2, 32, card, torch.bfloat16, 5, 0)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    q_off = shifted[1:].view(q.shape)
+    q_off.copy_(q)
+    wide = torch.zeros((2, 64, 2, 36), dtype=q.dtype, device=card)
+    do_odd = wide[..., :32]
+    do_odd.copy_(do)
+    assert q_off.data_ptr() % 16 != 0 and do_odd.stride(2) % 8 != 0
+    assert kernels._flash_operand(q) is q
+    assert kernels._flash_operand(q_off).data_ptr() % 16 == 0
+    assert kernels._flash_operand(do_odd).is_contiguous()
+    out, lse = kernels.flash_attention_fwd(q, k, v)
+    out2, lse2 = kernels.flash_attention_fwd(q_off, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    delta = reference.flash_attention_delta(out, do)
+    args = (k, v, None, lse, delta)
+    assert torch.equal(kernels.flash_attention_dq(q, *args, do),
+                       kernels.flash_attention_dq(q_off, *args, do_odd))
+    for a, b in zip(kernels.flash_attention_dkv(q, *args, do),
+                    kernels.flash_attention_dkv(q_off, *args, do_odd)):
+        assert torch.equal(a, b)
+    lib = kernels._lib("flash_attention")
+    B, L, H, Dh = q.shape
+    rc = lib.pdtn_flash_fwd(
+        1, Dh, 0, q_off.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+        out.data_ptr(), lse.data_ptr(), B, H, L,
+        *kernels._strides(q_off, k, v), 1.0 / Dh ** 0.5,
+        kernels._stream(q))
+    assert rc != 0 and "misaligned" in \
+        lib.pdtn_cuda_error_string(rc).decode().lower()
 
 
 @pytest.mark.cuda

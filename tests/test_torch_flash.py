@@ -28,6 +28,8 @@ from pytorch_distributed_nn_tpu.ops.pallas_kernels import (
 )
 from pytorch_distributed_nn_tpu_torch.ops import kernels, reference
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 B, H = 2, 2
 
 
@@ -135,3 +137,91 @@ def test_flash_wrappers_count_no_launch_on_the_cpu():
     kernels.flash_attention(*leaves, _tmask(mask)).backward(
         torch.from_numpy(do))
     assert not any(kernels.launch_counts().values())
+
+
+def _bf16_backward_inputs(L, D, causal, pad, seed):
+    """bf16 q/k/v/dO and the Pallas forward's (out, lse) on them, as numpy
+    arrays and as the port's tensors."""
+    q, k, v, do, mask = _inputs(L, D, seed=seed, pad=pad)
+    jq, jk, jv, jdo = (jnp.asarray(t).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+    out, lse = _flash_forward(jq, jk, jv, _jmask(mask), causal, L, L)
+    tq, tk, tv, tdo, tout = (
+        torch.from_numpy(np.array(t.astype(jnp.float32))).to(torch.bfloat16)
+        for t in (jq, jk, jv, jdo, out))
+    tlse = torch.from_numpy(np.array(lse).reshape(B, H, L))
+    return (jq, jk, jv, jdo, out, lse), (tq, tk, tv, tdo, tout, tlse), mask
+
+
+@pytest.mark.parametrize("causal,pad,D", [(False, 0, 64), (True, 0, 32),
+                                          (False, 9, 16)])
+def test_flash_bfloat16_split_backward_matches_pallas_backward(causal, pad,
+                                                               D):
+    """bf16 operands: the plain dq and dk/dv (p and ds carried into dk/dv's
+    products as hi + lo, two bf16 terms, as the tensor-core kernel does)
+    against ``_flash_backward`` (f32 p and ds) on the same (out, lse, dO).
+    Every gradient is rounded to bf16 on both sides, so they may sit one
+    bf16 step apart: |got - want| <= 2^-7 |want| + 1e-4. The f32 values
+    before rounding differ by reduction order and by the split's 2^-17 of
+    each term; near-zero gradients are sums of O(1) terms that cancel, so
+    there those differences show as absolute error (2e-6 at most here)."""
+    L = 64
+    (jq, jk, jv, jdo, out, lse), (tq, tk, tv, tdo, tout, tlse), mask = \
+        _bf16_backward_inputs(L, D, causal, pad, seed=21 + D)
+    want = _flash_backward(jq, jk, jv, _jmask(mask), out, lse, jdo, causal,
+                           L, L)
+    got = reference.flash_attention_bwd(tq, tk, tv, _tmask(mask), tout, tlse,
+                                        tdo, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.all(np.abs(g - w) <= 2.0 ** -7 * np.abs(w) + 1e-4)
+
+
+def test_flash_bfloat16_split_keeps_p_and_ds_to_16_bits():
+    """The hi + lo split of p and ds (``reference.split_bf16``) before
+    dk/dv's products: each element within 2^-17 of the f32 value, and the
+    products p^T dO and ds^T Q within 2^-16 of the unsplit f32 products,
+    relative to sum |x| |y| (computed in f64, so only the split's error
+    shows). One bf16 rounding alone (the FlashAttention choice) would be
+    off by up to 2^-8 per element."""
+    L, D = 64, 32
+    _, (tq, tk, tv, tdo, tout, tlse), mask = _bf16_backward_inputs(
+        L, D, causal=True, pad=0, seed=4)
+    delta = reference.flash_attention_delta(tout, tdo)
+    p, ds = reference._probs_and_ds(tq, tk, tv, None, tlse, delta, tdo, True)
+    for x, y in ((p, tdo), (ds, tq)):
+        split = reference.split_bf16(x)
+        nz = x != 0
+        rel = ((split - x).abs()[nz] / x.abs()[nz]).max().item()
+        assert rel <= 2.0 ** -17
+        one = ((x.to(torch.bfloat16).float() - x).abs()[nz]
+               / x.abs()[nz]).max().item()
+        assert 2.0 ** -12 < one <= 2.0 ** -8
+        y64 = y.double()
+        exact = torch.einsum("bhqk,bqhd->bkhd", x.double(), y64)
+        got = torch.einsum("bhqk,bqhd->bkhd", split.double(), y64)
+        size = torch.einsum("bhqk,bqhd->bkhd", x.double().abs(), y64.abs())
+        assert ((got - exact).abs() <= 2.0 ** -16 * size).all()
+
+
+def test_flash_operands_are_copied_unless_rows_are_16_byte_aligned():
+    """What the flash wrappers hand the kernels (``_flash_operand``): a
+    bf16 operand whose rows all start on a 16-byte boundary goes in place,
+    a view off that boundary or with a head stride that is not a multiple
+    of 8 elements is copied to a fresh contiguous tensor; f32 (the
+    CUDA-core kernels) needs only D contiguous."""
+    x = torch.zeros((2, 8, 3, 32), dtype=torch.bfloat16)
+    assert kernels._flash_operand(x) is x
+    heads_major = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert kernels._flash_operand(heads_major) is heads_major
+    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    off = buf[1:].view(x.shape)
+    odd = torch.zeros((2, 8, 3, 36), dtype=torch.bfloat16)[..., :32]
+    for t in (off, odd):
+        c = kernels._flash_operand(t)
+        assert c.data_ptr() != t.data_ptr() and c.is_contiguous()
+        assert c.data_ptr() % 16 == 0 and torch.equal(c, t)
+    f32 = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    assert kernels._flash_operand(f32) is f32

@@ -38,6 +38,8 @@ from pytorch_distributed_nn_tpu_torch.serving.generate.engine import (
     StaleBatchEpoch,
 )
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 BUCKETS = dict(batch_buckets=(1, 2, 4), seq_buckets=(16, 32), pool_slots=6)
 
 

@@ -22,6 +22,8 @@ from pytorch_distributed_nn_tpu_torch.models.transformer import full_attention
 from pytorch_distributed_nn_tpu_torch.ops import reference
 from pytorch_distributed_nn_tpu_torch.ops.metrics import masked_cross_entropy
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_SPEC)

@@ -25,6 +25,7 @@ from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
     make_grad_sync,
 )
 from torch_ranks import run_ranks
+import torch_cpu  # noqa: F401  (one intra-op thread)
 
 SHAPES = ((16384 + 5,), (12, 3))
 

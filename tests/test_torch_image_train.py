@@ -65,6 +65,7 @@ from pytorch_distributed_nn_tpu_torch.training.trainer import (
     Trainer,
 )
 from torch_ranks import run_ranks
+import torch_cpu  # one intra-op thread here and in subprocesses
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
@@ -268,7 +269,8 @@ def test_cli_trains_lenet_with_int8_sync_on_the_cpu(tmp_path):
          "--synthetic-size", "256", "--compress-grad", "int8",
          "--max-steps", "2", "--batch-size", "64", "--test-batch-size",
          "128", "--metrics-path", str(metrics_path)],
-        capture_output=True, text=True, timeout=300, cwd=str(REPO))
+        capture_output=True, text=True, timeout=300, cwd=str(REPO),
+        env=torch_cpu.SUBPROCESS_ENV)
     assert proc.returncode == 0, proc.stderr
     records = [json.loads(line) for line in
                metrics_path.read_text().splitlines() if line]

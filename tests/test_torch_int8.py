@@ -28,6 +28,8 @@ from pytorch_distributed_nn_tpu.ops.pallas_kernels import (
 )
 from pytorch_distributed_nn_tpu_torch.ops import compression, kernels, reference
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 _M = (0xD2511F53, 0xCD9E8D57)
 _W = (0x9E3779B9, 0xBB67AE85)
 

@@ -25,6 +25,8 @@ from pytorch_distributed_nn_tpu.ops.pallas_kernels import (
 )
 from pytorch_distributed_nn_tpu_torch.ops import kernels, reference
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 H, D = 4, 32  # GptMini's heads
 
 

@@ -25,6 +25,8 @@ from pytorch_distributed_nn_tpu_torch.models.convert import (
     state_dict_to_flax,
 )
 
+import torch_cpu  # noqa: F401  (one intra-op thread)
+
 
 @pytest.fixture(scope="module")
 def jax_model():

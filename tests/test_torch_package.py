@@ -15,6 +15,8 @@ import urllib.request
 import pytest
 import torch
 
+import torch_cpu  # one intra-op thread here and in subprocesses
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "pytorch_distributed_nn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytorch_distributed_nn_tpu")
@@ -117,7 +119,8 @@ def test_cli_serve_run_on_the_cpu(tmp_path):
         [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch", "serve",
          "run", "--artifact", art, "--device", "cpu", "--port", "0",
          "--port-file", str(port_file), "--batch-buckets", "1,2"],
-        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        cwd=REPO, env=torch_cpu.SUBPROCESS_ENV, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE,
     )
     try:
         deadline = time.monotonic() + 60
@@ -138,3 +141,36 @@ def test_cli_serve_run_on_the_cpu(tmp_path):
         proc.terminate()
         proc.wait(timeout=30)
     assert os.path.exists(os.path.join(art, "serve", "serving.jsonl"))
+
+
+def test_ptxas_report_is_read_per_kernel():
+    """``native_build.parse_ptxas`` reads nvcc's ``--ptxas-options=-v``
+    report into registers, stack and spills per kernel, the template
+    arguments demangled (``chip_smoke.py`` fails on a spilling tensor-core
+    flash kernel)."""
+    from pytorch_distributed_nn_tpu_torch.utils.native_build import (
+        parse_ptxas,
+    )
+
+    fwd = ("_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvPK13__nv_bfloat16"
+           "S3_S3_PKfPS1_PfiiNS_7StridesES8_S8_if")
+    dkv = ("_ZN12_GLOBAL__N_116flash_dkv_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS6_"
+           "S6_PS1_S7_iiNS_7StridesES8_S8_S8_if")
+    text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 160 registers, used 1 barriers, 508 bytes "
+        "cmem[0]",
+        f"ptxas info    : Compiling entry function '{dkv}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {dkv}",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, 520 bytes cmem[0]",
+    ])
+    assert parse_ptxas(text) == {
+        "flash_fwd_tc_kernel<64>": {"registers": 160, "stack": 0,
+                                    "spill_stores": 0, "spill_loads": 0},
+        "flash_dkv_kernel<float,32>": {"registers": 128, "stack": 8,
+                                       "spill_stores": 8, "spill_loads": 4},
+    }

@@ -61,6 +61,8 @@ from pytorch_distributed_nn_tpu_torch.training.trainer import (
     Trainer,
 )
 
+import torch_cpu  # one intra-op thread here and in subprocesses
+
 #: BertTiny cut to test size, f32, no dropout
 BERT_KW = dict(vocab_size=64, max_len=32, d_model=64, num_heads=4,
                num_layers=2, d_ff=128)
@@ -303,7 +305,8 @@ def test_cli_train_on_the_cpu(tmp_path):
          "--seq-len", "32", "--max-steps", "2", "--eval-batches", "1",
          "--test-batch-size", "4", "--metrics-path", str(metrics_path)],
         capture_output=True, text=True, timeout=300,
-        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]),
+        env=torch_cpu.SUBPROCESS_ENV)
     assert proc.returncode == 0, proc.stderr
     records = [json.loads(line) for line in metrics_path.read_text().split(
         "\n") if line]
