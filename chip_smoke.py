@@ -11,8 +11,10 @@ Phases, each printed on its own line:
    versions;
 2. build every hand-written kernel from ``pytorch_distributed_nn_tpu_torch/
    ops/csrc/`` (one ``nvcc`` per source, in parallel), timed; print
-   ``ptxas -v``'s registers, stack and spills of the flash kernels, and
-   fail if a bf16 tensor-core flash kernel spills;
+   ``ptxas -v``'s registers, stack and spills of the flash kernels, the
+   vectorised LayerNorm backward and the grouped quantize, and fail if a
+   bf16 tensor-core flash kernel, a vectorised LayerNorm backward or the
+   grouped quantize spills;
 3. hold each kernel against its plain PyTorch version on the card, with
    TF32 off for the f32 comparisons: decode attention over every (batch
    bucket, cache bucket) pair of GptMini and LayerNorm at (N, 128), as
@@ -23,11 +25,17 @@ Phases, each printed on its own line:
    and 64; each flash kernel launched twice per case, bit for bit equal;
    the bf16 dq and dk/dv held to a tighter tolerance than the forward;
    LayerNorm forward (y, mu, rs) and backward at
-   (16*512, 768) and (1000, 128), f32 and bf16-in/f32-out; the int8 codec
-   (quantize_int8_scaled at n from 1 to 2,359,296, quantize_int8 and
-   dequantize_int8 at 2-D shapes) bit for bit, then the largest leaf's
-   mean rounding error within 4 standard errors of 0 and another seed
-   giving another q. Fails past the stated tolerance;
+   (16*512, 768) and (1000, 128), f32 and bf16-in/f32-out, and the
+   backward with bf16 dy, at a width of the general kernel (200) and on a
+   misaligned copy (the general kernel), each backward launched twice and
+   equal bit for bit, one count per call, on the kernel the wrapper says;
+   the int8 codec (quantize_int8_scaled at n from 1 to 2,359,296; the
+   grouped quantize over ResNet-18's 18 kernel-sized leaves in one launch,
+   over 70 leaves in two, with a misaligned leaf, and an empty group in
+   none; quantize_int8 and dequantize_int8 at 2-D shapes) bit for bit,
+   then the largest leaf's mean rounding error within 4 standard errors
+   of 0 and another seed giving another q. Fails past the stated
+   tolerance;
 4. serving: write a random-init GptMini artifact, serve it with the
    port's server on an ephemeral port, answer a burst of concurrent
    ``POST /v1/generate`` requests; check the responses, that the serving
@@ -56,11 +64,11 @@ Phases, each printed on its own line:
    bf16, SGD lr 0.05 momentum 0.9 decayed 10x every 20 steps,
    ``--compress-grad int8`` over a world-size-1 NCCL group, the data on
    the card, 60 steps and an eval pass: losses finite and falling, eval
-   loss lower after
-   than before, exactly one quantize_int8_scaled launch per gradient
-   leaf of 16384 elements or more per step and no other kernel; then one
-   step's gradients synced through the kernel and through the plain
-   quantizer, bit for bit equal leaf by leaf;
+   loss lower after than before, exactly one quantize_int8_scaled launch
+   per step (one grouped launch over the 18 gradient leaves of 16384
+   elements or more) and no other kernel; then one step's gradients
+   synced through the kernel and through the plain grouped quantizer, bit
+   for bit equal leaf by leaf;
 6. timings: each kernel, its plain version and the nearest single
    PyTorch call by CUDA-graph replay (the serving kernels at GptMini's
    decode shapes as before; the training kernels at BertBase's training
@@ -68,11 +76,16 @@ Phases, each printed on its own line:
    beside the least time the card could take; the
    serving decode step, tokens/s and TTFT; the BertBase training step
    and tokens/s with ``--attn-impl pallas`` and, as a second line,
-   ``--attn-impl full``; the int8 kernels (quantize_int8_scaled over one
-   ResNet-18 step's leaves and per leaf size; the other two at the
-   largest leaf) and the ResNet-18 step with int8 sync and without.
+   ``--attn-impl full``; the LayerNorm backward at BertBase's shape also
+   on its general kernel (a misaligned copy); the int8 kernels
+   (quantize_int8_scaled over one ResNet-18 step's leaves in one grouped
+   launch, and grouped per leaf size; the other two at the largest leaf)
+   and the ResNet-18 step with int8 sync and without.
    ``--out`` adds a per-shape sweep, a profile of decode steps and
-   ``torch.profiler`` breakdowns of 5 BertBase and 5 ResNet-18 steps;
+   ``torch.profiler`` breakdowns of 5 BertBase and 5 ResNet-18 steps,
+   with the device time per launch of each of the port's CUDA kernels
+   (a wrapper's kernels apart: the LayerNorm backward's rows and its
+   partial-row sum);
 7. one JSON line listing the kernels (launches on the driven paths, error
    against the plain version, times, least possible time), then the
    result line ``{"ok": true, "device": {...}}``.
@@ -89,6 +102,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -151,6 +165,8 @@ TRAIN_STEPS = 10
 INT8_SIZES = (1, 1000, 16383, 16384, 131072, 131073, 2359296)
 INT8_SHAPES = ((1, 1), (8, 125), (127, 129), (128, 128), (257, 510),
                (4608, 512))
+#: a group of more leaves than one grouped launch takes (64): two launches
+INT8_GROUP_CHUNKED = tuple(1 + 997 * i for i in range(70))
 #: ResNet-18 on the synthetic CIFAR-10: 60 steps of SGD at lr 0.05,
 #: momentum 0.9, the lr decayed 10x every 20 steps. The repo's recipe
 #: (lr 0.4 at B 1024) diverges on this set within a few steps, with or
@@ -477,18 +493,61 @@ def check_training_kernels(kernels, reference, gen):
                 cases.append(("layer_norm", f"{what} {name}", err))
                 if not over <= 0:
                     fail(f"layer_norm {what} {name}: max abs err {err}")
-            got = kernels.layer_norm_bwd(x, g, w[1], w[2], dy)
-            torch.cuda.synchronize()
-            want = reference.layer_norm_bwd(x, g, w[1], w[2], dy)
-            dx_tol = LN_BWD_TOL if in_dt == torch.float32 else (2e-2, 1e-2)
-            record("layer_norm_bwd", what + " dx",
-                   excess(got[0], want[0], *dx_tol), dx_tol)
-            for a, ww, name in zip(got[1:], want[1:], ("dgamma", "dbeta")):
-                record("layer_norm_bwd", f"{what} {name}",
-                       excess(a, ww, *LN_BWD_TOL), LN_BWD_TOL)
+            check_ln_bwd(kernels, reference, record, x, g, w[1], w[2], dy,
+                         what)
+    # bf16 dy; a width the vectorised kernel is not built for; a copy of
+    # x one element off a 16-byte boundary (both the general kernel)
+    for N, D, dy_dt, shift in ((16 * 512, 768, torch.bfloat16, 0),
+                               (1000, 200, torch.float32, 0),
+                               (16 * 512, 768, torch.float32, 1),
+                               (37, 128, torch.bfloat16, 1)):
+        x = (torch.randn((N, D), generator=gen) * 3 + 1).to("cuda",
+                                                             torch.bfloat16)
+        if shift:
+            flat = torch.empty(N * D + shift, dtype=x.dtype, device="cuda")
+            x = flat[shift:].view(N, D).copy_(x)
+        g = (1 + 0.1 * torch.randn((D,), generator=gen)).cuda()
+        dy = torch.randn((N, D), generator=gen).to("cuda", dy_dt)
+        _, mu, rs = reference.layer_norm_fwd(x, g, torch.zeros_like(g))
+        check_ln_bwd(kernels, reference, record, x, g, mu, rs, dy,
+                     f"({N},{D}) x bfloat16 offset {shift}, dy {dy_dt}")
     errs["layer_norm_train"] = ln_fwd_err
     errs["bf16_bwd_atol_needed"] = bwd_atol_needed
     return cases, errs
+
+
+def check_ln_bwd(kernels, reference, record, x, g, mu, rs, dy, what):
+    """The LayerNorm backward on (x, dy) against its plain version: dx at
+    LN_BWD_TOL (bf16 dx at (2e-2, 1e-2)), dgamma and dbeta at LN_BWD_TOL;
+    two launches equal bit for bit, one count per call, and the kernel
+    the wrapper picks (vectorised for the widths it is built for on
+    aligned rows, else general) named in the case."""
+    import torch
+
+    probe = torch.empty(x.shape, dtype=x.dtype, device="cuda")
+    vec = kernels.layer_norm_bwd_vectorised(x, dy, probe)
+    if vec != (x.shape[-1] in kernels.LN_BWD_WIDTHS
+               and x.data_ptr() % 16 == 0):
+        fail(f"layer_norm_bwd {what}: dispatch says vectorised={vec}")
+    what += " vectorised" if vec else " general"
+    before = kernels.launch_counts()["layer_norm_bwd"]
+    got = kernels.layer_norm_bwd(x, g, mu, rs, dy)
+    again = kernels.layer_norm_bwd(x, g, mu, rs, dy)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["layer_norm_bwd"] != before + 2:
+        fail(f"layer_norm_bwd {what}: two calls counted "
+             f"{kernels.launch_counts()['layer_norm_bwd'] - before}")
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, again):
+        if not torch.equal(a, b):
+            fail(f"layer_norm_bwd {what} {name}: two launches differ in "
+                 f"{int((a != b).sum())} elements")
+    want = reference.layer_norm_bwd(x, g, mu, rs, dy)
+    dx_tol = LN_BWD_TOL if x.dtype == torch.float32 else (2e-2, 1e-2)
+    record("layer_norm_bwd", what + " dx",
+           excess(got[0], want[0], *dx_tol), dx_tol)
+    for a, ww, name in zip(got[1:], want[1:], ("dgamma", "dbeta")):
+        record("layer_norm_bwd", f"{what} {name}",
+               excess(a, ww, *LN_BWD_TOL), LN_BWD_TOL)
 
 
 def train_config(network, steps, attn_impl="pallas", **kw):
@@ -697,6 +756,20 @@ def train_step_ms(network, attn_impl, steps, seed):
     return ms[len(ms) // 2]
 
 
+def port_kernel_names():
+    """The names of the port's CUDA kernels, read from its sources (each
+    ``__global__`` function in ops/csrc/*.cu)."""
+    from pytorch_distributed_nn_tpu_torch.ops import kernels
+
+    fn = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(")
+    repo, names = os.path.dirname(os.path.abspath(__file__)), set()
+    for src in {k["source"] for k in kernels.KERNELS.values()}:
+        with open(os.path.join(repo, src), encoding="utf-8") as f:
+            names.update(fn.findall(f.read()))
+    return names
+
+
 def profile_train(trainer, steps: int = 5):
     """torch.profiler over ``steps`` training steps: wall time, device
     time by kernel, device busy share."""
@@ -727,9 +800,14 @@ def profile_train(trainer, steps: int = 5):
                          "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     device_ms = sum(r["device_ms"] for r in rows)
+    # the port's own kernels: every CUDA kernel a wrapper launches, e.g.
+    # the LayerNorm backward's rows and its partial-row sum
+    ours = port_kernel_names()
+    port = [r for r in rows if re.split(r"[<(]", r["name"].split(
+        "::", 1)[-1], maxsplit=1)[0] in ours]
     return {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
-            "top": rows[:20]}
+            "top": rows[:20], "port_kernels": port}
 
 
 def time_training_kernels(kernels, reference, F, gen, launches, errs):
@@ -824,6 +902,9 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
     dy = torch.randn((N, Dm), generator=gen).cuda()
     _, mu, rs = kernels.layer_norm_fwd(x, g, b, 1e-6, torch.float32)
     xf = x.float()
+    # the same x one element off a 16-byte boundary: the general kernel
+    x_off = torch.empty(N * Dm + 1, dtype=dt, device="cuda")[1:].view(N, Dm)
+    x_off.copy_(x)
     bms, by = bound_ms(*ln_bwd_cost(N, Dm, 2, 4))
     entries.append({
         "name": "layer_norm_bwd", "route": "cuda",
@@ -838,6 +919,8 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
         "library_ms": time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
             dy, xf, [Dm], mu[:, None], rs[:, None], g, b,
             [True, True, True])[0], n),
+        "general_ms": time_ms(
+            lambda: kernels.layer_norm_bwd(x_off, g, mu, rs, dy)[0], n),
         "shape": f"N={N} D={Dm} x bfloat16, dy float32 (library call: x "
                  "float32)",
     })
@@ -855,14 +938,59 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
     return entries, train_ln
 
 
-def check_int8_kernels(kernels, reference, gen):
-    """Phase 3, the int8 codec: each kernel against its plain version on
-    the same card tensors and seeds, bit for bit; then two statistical
-    checks on the largest leaf. Returns (cases, max abs err per kernel,
-    the statistics)."""
+def check_quant_group(kernels, reference, xs, seeds, what):
+    """One grouped quantize against the plain group, bit for bit, with
+    ceil(k / 64) launches for the k non-empty leaves."""
     import torch
 
-    cases = []
+    scales = torch.stack([x.abs().amax() / 127.0 if x.numel() else
+                          torch.ones((), device="cuda") for x in xs]) \
+        if xs else torch.empty(0, device="cuda")
+    live = sum(x.numel() > 0 for x in xs)
+    before = kernels.launch_counts()["quantize_int8_scaled"]
+    got = kernels.quantize_int8_scaled_group(xs, scales, seeds)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()["quantize_int8_scaled"] - before
+    if launched != -(-live // kernels.QUANT_GROUP_LEAVES):
+        fail(f"grouped quantize {what}: {launched} launches for {live} "
+             "leaves")
+    want = reference.quantize_int8_scaled_group(xs, scales, seeds)
+    if len(got) != len(xs):
+        fail(f"grouped quantize {what}: {len(got)} outputs")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            fail(f"grouped quantize {what}: leaf {i} ({a.numel()} elements) "
+                 f"differs in {int((a != b).sum())}")
+    return ("quantize_int8_scaled", f"group {what}: {len(xs)} leaves, "
+            f"{launched} launches", 0.0)
+
+
+def check_int8_kernels(kernels, reference, gen, leaf_sizes):
+    """Phase 3, the int8 codec: each kernel against its plain version on
+    the same card tensors and seeds, bit for bit (the grouped quantize
+    over ``leaf_sizes``, ResNet-18's kernel-sized leaves, and over the
+    other groups the docstring lists); then two statistical checks on the
+    largest leaf. Returns (cases, max abs err per kernel, the
+    statistics)."""
+    import torch
+
+    def leaves(sizes):
+        return [(torch.randn(m, generator=gen) * 0.05).cuda() for m in sizes]
+
+    cases = [
+        check_quant_group(kernels, reference, leaves(leaf_sizes),
+                          list(range(100, 100 + len(leaf_sizes))),
+                          "ResNet-18's leaves"),
+        check_quant_group(kernels, reference, leaves(INT8_GROUP_CHUNKED),
+                          list(range(len(INT8_GROUP_CHUNKED))), "chunked"),
+        check_quant_group(kernels, reference, [], [], "empty"),
+    ]
+    # a leaf one element off its 16-byte boundary, an empty leaf, a leaf
+    # of 3 among aligned ones
+    xs = leaves((2359296 + 1, 36865, 0, 3, 16384))
+    xs[0] = xs[0][1:]
+    cases.append(check_quant_group(kernels, reference, xs, [5, 6, 7, 8, 9],
+                                   "misaligned leaf"))
     for n in INT8_SIZES:
         x = (torch.randn(n, generator=gen) * 0.05).cuda()
         scale = x.abs().amax() / 127.0
@@ -944,7 +1072,8 @@ def resnet_path(kernels, seed):
     from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
 
     trainer = Trainer(resnet_config("int8", RESNET_STEPS, seed))
-    per_step = {"quantize_int8_scaled": len(resnet_leaves(trainer.model))}
+    # one grouped launch covers every kernel-sized leaf
+    per_step = {"quantize_int8_scaled": 1}
     ev0 = trainer.evaluate()
     kernels.reset_launch_counts()
     history = trainer.train()
@@ -969,15 +1098,16 @@ def resnet_path(kernels, seed):
     return {"trainer": trainer, "losses": losses, "eval_before": ev0,
             "eval": ev, "launches": launches, "eval_launches": eval_launches,
             "per_step": per_step, "step_ms": med,
+            "quantized_leaves": len(resnet_leaves(trainer.model)),
             "images_per_s": RESNET_B / (med / 1e3)}
 
 
 def resnet_sync_check(trainer, reference):
     """One step's gradients at the trainer's weights and next batch,
-    synced by the trainer's GradSync (the kernel on every leaf of 16384
-    or more) and by the same int8 collective with the plain quantizer:
-    bit for bit equal, leaf by leaf. Returns the leaf count and the
-    number of kernel-sized leaves."""
+    synced by the trainer's GradSync (one grouped kernel launch over every
+    leaf of 16384 or more) and by the same int8 collective with the plain
+    grouped quantizer: bit for bit equal, leaf by leaf. Returns the leaf
+    count and the number of kernel-sized leaves."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.ops import compression
@@ -998,12 +1128,9 @@ def resnet_sync_check(trainer, reference):
     seed = sync_seed(12345, 0)
     got = trainer.grad_sync(grads, seed)
     quant_seed = compression.leaf_seeds(seed, 2)[1]
-
-    def plain(x, scale, s):
-        return reference.quantize_int8_scaled(x, scale, seed=s)
-
-    want = compression.int8_psum_mean(grads, quant_seed, trainer.group,
-                                      scaled_quantizer=plain)
+    want = compression.int8_psum_mean(
+        grads, quant_seed, trainer.group,
+        group_quantizer=reference.quantize_int8_scaled_group)
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(got, want)):
         if not torch.equal(a, b):
@@ -1036,26 +1163,24 @@ def resnet_step_ms(compression, steps, seed, profile=False):
 
 def time_int8_kernels(kernels, reference, gen, leaf_sizes, launches, errs):
     """Phase 6 entries of the int8 kernels. Kernel 6 at one training
-    step's work (every kernel-sized leaf of ResNet-18, one launch each);
-    kernels 7 and 8 at ResNet-18's largest leaf, as (4608, 512). Also a
-    per-size sweep of kernel 6. Bounds: 5 bytes an element (f32 read and
-    int8 write, or int8 read and f32 write)."""
+    step's work (every kernel-sized leaf of ResNet-18 in one grouped
+    launch); kernels 7 and 8 at ResNet-18's largest leaf, as (4608, 512).
+    Also a per-size sweep of kernel 6, the leaves of each size in one
+    grouped launch. Bounds: 5 bytes an element (f32 read and int8 write,
+    or int8 read and f32 write)."""
     import torch
 
     n = N_TIMED_TRAIN
     xs = [(torch.randn(m, generator=gen) * 0.05).cuda() for m in leaf_sizes]
-    scales = [x.abs().amax() / 127.0 for x in xs]
+    scales = torch.stack([x.abs().amax() / 127.0 for x in xs])
+    seeds = list(range(100, 100 + len(xs)))
     total = sum(leaf_sizes)
 
     def step_kernel():
-        for i, (x, s) in enumerate(zip(xs, scales)):
-            q = kernels.quantize_int8_scaled(x, s, 100 + i)
-        return q
+        return kernels.quantize_int8_scaled_group(xs, scales, seeds)[-1]
 
     def step_plain():
-        for i, (x, s) in enumerate(zip(xs, scales)):
-            q = reference.quantize_int8_scaled(x, s, seed=100 + i)
-        return q
+        return reference.quantize_int8_scaled_group(xs, scales, seeds)[-1]
 
     bms, by = bound_ms(5 * total, 5 * total)
     entries = [{
@@ -1067,16 +1192,18 @@ def time_int8_kernels(kernels, reference, gen, leaf_sizes, launches, errs):
         "ms": time_ms(step_kernel, n), "plain_ms": time_ms(step_plain, n),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "shape": f"one ResNet-18 step: {len(leaf_sizes)} leaves, {total} "
-                 "f32 elements, one launch each",
+                 "f32 elements, one grouped launch",
     }]
     sweep = []
     for m in sorted(set(leaf_sizes)):
-        x = (torch.randn(m, generator=gen) * 0.05).cuda()
-        s = x.abs().amax() / 127.0
-        sweep.append({"n": m, "leaves": leaf_sizes.count(m),
-                      "ms": time_ms(lambda: kernels.quantize_int8_scaled(
-                          x, s, 3), 100),
-                      "bound_ms": bound_ms(5 * m, 5 * m)[0]})
+        k = leaf_sizes.count(m)
+        group = [(torch.randn(m, generator=gen) * 0.05).cuda()
+                 for _ in range(k)]
+        s = torch.stack([x.abs().amax() / 127.0 for x in group])
+        sweep.append({"n": m, "leaves": k,
+                      "ms": time_ms(lambda: kernels.quantize_int8_scaled_group(
+                          group, s, list(range(k)))[-1], 100),
+                      "bound_ms": bound_ms(5 * m * k, 5 * m * k)[0]})
     x = (torch.randn((4608, 512), generator=gen) * 0.05).cuda()
     m = x.numel()
     q, s = kernels.quantize_int8(x, 5)
@@ -1182,7 +1309,21 @@ def main() -> int:
                            for u in tc.values()):
         fail(f"the tensor-core flash kernels (3 x D in {{16, 32, 64}}) "
              f"must build without spills: {tc}")
-    report["ptxas"] = usage
+    redesigned = {k: u for lib in ("layer_norm", "int8_quant")
+                  for k, u in ptxas_usage(lib).items()
+                  if k.startswith(("ln_bwd_vec_kernel<", "quant_group_kernel"))}
+    log("phase 2 ptxas -v, layer_norm.cu and int8_quant.cu (sm_90a): "
+        + "; ".join(f"{k} {u.get('registers')} registers, {u.get('stack')} B "
+                    f"stack, {u.get('spill_stores')}/{u.get('spill_loads')} B "
+                    "spill stores/loads" for k, u in sorted(redesigned.items())))
+    n_vec = 4 * len(kernels.LN_BWD_WIDTHS)
+    if len(redesigned) != n_vec + 1 or any(
+            u.get("spill_stores", 1) or u.get("spill_loads", 1)
+            for u in redesigned.values()):
+        fail(f"the vectorised LayerNorm backward ({n_vec} instantiations) "
+             f"and the grouped quantize must build without spills: "
+             f"{redesigned}")
+    report["ptxas"] = {**usage, **redesigned}
 
     # -- 3. kernels vs plain versions at GptMini shapes -------------------
     gen = torch.Generator().manual_seed(args.seed)
@@ -1240,10 +1381,15 @@ def main() -> int:
     report["bf16_bwd_atol_needed"] = atol_needed
     errs.update(train_errs)
     errs["layer_norm"] = max(errs["layer_norm"], train_errs["layer_norm_train"])
-    int8_cases, int8_errs, int8_stats = check_int8_kernels(kernels, reference,
-                                                           gen)
+    resnet_leaf_sizes = [p.numel() for p in resnet_leaves(
+        build_model("ResNet18"))]
+    int8_cases, int8_errs, int8_stats = check_int8_kernels(
+        kernels, reference, gen, resnet_leaf_sizes)
     log(f"phase 3 int8 kernels vs plain: {len(int8_cases)} cases bit for bit "
-        f"equal (quantize_int8_scaled at n = {list(INT8_SIZES)}; "
+        f"equal (quantize_int8_scaled at n = {list(INT8_SIZES)}; grouped "
+        f"over ResNet-18's {len(resnet_leaf_sizes)} kernel-sized leaves in "
+        f"one launch, over {len(INT8_GROUP_CHUNKED)} leaves in two, with a "
+        f"misaligned leaf, and an empty group in none; "
         f"quantize_int8 and dequantize_int8 at {list(INT8_SHAPES)}); "
         f"largest leaf: mean error of q * scale - x {int8_stats['mean_err']:.3e}"
         f" (4 standard errors {4 * int8_stats['standard_error']:.3e}); "
@@ -1401,13 +1547,15 @@ def main() -> int:
         f"{[round(x, 4) for x in resnet['losses']]}; eval loss "
         f"{resnet['eval_before']['loss']:.4f} -> {resnet['eval']['loss']:.4f}"
         f"; launches per run of {RESNET_STEPS} steps {resnet['launches']} (= "
-        f"{RESNET_STEPS} x {resnet['per_step']}); eval launches "
+        f"{RESNET_STEPS} x {resnet['per_step']}, each covering "
+        f"{resnet['quantized_leaves']} leaves); eval launches "
         f"{resnet['eval_launches']}; step {resnet['step_ms']:.3f} ms, "
         f"{resnet['images_per_s']:.1f} images/s")
     n_leaves, n_big = resnet_sync_check(resnet["trainer"], reference)
     log(f"phase 5 int8 sync check ResNet18: {n_leaves} gradient leaves "
-        f"({n_big} through quantize_int8_scaled) synced with the kernel and "
-        f"with the plain quantizer at the same weights, batch and seed: "
+        f"({n_big} through one grouped quantize_int8_scaled launch) synced "
+        f"with the kernel and with the plain grouped quantizer at the same "
+        f"weights, batch and seed: "
         f"bit for bit equal")
     resnet_profile = profile_train(resnet["trainer"]) if args.out else None
     leaf_sizes = [p.numel() for p in resnet_leaves(resnet["trainer"].model)]
@@ -1510,6 +1658,9 @@ def main() -> int:
         if "f32_ms" in e:
             extra += (f"; f32 (CUDA cores) {e['f32_ms']:.6f} ms, bound "
                       f"{e['f32_bound_ms']:.6f} ms ({e['f32_bound_by']})")
+        if "general_ms" in e:
+            extra += (f"; general kernel (x one element off a 16-byte "
+                      f"boundary) {e['general_ms']:.6f} ms")
         if "sdpa_fwd_bwd_ms" in e:
             extra += (f"; library flash fwd+bwd {e['sdpa_fwd_bwd_ms']:.6f} "
                       f"ms; library backward (dq, dk, dv in one call) vs "
@@ -1536,25 +1687,26 @@ def main() -> int:
     log(f"phase 6 training BertBase B=16 L=512 bf16: attn full "
         f"{full_ms:.3f} ms/step, {tokens / full_ms * 1e3:.1f} tokens/s")
     for row in int8_sweep:
-        log(f"phase 6 quantize_int8_scaled n={row['n']} (x{row['leaves']} "
-            f"per ResNet-18 step): {row['ms']:.6f} ms, bound "
-            f"{row['bound_ms']:.6f} ms")
+        log(f"phase 6 quantize_int8_scaled grouped launch of the "
+            f"{row['leaves']} leaves of n={row['n']} of a ResNet-18 step: "
+            f"{row['ms']:.6f} ms, bound {row['bound_ms']:.6f} ms")
     log(f"phase 6 training ResNet18 B={RESNET_B} bf16: int8 sync "
         f"{resnet['step_ms']:.3f} ms/step, {resnet['images_per_s']:.1f} "
         f"images/s; no compression {resnet_none_ms:.3f} ms/step, "
         f"{RESNET_B / resnet_none_ms * 1e3:.1f} images/s; int8 sync overhead "
         f"{resnet['step_ms'] - resnet_none_ms:.3f} ms/step")
-    for what, prof in (("int8", resnet_profile),
-                       ("no compression", resnet_none_profile)):
-        if prof:
-            log(f"phase 6 ResNet18 {what} profile (5 steps): wall "
-                f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} "
-                f"ms, busy {prof['device_busy_share']:.4f}")
-    if train_profile:
-        log(f"phase 6 training profile (5 steps): wall "
-            f"{train_profile['wall_ms']:.3f} ms, device "
-            f"{train_profile['device_ms']:.3f} ms, busy "
-            f"{train_profile['device_busy_share']:.4f}")
+    for what, prof in (("ResNet18 int8", resnet_profile),
+                       ("ResNet18 no compression", resnet_none_profile),
+                       ("training", train_profile)):
+        if not prof:
+            continue
+        log(f"phase 6 {what} profile (5 steps): wall "
+            f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} "
+            f"ms, busy {prof['device_busy_share']:.4f}")
+        for r in prof["port_kernels"]:
+            name = r["name"].split("::", 1)[-1].split("(", 1)[0]
+            log(f"phase 6 {what} profile: {name} {r['count']} launches, "
+                f"{r['device_ms'] / r['count'] * 1e3:.3f} us each")
     report["phases"].update({
         "train_step_ms": bert["step_ms"], "train_full_step_ms": full_ms,
         "resnet_int8_step_ms": resnet["step_ms"],

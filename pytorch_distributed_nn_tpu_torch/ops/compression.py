@@ -5,14 +5,16 @@ plus the host-side int8 weight codec's inverse the artifact reader needs
 (``dequantize_int8_host``).
 
 ``int8``: stochastic-rounded int8 quantization with a scale shared across
-ranks (an ``all_reduce(MAX)`` of each leaf's amax, the JAX ``lax.pmax``),
-so the ranks' int8 payloads are summable; the payload is cast to int32
-before the ``all_reduce(SUM)``, as the JAX package casts before its psum.
+ranks (one ``all_reduce(MAX)`` of the vector of every leaf's amax, the JAX
+per-leaf ``lax.pmax``), so the ranks' int8 payloads are summable; the
+payload is cast to int32 before the ``all_reduce(SUM)``, as the JAX
+package casts before its psum.
 
-Leaves of at least :data:`QUANT_KERNEL_MIN_SIZE` elements are quantized by
-``quantize_int8_scaled`` (the hand-written kernel on a CUDA tensor, its
-plain version on a CPU tensor); smaller ones by the small-leaf formula
-``floor(x * 127 / amax) + (u < frac)`` on either device. That threshold is
+Leaves of at least :data:`QUANT_KERNEL_MIN_SIZE` elements are quantized
+together by ``quantize_int8_scaled_group`` (one launch of the hand-written
+kernel on CUDA tensors, its plain version on CPU tensors); smaller ones by
+the small-leaf formula ``floor(x * 127 / amax) + (u < frac)`` on either
+device. That threshold is
 the JAX package's own dispatch rule (its TPU program sends the large leaves
 to the Pallas kernel), not a fallback. Both are unbiased stochastic
 rounding; they are different realisations of it.
@@ -39,7 +41,7 @@ from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
     world_size,
 )
 
-#: leaves at least this large take ``quantize_int8_scaled`` (the JAX
+#: leaves at least this large take ``quantize_int8_scaled_group`` (the JAX
 #: package's ``_PALLAS_QUANT_MIN_SIZE``)
 QUANT_KERNEL_MIN_SIZE = 16384
 
@@ -79,19 +81,32 @@ def quantize_small_leaf(g: torch.Tensor, amax: torch.Tensor,
     return q.clamp(-127, 127).to(torch.int8)
 
 
-def quantize_leaf(g: torch.Tensor, seed: int, amax: torch.Tensor,
-                  scaled_quantizer=None) -> torch.Tensor:
-    """``_int8_quantize_leaf``: g -> int8 of g's shape, amax >= max|g|
-    (a 0-d f32 tensor on g's device). Leaves of at least
-    :data:`QUANT_KERNEL_MIN_SIZE` elements go to ``scaled_quantizer``
-    (default :func:`.kernels.quantize_int8_scaled`) with scale amax / 127
-    (as ``amax * f32(1/127)``; 1 when amax is 0, where g is all zero and
-    q is 0 either way)."""
-    if g.numel() >= QUANT_KERNEL_MIN_SIZE:
-        quantizer = scaled_quantizer or kernels.quantize_int8_scaled
-        scale = torch.where(amax > 0, amax * RECIP127, torch.ones_like(amax))
-        return quantizer(g.float(), scale, seed)
-    return quantize_small_leaf(g, amax, leaf_noise(g.shape, seed, g.device))
+def quantize_leaves(grads: Sequence[torch.Tensor], seeds: Sequence[int],
+                    amax: torch.Tensor,
+                    group_quantizer=None) -> List[torch.Tensor]:
+    """``_int8_quantize_leaf`` of every leaf: g_i -> int8 of g_i's shape,
+    ``amax`` a (k,) f32 vector on the leaves' device with amax[i] >=
+    max|g_i|. The leaves of at least :data:`QUANT_KERNEL_MIN_SIZE` elements
+    go together to ``group_quantizer`` (default
+    :func:`.kernels.quantize_int8_scaled_group`: one launch on the card)
+    with scale amax / 127 (as ``amax * f32(1/127)``; 1 when amax is 0,
+    where g is all zero and q is 0 either way); the others take the
+    small-leaf formula."""
+    scales = torch.where(amax > 0, amax * RECIP127, torch.ones_like(amax))
+    big = [i for i, g in enumerate(grads)
+           if g.numel() >= QUANT_KERNEL_MIN_SIZE]
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    if big:
+        quantizer = group_quantizer or kernels.quantize_int8_scaled_group
+        qs = quantizer([grads[i].float() for i in big],
+                       [scales[i] for i in big], [seeds[i] for i in big])
+        for i, q in zip(big, qs):
+            out[i] = q
+    for i, g in enumerate(grads):
+        if out[i] is None:
+            out[i] = quantize_small_leaf(
+                g, amax[i], leaf_noise(g.shape, seeds[i], g.device))
+    return out
 
 
 def leaf_seeds(seed: int, count: int) -> List[int]:
@@ -104,20 +119,24 @@ def leaf_seeds(seed: int, count: int) -> List[int]:
 def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
                    mask: Optional[float] = None,
                    denom: Optional[float] = None,
-                   scaled_quantizer=None) -> List[torch.Tensor]:
+                   group_quantizer=None) -> List[torch.Tensor]:
     """Quantized allreduce: int8 payloads, int32 accumulation.
 
-    The scale of each leaf is shared across ranks by an ``all_reduce(MAX)``
-    of its amax. ``mask`` (this rank's 0/1) excludes its contribution (PS
-    num-aggregate emulation, killed ranks). ``denom`` overrides the divisor
+    The scale of each leaf is shared across ranks by one
+    ``all_reduce(MAX)`` of the vector of every leaf's amax. ``mask`` (this
+    rank's 0/1) excludes its contribution (PS num-aggregate emulation,
+    killed ranks). ``denom`` overrides the divisor
     (PS mode divides by the fixed num_aggregate); else it is the live
     contributor count, ``max(sum of masks, 1)``, or the world size without
     a mask. ``group=None``: one contributor, no collectives. ``seed`` must
-    be the same on every rank. ``scaled_quantizer``: see
-    :func:`quantize_leaf` (the card's sync check passes the plain version).
+    be the same on every rank. ``group_quantizer``: the grouped hook of
+    :func:`quantize_leaves` (the card's sync check passes the plain
+    ``reference.quantize_int8_scaled_group``).
     """
+    if not grads:
+        return []
     count = None
-    if denom is None and mask is not None and grads:
+    if denom is None and mask is not None:
         # the live contributor count, as a device value (no host sync)
         count = torch.tensor(float(mask), dtype=torch.float32,
                              device=grads[0].device)
@@ -128,19 +147,23 @@ def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
     # package's division by it into a product with its f32 reciprocal
     recip = f32_reciprocal(max(
         float(world_size(group) if denom is None else denom), 1.0))
+    # every leaf's amax in one vector, shared across ranks by one
+    # all_reduce(MAX): max is free of order, so this is the per-leaf pmax
+    amax = torch.stack([g.detach().abs().amax().to(torch.float32)
+                        for g in grads])
+    if group is not None:
+        all_reduce(amax, "max", group)
+    qs = quantize_leaves(grads, leaf_seeds(seed, len(grads)), amax,
+                         group_quantizer)
+    scales = torch.where(amax > 0, amax * RECIP127, torch.zeros_like(amax))
     out = []
-    for g, s in zip(grads, leaf_seeds(seed, len(grads))):
-        amax = g.detach().abs().amax().to(torch.float32)
-        if group is not None:
-            all_reduce(amax, "max", group)
-        q = quantize_leaf(g, s, amax, scaled_quantizer)
+    for i, (g, q) in enumerate(zip(grads, qs)):
         if mask is not None and not mask:
             q = torch.zeros_like(q)  # q * mask, with this rank's 0/1 mask
         total = q.to(torch.int32)
         if group is not None:
             all_reduce(total, "sum", group)
-        scale = torch.where(amax > 0, amax * RECIP127, torch.zeros_like(amax))
-        dequant = total.to(torch.float32) * scale
+        dequant = total.to(torch.float32) * scales[i]
         avg = dequant / count if count is not None else dequant * recip
         out.append(avg.to(g.dtype))
     return out

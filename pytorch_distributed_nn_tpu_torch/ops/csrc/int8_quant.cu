@@ -1,11 +1,14 @@
 // Int8 gradient codec for Hopper (sm_90a): stochastic-rounding quantize
-// with a given scale, quantize with its own scale, and dequantize.
+// with a given scale over a group of gradient leaves, quantize with its own
+// scale, and dequantize.
 //
 // Replaces the TPU kernels of the int8 codec
 // (pytorch_distributed_nn_tpu/ops/pallas_kernels.py):
-//   - quant_scaled_kernel <- `quantize_int8_scaled` (`_quant_scaled_kernel_prng`):
-//     q = clip(floor(x / scale + u), -127, 127) as int8, scale given (the
-//     cross-replica amax / 127 of the gradient collective);
+//   - quant_group_kernel <- `quantize_int8_scaled` (`_quant_scaled_kernel_prng`):
+//     for each leaf of the group, q = clip(floor(x / scale + u), -127, 127)
+//     as int8, its scale given (the cross-replica amax / 127 of the
+//     gradient collective). The TPU program makes one call per leaf; one
+//     launch here covers up to 64 leaves;
 //   - amax_kernel + quant_own_kernel <- `quantize_int8` (`_quant_kernel_prng`):
 //     amax = max |x|, scale = amax * f32(1/127) (1 when amax is 0; XLA's
 //     form of the TPU program's amax / 127), then the same rounding; the
@@ -14,25 +17,48 @@
 //
 // Noise. The TPU kernels draw u from the chip's own generator, which has
 // no counterpart here. These kernels draw it from Philox4x32-10 written
-// out below: element i takes word (i & 3) of Philox(counter = (i >> 2,
-// i >> 34, 0, 0), key = (seed, 0)), and u = (bits >> 8) * 2^-24, the TPU
-// kernel's mapping of 32 random bits onto [0, 1). The plain version
-// (ops/reference.py) runs the same generator in integer torch arithmetic,
-// so kernel and plain version agree bit for bit. x / scale is IEEE
-// division (__fdiv_rn; the build has no fast-math flag).
+// out below: element i of a leaf takes word (i & 3) of Philox(counter =
+// (i >> 2, i >> 34, 0, 0), key = (the leaf's seed, 0)), and
+// u = (bits >> 8) * 2^-24, the TPU kernel's mapping of 32 random bits onto
+// [0, 1). The plain version (ops/reference.py) runs the same generator in
+// integer torch arithmetic, so kernel and plain version agree bit for bit.
+// x / scale is IEEE division (__fdiv_rn; the build has no fast-math flag).
 //
 // What bounds them: bytes. Each element is read once as f32 and written
 // once as int8 (5 bytes; the own-scale kernel reads x twice, once for
 // amax, but L2 holds a gradient leaf of up to 9.4 MB between the passes),
 // against 10 Philox rounds per 4 elements, about 40 integer operations an
-// element, far under the card's integer rate at 5 bytes an element.
-// Design: one thread per 4 consecutive elements, one Philox call for the
-// four, a 16-byte load and a 4-byte store when the quad is whole and the
-// pointers aligned; a grid-stride loop covers any n, so one launch covers
-// a whole leaf (the TPU kernel streamed 131072-element chunks through its
-// VMEM; on this card no staging is needed). amax is order-free, so the
-// own-scale kernel takes it with atomicMax on the bit patterns of |x|
-// (non-negative floats order as their bits), which repeats bit for bit.
+// element, under the card's integer rate at 5 bytes an element.
+//
+// The grouped quantize. A ResNet-18 step quantizes 18 leaves of 36,864 to
+// 2,359,296 elements; one launch each spent most of its time in the
+// launch's ramp and tail (1.65 us at 36,864 elements, whose bytes take
+// 0.055 us). So one launch covers the group:
+//   - a descriptor table (x, q, scale pointer, element count, first quad,
+//     seed, alignment of each leaf; 48 bytes a leaf, 64 leaves, 3 KB) is
+//     passed by value as the kernel's parameter (`__grid_constant__`, read
+//     in place from the constant bank); no copy to the card, no host sync
+//     (the scales stay on the card). Larger groups take one launch per 64;
+//   - the leaves' quads (4 elements) are numbered one after another;
+//     each block takes an equal share of them (a whole number of tiles
+//     per block would leave the last round a quarter full at ResNet-18's
+//     sizes), in tiles of 1024 quads, and finds the leaf of each quad
+//     from the table's first-quad offsets;
+//   - each thread takes 4 quads of a tile (256 apart, so each load
+//     instruction is coalesced across the warp) and issues their 16-byte
+//     loads before any Philox round; the grid is the card's resident
+//     capacity, not the size of any leaf;
+//   - a tile that lies inside one aligned leaf (all but a few per group)
+//     looks nothing up per quad: one 16-byte load, the rounds, one 4-byte
+//     store. The instructions a quad takes to issue cost about as much
+//     time as its bytes (Philox, then an IEEE division, floor and clip per
+//     element), so a lookup and bounds checks per quad would cost time.
+//     Tiles across a leaf boundary, at a ragged end or in an unaligned
+//     leaf go quad by quad, element by element.
+//
+// ptxas -v (sm_90a, CUDA 12.8, H100 build): quant_group_kernel takes 71
+// registers, no spills (3 blocks of 256 an SM; capped at 64 for 4 blocks it
+// spills 16 bytes). chip_smoke.py phase 2 prints them and fails on a spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,7 +112,7 @@ __device__ __forceinline__ int8_t round_stochastic(float x, float scale,
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-// The quantize body of both quantize kernels: every quad of x, grid-stride.
+// The quantize body of the own-scale kernel: every quad of x, grid-stride.
 __device__ __forceinline__ void quantize_quads(const float* __restrict__ x,
                                                int8_t* __restrict__ q,
                                                long long n, float scale,
@@ -113,13 +139,6 @@ __device__ __forceinline__ void quantize_quads(const float* __restrict__ x,
         q[i0 + j] = round_stochastic(x[i0 + j], scale, uniform24(r.v[j]));
     }
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-quant_scaled_kernel(const float* __restrict__ x,
-                    const float* __restrict__ scale, int8_t* __restrict__ q,
-                    long long n, uint32_t seed, int aligned) {
-  quantize_quads(x, q, n, scale[0], seed, aligned != 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -171,6 +190,150 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
   }
 }
 
+// -- the grouped quantize ---------------------------------------------------
+
+constexpr int kGroupLeaves = 64;
+constexpr int kQuadsPerThread = 4;
+constexpr int kTileQuads = kThreads * kQuadsPerThread;
+
+struct Leaf {
+  const float* x;
+  int8_t* q;
+  const float* scale;     // one f32 on the card
+  long long n;            // elements, > 0
+  long long quad_begin;   // the leaf's first quad in the group's numbering
+  uint32_t seed;
+  int aligned;            // x 16-byte and q 4-byte aligned
+};
+
+struct LeafGroup {
+  Leaf leaf[kGroupLeaves];
+  long long quads;  // all leaves' quads
+  int count;
+};
+static_assert(sizeof(LeafGroup) <= 4096,
+              "the descriptor table must fit the 4 KB kernel parameter "
+              "space of every toolkit");
+
+__device__ __forceinline__ char4 round_quad(float4 v, float scale,
+                                            const U4& r) {
+  char4 out;
+  out.x = round_stochastic(v.x, scale, uniform24(r.v[0]));
+  out.y = round_stochastic(v.y, scale, uniform24(r.v[1]));
+  out.z = round_stochastic(v.z, scale, uniform24(r.v[2]));
+  out.w = round_stochastic(v.w, scale, uniform24(r.v[3]));
+  return out;
+}
+
+__device__ __forceinline__ U4 leaf_noise(long long u, uint32_t seed) {
+  return philox4x32_10(static_cast<uint32_t>(u),
+                       static_cast<uint32_t>(u >> 32), 0u, 0u, seed, 0u);
+}
+
+// A tile that is `count` whole quads of one aligned leaf from its quad u0:
+// nothing to look up per quad, one 16-byte load and one 4-byte store each.
+__device__ __forceinline__ void whole_tile(const Leaf& f, long long u0,
+                                           int count) {
+  const float4* x4 = reinterpret_cast<const float4*>(f.x) + u0;
+  char4* q4 = reinterpret_cast<char4*>(f.q) + u0;
+  const float scale = *f.scale;
+  const uint32_t seed = f.seed;
+  float4 v[kQuadsPerThread];
+#pragma unroll
+  for (int k = 0; k < kQuadsPerThread; ++k) {
+    const int i = k * kThreads + threadIdx.x;
+    if (i < count) v[k] = x4[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kQuadsPerThread; ++k) {
+    const int i = k * kThreads + threadIdx.x;
+    if (i < count) q4[i] = round_quad(v[k], scale, leaf_noise(u0 + i, seed));
+  }
+}
+
+// Any other tile [t0, end): each quad finds its leaf, from leaf `lo` on,
+// and a quad that is ragged or in an unaligned leaf goes element by
+// element.
+__device__ __forceinline__ void mixed_tile(const LeafGroup& g, int lo,
+                                           long long t0, long long end) {
+  int which[kQuadsPerThread];
+  long long quad[kQuadsPerThread];
+  float scale[kQuadsPerThread];
+  float v[kQuadsPerThread][4];
+  int leaf = lo;
+#pragma unroll
+  for (int k = 0; k < kQuadsPerThread; ++k) {
+    const long long t = t0 + k * kThreads + threadIdx.x;
+    which[k] = -1;
+    v[k][0] = v[k][1] = v[k][2] = v[k][3] = 0.f;
+    if (t >= end) continue;
+    while (leaf + 1 < g.count && t >= g.leaf[leaf + 1].quad_begin) ++leaf;
+    const Leaf& f = g.leaf[leaf];
+    const long long u = t - f.quad_begin, i0 = u << 2;
+    which[k] = leaf;
+    quad[k] = u;
+    scale[k] = *f.scale;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i0 + j < f.n) v[k][j] = f.x[i0 + j];
+  }
+#pragma unroll
+  for (int k = 0; k < kQuadsPerThread; ++k) {
+    if (which[k] < 0) continue;
+    const Leaf& f = g.leaf[which[k]];
+    const long long u = quad[k], i0 = u << 2;
+    const U4 r = leaf_noise(u, f.seed);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i0 + j < f.n)
+        f.q[i0 + j] = round_stochastic(v[k][j], scale[k], uniform24(r.v[j]));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+quant_group_kernel(const __grid_constant__ LeafGroup g) {
+  // an equal share of the quads for every block, in tiles
+  const long long end = g.quads * (blockIdx.x + 1) / gridDim.x;
+  for (long long t0 = g.quads * blockIdx.x / gridDim.x; t0 < end;
+       t0 += kTileQuads) {
+    const long long t1 = t0 + kTileQuads < end ? t0 + kTileQuads : end;
+    // the leaf of the tile's first quad (the same search in every thread)
+    int lo = 0, hi = g.count - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (g.leaf[mid].quad_begin <= t0)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const Leaf& f = g.leaf[lo];
+    // almost every tile lies inside one aligned leaf, short of its ragged
+    // end: the branch is the same for the whole block
+    if (f.aligned && t1 <= f.quad_begin + (f.n >> 2))
+      whole_tile(f, t0 - f.quad_begin, static_cast<int>(t1 - t0));
+    else
+      mixed_tile(g, lo, t0, end);
+  }
+}
+
+// blocks of the grouped quantize: the card's resident capacity, or fewer
+// tiles
+int group_blocks(long long quads) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, quant_group_kernel, kThreads, 0) != cudaSuccess)
+      return -1;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long tiles = (quads + kTileQuads - 1) / kTileQuads;
+  return static_cast<int>(tiles < resident ? tiles : resident);
+}
+
 inline unsigned int blocks_for(long long work) {
   long long b = (work + kThreads - 1) / kThreads;
   if (b > (1ll << 20)) b = 1ll << 20;  // the grid-stride loop covers the rest
@@ -181,16 +344,32 @@ inline unsigned int blocks_for(long long work) {
 
 extern "C" {
 
-// x (n,) f32, scale (1,) f32 on the card -> q (n,) int8. `aligned`: x is
-// 16-byte and q 4-byte aligned (the wrapper checks).
-int pdtn_quantize_int8_scaled(const void* x, const void* scale, void* q,
-                              long long n, unsigned int seed, int aligned,
-                              void* stream) {
-  if (n <= 0) return 0;
-  quant_scaled_kernel<<<blocks_for((n + 3) >> 2), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scale),
-      static_cast<int8_t*>(q), n, seed, aligned);
+// The grouped quantize over k leaves (1 <= k <= 64 = kGroupLeaves,
+// kernels.QUANT_GROUP_LEAVES): leaf i is x[i] (n[i],) f32 -> q[i] (n[i],)
+// int8 with the one-value f32 scale at scale[i] on the card and noise
+// seed seed[i]; aligned[i]: x[i] 16-byte and q[i] 4-byte aligned (the
+// wrapper checks). The arrays are host memory; one launch.
+int pdtn_quantize_int8_scaled_group(int k, void* const* x, void* const* q,
+                                    void* const* scale, const long long* n,
+                                    const unsigned int* seed,
+                                    const int* aligned, void* stream) {
+  if (k < 1 || k > kGroupLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  LeafGroup g;
+  long long quads = 0;
+  for (int i = 0; i < k; ++i) {
+    if (n[i] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    g.leaf[i] = Leaf{static_cast<const float*>(x[i]),
+                     static_cast<int8_t*>(q[i]),
+                     static_cast<const float*>(scale[i]), n[i], quads,
+                     seed[i], aligned[i]};
+    quads += (n[i] + 3) >> 2;
+  }
+  g.quads = quads;
+  g.count = k;
+  const int blocks = group_blocks(quads);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  quant_group_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,12 +7,14 @@
 //     rs = rsqrt(var + eps), y = (x - mu) * rs * gamma + beta written
 //     directly in the output type, and, when the caller passes them (the
 //     training path), mu and rs per row in f32 as the TPU kernel writes them;
-//   - ln_bwd_kernel <- `_ln_bwd_kernel` / `_ln_bwd_call`. Same function:
+//   - ln_bwd_vec_kernel / ln_bwd_kernel, then ln_bwd_sum_kernel <-
+//     `_ln_bwd_kernel` / `_ln_bwd_call`. Same function:
 //     xhat = (x - mu) * rs, dxhat = dy * gamma,
 //     dx = rs * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) in x's
-//     type, and per-block partial sums of dgamma = sum(dy * xhat) and
-//     dbeta = sum(dy), which the caller sums (the TPU path sums its
-//     per-block partials outside the kernel too).
+//     type, dgamma = sum(dy * xhat) and dbeta = sum(dy) in f32. The row
+//     kernel writes one partial row of dgamma / dbeta per block (the TPU
+//     path sums its per-block partials outside the kernel too);
+//     ln_bwd_sum_kernel adds them up in a fixed order.
 //
 // What bounds them: bytes. The forward reads each row once and writes it
 // once (2 * N * D * elem bytes; gamma and beta are shared by all rows),
@@ -20,19 +22,44 @@
 // element either way. At GptMini's serving shapes (N <= 128 rows of
 // D = 128) that is at most 128 KB, under a microsecond at 3.35 TB/s, so a
 // launch costs more than the work; at BertBase training (N = 8192,
-// D = 768) the backward moves 40 MB, about 12 us.
-// The design: one warp per row. Lanes stride across the row, so every
-// pass is a coalesced read; the passes re-read the row from L1, which
-// holds it. The backward's blocks take 32 consecutive rows each (8 per
-// warp); every warp sums its rows' dgamma / dbeta terms into its own
-// shared-memory row, and the block adds its 4 warp rows in a fixed order
-// into one partial row: no atomics, so results repeat bit for bit.
-// Any (N, D) works: the TPU kernel's fallback for shapes with no legal
-// Mosaic tiling has no counterpart here.
+// D = 768, x bf16, dy f32, dx bf16) the backward moves 50.4 MB, 15 us.
+//
+// Forward: one warp per row, lanes striding across it; the passes re-read
+// the row from L1, which holds it.
+//
+// Backward, the vectorised path (ln_bwd_vec_kernel: D in 64, 128 and
+// 768, the widths of the port's models, and x, dy, dx on 16-byte
+// boundaries; the wrapper decides and says which). To run at the memory's rate the card needs tens of KB
+// in flight per SM, so:
+//   - a row lives in registers. A group of LANES lanes takes a row; each
+//     lane owns CHUNKS fixed 8-column chunks (D = LANES * CHUNKS * 8) and
+//     loads them as 16-byte vectors (8 bf16, or 2 x 4 f32), all of the
+//     row's loads issued before the first reduction, x and dy read once;
+//   - dgamma / dbeta partials stay in registers across every row the lane
+//     sees (its columns never change), then one fixed-order sum over the
+//     block's warps in shared memory;
+//   - two blocks an SM (12 warps at D = 768, where a thread needs about
+//     140 registers; 16 at 64 and 128; see by_width), some 55 KB of loads in
+//     flight per SM; the grid is the card's resident capacity (264 blocks
+//     on an H100), each block an equal share of the rows, which its row
+//     groups stride over. The trade: more blocks hide more latency but
+//     each adds a partial row of 2 * D floats to write and sum (264 rows
+//     = 1.6 MB at D = 768, 3% of the kernel's bytes);
+// Other widths, or misaligned rows, take ln_bwd_kernel (one warp per row,
+// scalar loads, 32 rows a block).
+// ln_bwd_sum_kernel then sums the partial rows column by column, each
+// thread over a fixed stride of rows and the block's slices in order: no
+// atomics, so dgamma and dbeta repeat bit for bit.
+//
+// ptxas -v (sm_90a, CUDA 12.8, H100 build): ln_bwd_vec_kernel takes 64
+// registers at D = 64 and 128 and 137-141 at 768 over the four type
+// pairs, with no spills (at a cap of 128, D = 768 spilled up to 52
+// bytes). chip_smoke.py phase 2 prints them and fails on a spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -89,6 +116,8 @@ ln_fwd_kernel(const TIn* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// -- backward, general path: any D, any alignment --------------------------
+
 constexpr int kBwdWarps = 4;
 constexpr int kBwdRowsPerBlock = 32;
 
@@ -97,8 +126,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
 ln_bwd_kernel(const TX* __restrict__ x, const TDY* __restrict__ dy,
               const float* __restrict__ mu, const float* __restrict__ rs,
               const float* __restrict__ gamma, TX* __restrict__ dx,
-              float* __restrict__ dg_part, float* __restrict__ db_part,
-              long long N, int D) {
+              float* __restrict__ part, long long N, int D) {
   extern __shared__ float sums[];  // [kBwdWarps][2][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* dg = sums + warp * 2 * D;
@@ -131,15 +159,252 @@ ln_bwd_kernel(const TX* __restrict__ x, const TDY* __restrict__ dy,
     }
   }
   __syncthreads();
+  const long long P = gridDim.x;
   for (int d = threadIdx.x; d < D; d += 32 * kBwdWarps) {
     float a = 0.f, b = 0.f;
     for (int w = 0; w < kBwdWarps; ++w) {
       a += sums[w * 2 * D + d];
       b += sums[w * 2 * D + D + d];
     }
-    dg_part[static_cast<long long>(blockIdx.x) * D + d] = a;
-    db_part[static_cast<long long>(blockIdx.x) * D + d] = b;
+    part[static_cast<long long>(blockIdx.x) * D + d] = a;
+    part[(P + blockIdx.x) * D + d] = b;
   }
+}
+
+// -- backward, vectorised path: the row in registers ------------------------
+
+// 8 consecutive elements as one lane loads them: 16 bytes of bf16, or
+// 2 x 16 bytes of f32
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<float> {
+  float4 a, b;
+};
+template <>
+struct Vec8<__nv_bfloat16> {
+  uint4 a;
+};
+
+__device__ __forceinline__ void load8(const float* p, Vec8<float>& v) {
+  v.a = reinterpret_cast<const float4*>(p)[0];
+  v.b = reinterpret_cast<const float4*>(p)[1];
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      Vec8<__nv_bfloat16>& v) {
+  v.a = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void zero8(Vec8<float>& v) {
+  v.a = v.b = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void zero8(Vec8<__nv_bfloat16>& v) {
+  v.a = make_uint4(0u, 0u, 0u, 0u);
+}
+__device__ __forceinline__ void unpack8(const Vec8<float>& v, float (&f)[8]) {
+  f[0] = v.a.x; f[1] = v.a.y; f[2] = v.a.z; f[3] = v.a.w;
+  f[4] = v.b.x; f[5] = v.b.y; f[6] = v.b.z; f[7] = v.b.w;
+}
+__device__ __forceinline__ void unpack8(const Vec8<__nv_bfloat16>& v,
+                                        float (&f)[8]) {
+  const uint32_t w[4] = {v.a.x, v.a.y, v.a.z, v.a.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // a bf16 is the high half of an f32
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// LANES lanes take one row, each lane CHUNKS chunks of 8 columns: lane l
+// of the group owns columns (c * LANES + l) * 8 .. + 7, so each chunk's
+// loads are consecutive 16-byte words across the group. THREADS a block,
+// at least MINB blocks an SM (which caps the registers a thread).
+template <typename TX, typename TDY, int LANES, int CHUNKS, int THREADS,
+          int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+ln_bwd_vec_kernel(const TX* __restrict__ x, const TDY* __restrict__ dy,
+                  const float* __restrict__ mu, const float* __restrict__ rs,
+                  const float* __restrict__ gamma, TX* __restrict__ dx,
+                  float* __restrict__ part, long long N) {
+  constexpr int D = LANES * CHUNKS * 8;
+  constexpr int kVecWarps = THREADS / 32;
+  constexpr int kPerWarp = 32 / LANES;          // rows a warp takes at once
+  constexpr int kGroups = kVecWarps * kPerWarp;  // rows the block takes
+  __shared__ __align__(16) float gamma_s[D];
+  __shared__ __align__(16) float red[kVecWarps][D];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane % LANES;
+  for (int d = threadIdx.x; d < D; d += THREADS) gamma_s[d] = gamma[d];
+  __syncthreads();
+
+  float dg[CHUNKS][8], db[CHUNKS][8];
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dg[c][j] = db[c][j] = 0.f;
+  const float inv_d = 1.f / static_cast<float>(D);
+  // an equal share of the rows for every block, its row groups striding
+  // over them; the loop runs warp-uniformly (the shuffles need every
+  // lane), and a row group past the share loads nothing and adds zeros
+  const long long end = N * (blockIdx.x + 1) / gridDim.x;
+  for (long long base = N * blockIdx.x / gridDim.x + warp * kPerWarp;
+       base < end; base += kGroups) {
+    const long long row = base + lane / LANES;
+    const bool valid = row < end;
+    Vec8<TX> xv[CHUNKS];
+    Vec8<TDY> gv[CHUNKS];
+    float m = 0.f, s = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) {
+        const long long off = row * D + (c * LANES + gl) * 8;
+        load8(x + off, xv[c]);
+        load8(dy + off, gv[c]);
+      }
+      m = mu[row];
+      s = rs[row];
+    } else {
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) {
+        zero8(xv[c]);
+        zero8(gv[c]);
+      }
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      float xf[8], gf[8];
+      unpack8(xv[c], xf);
+      unpack8(gv[c], gf);
+      const float* gam = gamma_s + (c * LANES + gl) * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xh = (xf[j] - m) * s;
+        const float dxh = gf[j] * gam[j];
+        s1 += dxh;
+        s2 += dxh * xh;
+        dg[c][j] += gf[j] * xh;
+        db[c][j] += gf[j];
+      }
+    }
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float m1 = s1 * inv_d, m2 = s2 * inv_d;
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) {
+        float xf[8], gf[8], out[8];
+        unpack8(xv[c], xf);
+        unpack8(gv[c], gf);
+        const float* gam = gamma_s + (c * LANES + gl) * 8;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = (xf[j] - m) * s;
+          out[j] = s * (gf[j] * gam[j] - m1 - xh * m2);
+        }
+        store8(dx + row * D + (c * LANES + gl) * 8, out);
+      }
+    }
+  }
+
+  // the warp's row groups hold the same columns: fold them (fixed order),
+  // then the block's warps in shared memory, dgamma first, then dbeta
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int o = 16; o >= LANES; o >>= 1) {
+        dg[c][j] += __shfl_xor_sync(0xffffffffu, dg[c][j], o);
+        db[c][j] += __shfl_xor_sync(0xffffffffu, db[c][j], o);
+      }
+  const long long P = gridDim.x;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (lane < LANES) {
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          red[warp][(c * LANES + gl) * 8 + j] = half ? db[c][j] : dg[c][j];
+    }
+    __syncthreads();
+    float* out = part + (half * P + blockIdx.x) * D;
+    for (int d = threadIdx.x; d < D; d += THREADS) {
+      float a = red[0][d];
+#pragma unroll
+      for (int w = 1; w < kVecWarps; ++w) a += red[w][d];
+      out[d] = a;
+    }
+    __syncthreads();
+  }
+}
+
+// -- backward: the partial rows' sum ----------------------------------------
+
+constexpr int kSumCols = 32;
+constexpr int kSumSlices = 32;
+
+// part (2, P, D) f32 -> out (2, D): thread (slice, col) adds rows slice,
+// slice + 32, ... in order, then slice 0 adds the 32 slices in order. 32
+// slices leave a thread P / 32 loads (9 at P = 264), all in flight at once.
+__global__ void __launch_bounds__(kSumCols * kSumSlices)
+ln_bwd_sum_kernel(const float* __restrict__ part, int P, int D,
+                  float* __restrict__ out) {
+  __shared__ float acc[kSumSlices][kSumCols];
+  const int c = threadIdx.x % kSumCols, sl = threadIdx.x / kSumCols;
+  const int j = blockIdx.x * kSumCols + c;
+  float a = 0.f;
+  if (j < 2 * D) {
+    const int half = j / D;
+    const float* p = part + static_cast<long long>(half) * P * D + (j - half * D);
+#pragma unroll 8
+    for (int r = sl; r < P; r += kSumSlices)
+      a += p[static_cast<long long>(r) * D];
+  }
+  acc[sl][c] = a;
+  __syncthreads();
+  if (sl == 0 && j < 2 * D) {
+    float t = acc[0][c];
+#pragma unroll
+    for (int s = 1; s < kSumSlices; ++s) t += acc[s][c];
+    out[j] = t;
+  }
+}
+
+// -- launchers ---------------------------------------------------------------
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Runs f(Tag<T1>, Tag<T2>) for the two type codes (0 = float32,
+// 1 = bfloat16); `fallback` for any other code.
+template <typename F>
+int by_types(int t1, int t2, int fallback, F f) {
+  using bf16 = __nv_bfloat16;
+  if (t1 == 0 && t2 == 0) return f(Tag<float>{}, Tag<float>{});
+  if (t1 == 0 && t2 == 1) return f(Tag<float>{}, Tag<bf16>{});
+  if (t1 == 1 && t2 == 0) return f(Tag<bf16>{}, Tag<float>{});
+  if (t1 == 1 && t2 == 1) return f(Tag<bf16>{}, Tag<bf16>{});
+  return fallback;
 }
 
 struct FwdArgs {
@@ -167,7 +432,7 @@ struct BwdArgs {
   const void *x, *dy;
   const float *mu, *rs, *gamma;
   void* dx;
-  float *dg_part, *db_part;
+  float* part;
   long long N;
   int D;
   cudaStream_t stream;
@@ -175,8 +440,12 @@ struct BwdArgs {
 
 int bwd_smem(int D) { return kBwdWarps * 2 * D * static_cast<int>(sizeof(float)); }
 
+int general_blocks(long long N) {
+  return static_cast<int>((N + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
+}
+
 template <typename TX, typename TDY>
-cudaError_t launch_bwd(const BwdArgs& a) {
+cudaError_t launch_general(const BwdArgs& a) {
   static int allowed = 48 * 1024;  // opted-in dynamic shared memory so far
   const int smem = bwd_smem(a.D);
   if (smem > allowed) {
@@ -186,35 +455,80 @@ cudaError_t launch_bwd(const BwdArgs& a) {
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  const long long blocks = (a.N + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
-  ln_bwd_kernel<TX, TDY><<<static_cast<unsigned>(blocks), 32 * kBwdWarps,
-                           smem, a.stream>>>(
+  ln_bwd_kernel<TX, TDY><<<general_blocks(a.N), 32 * kBwdWarps, smem,
+                           a.stream>>>(
       static_cast<const TX*>(a.x), static_cast<const TDY*>(a.dy), a.mu, a.rs,
-      a.gamma, static_cast<TX*>(a.dx), a.dg_part, a.db_part, a.N, a.D);
+      a.gamma, static_cast<TX*>(a.dx), a.part, a.N, a.D);
   return cudaGetLastError();
 }
 
-// Runs L<T1, T2> for the two type codes (0 = float32, 1 = bfloat16).
-template <template <typename, typename> class L, typename A>
-int by_types(int t1, int t2, const A& a) {
-  cudaError_t err = cudaErrorInvalidValue;
-  if (t1 == 0 && t2 == 0) err = L<float, float>::run(a);
-  if (t1 == 0 && t2 == 1) err = L<float, __nv_bfloat16>::run(a);
-  if (t1 == 1 && t2 == 0) err = L<__nv_bfloat16, float>::run(a);
-  if (t1 == 1 && t2 == 1) err = L<__nv_bfloat16, __nv_bfloat16>::run(a);
-  return static_cast<int>(err);
+template <typename TX, typename TDY, int LANES, int CHUNKS, int THREADS,
+          int MINB>
+struct VecBwd {
+  static constexpr int kGroups = THREADS / LANES;
+
+  // the partial rows (= blocks) at N rows: the card's resident capacity,
+  // or fewer when N is small
+  static int blocks(long long N) {
+    static int resident = 0;
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      if (cudaGetDevice(&dev) != cudaSuccess ||
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+              cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm,
+              ln_bwd_vec_kernel<TX, TDY, LANES, CHUNKS, THREADS, MINB>,
+              THREADS, 0) != cudaSuccess)
+        return -1;
+      resident = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    const long long need = (N + kGroups - 1) / kGroups;
+    return static_cast<int>(need < resident ? need : resident);
+  }
+
+  static cudaError_t launch(const BwdArgs& a, int P) {
+    ln_bwd_vec_kernel<TX, TDY, LANES, CHUNKS, THREADS, MINB>
+        <<<P, THREADS, 0, a.stream>>>(
+        static_cast<const TX*>(a.x), static_cast<const TDY*>(a.dy), a.mu,
+        a.rs, a.gamma, static_cast<TX*>(a.dx), a.part, a.N);
+    return cudaGetLastError();
+  }
+};
+
+// f(VecBwd<...>{}) for the widths the vectorised path is built for (the
+// port's models': GptTiny 64, GptMini and BertTiny 128, BertBase 768); -1
+// for any other D, which takes the general kernel. At 64 and 128 a thread
+// needs 64 registers, so 8 warps a block and 2 blocks an SM; D = 768
+// needs about 140 (at 128 it spills), so 6 warps and 2 blocks (12 warps
+// an SM, 170 registers allowed).
+template <typename TX, typename TDY, typename F>
+int by_width(int D, F f) {
+  switch (D) {
+    case 64: return f(VecBwd<TX, TDY, 8, 1, 256, 2>{});
+    case 128: return f(VecBwd<TX, TDY, 16, 1, 256, 2>{});
+    case 768: return f(VecBwd<TX, TDY, 32, 3, 192, 2>{});
+    default: return -1;
+  }
 }
-template <typename A, typename B>
-struct Fwd {
-  static cudaError_t run(const FwdArgs& a) { return launch_fwd<A, B>(a); }
-};
-template <typename A, typename B>
-struct Bwd {
-  static cudaError_t run(const BwdArgs& a) { return launch_bwd<A, B>(a); }
-};
+
+// partial rows of the backward at (N, D) on the chosen path, -1 if the
+// vectorised path has no kernel for D (or the card cannot be queried)
+int partial_rows(int x_dtype, int dy_dtype, long long N, int D, int vec) {
+  if (!vec) return general_blocks(N);
+  return by_types(x_dtype, dy_dtype, -1, [&](auto tx, auto tdy) {
+    using TX = typename decltype(tx)::type;
+    using TDY = typename decltype(tdy)::type;
+    return by_width<TX, TDY>(D, [&](auto k) { return k.blocks(N); });
+  });
+}
 
 bool bad_shape(long long N, int D) {
   return N < 1 || D < 1 || N > 4LL * 0x7fffffffLL;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -233,25 +547,54 @@ int pdtn_layer_norm_fwd(int in_dtype, int out_dtype, const void* x,
     return static_cast<int>(cudaErrorInvalidValue);
   const FwdArgs a{x, gamma, beta, y, mu, rs, N, D, eps,
                   static_cast<cudaStream_t>(stream)};
-  return by_types<Fwd>(in_dtype, out_dtype, a);
+  return by_types(in_dtype, out_dtype, cudaErrorInvalidValue,
+                  [&](auto ti, auto to) {
+                    return static_cast<int>(
+                        launch_fwd<typename decltype(ti)::type,
+                                   typename decltype(to)::type>(a));
+                  });
 }
 
-// Rows per block of the backward: dg_part and db_part are
-// (ceil(N / rows), D) float32.
-int pdtn_layer_norm_bwd_rows_per_block() { return kBwdRowsPerBlock; }
+// Partial rows P of the backward at (N, D): the size of its scratch
+// (2, P, D) float32. vec = 1 for the vectorised path, 0 for the general
+// one. -1 when the vectorised path has no kernel for D.
+int pdtn_layer_norm_bwd_partial_rows(int x_dtype, int dy_dtype, long long N,
+                                     int D, int vec) {
+  if (bad_shape(N, D)) return -1;
+  return partial_rows(x_dtype, dy_dtype, N, D, vec);
+}
 
 // x (N, D) in x_dtype, dy (N, D) in dy_dtype, both row-major contiguous;
-// mu, rs (N,) and gamma (D,) float32. Writes dx (N, D) in x_dtype and the
-// per-block partial sums dg_part, db_part.
-int pdtn_layer_norm_bwd(int x_dtype, int dy_dtype, const void* x,
+// mu, rs (N,) and gamma (D,) float32. Writes dx (N, D) in x_dtype and
+// dgdb (2, D) float32 = (dgamma, dbeta), through part, a (2, P, D) float32
+// scratch with P from pdtn_layer_norm_bwd_partial_rows. vec = 1 takes the
+// vectorised path: D one of its widths and x, dy and dx 16-byte aligned,
+// else cudaErrorInvalidValue / cudaErrorMisalignedAddress. Two launches
+// (rows, then the partial rows' sum) on `stream`.
+int pdtn_layer_norm_bwd(int x_dtype, int dy_dtype, int vec, const void* x,
                         const void* dy, const float* mu, const float* rs,
-                        const float* gamma, void* dx, float* dg_part,
-                        float* db_part, long long N, int D, void* stream) {
-  if (bad_shape(N, D) || bwd_smem(D) > 227 * 1024)
+                        const float* gamma, void* dx, float* part, int P,
+                        float* dgdb, long long N, int D, void* stream) {
+  if (bad_shape(N, D) || (!vec && bwd_smem(D) > 227 * 1024) ||
+      P != partial_rows(x_dtype, dy_dtype, N, D, vec))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{x, dy, mu, rs, gamma, dx, dg_part, db_part, N, D,
+  if (vec && !(aligned16(x) && aligned16(dy) && aligned16(dx)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const BwdArgs a{x, dy, mu, rs, gamma, dx, part, N, D,
                   static_cast<cudaStream_t>(stream)};
-  return by_types<Bwd>(x_dtype, dy_dtype, a);
+  const int err = by_types(x_dtype, dy_dtype, cudaErrorInvalidValue,
+                           [&](auto tx, auto tdy) {
+    using TX = typename decltype(tx)::type;
+    using TDY = typename decltype(tdy)::type;
+    if (!vec) return static_cast<int>(launch_general<TX, TDY>(a));
+    return by_width<TX, TDY>(D, [&](auto k) {
+      return static_cast<int>(k.launch(a, P));
+    });
+  });
+  if (err != cudaSuccess) return err;
+  ln_bwd_sum_kernel<<<(2 * D + kSumCols - 1) / kSumCols,
+                      kSumCols * kSumSlices, 0, a.stream>>>(part, P, D, dgdb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* pdtn_cuda_error_string(int code) {

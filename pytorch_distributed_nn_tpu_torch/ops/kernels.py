@@ -12,6 +12,8 @@ flash_attention_fwd   csrc/flash_attention.cu   ``_flash_fwd_kernel_res``
 flash_attention_dq    csrc/flash_attention.cu   ``_flash_dq_kernel_res``
 flash_attention_dkv   csrc/flash_attention.cu   ``_flash_dkv_kernel_res``
 quantize_int8_scaled  csrc/int8_quant.cu        ``_quant_scaled_kernel_prng``
+                                                (one launch per group of
+                                                up to 64 leaves)
 quantize_int8         csrc/int8_quant.cu        ``_quant_kernel_prng``
 dequantize_int8       csrc/int8_quant.cu        ``_dequant_kernel``
 ====================  ========================  ==============================
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -70,12 +72,23 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: models (GptTiny 16, GptMini and BertTiny 32, BertBase 64)
 FLASH_HEAD_DIMS = (16, 32, 64)
 
+#: widths the vectorised LayerNorm backward is instantiated for
+#: (``by_width`` in csrc/layer_norm.cu): the port's models' (GptTiny 64,
+#: GptMini and BertTiny 128, BertBase 768); the general kernel takes any
+#: other width
+LN_BWD_WIDTHS = (64, 128, 768)
+
+#: leaves one grouped quantize launch covers (``kGroupLeaves`` in
+#: csrc/int8_quant.cu: the descriptor table is the kernel's parameter)
+QUANT_GROUP_LEAVES = 64
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_PP = ctypes.POINTER(ctypes.c_void_p)
 
 
 def reset_launch_counts() -> None:
@@ -95,9 +108,9 @@ _SIGNATURES = {
     "layer_norm": {
         "pdtn_layer_norm_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _F,
                                 _P],
-        "pdtn_layer_norm_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                                _I, _P],
-        "pdtn_layer_norm_bwd_rows_per_block": [],
+        "pdtn_layer_norm_bwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _P, _LL, _I, _P],
+        "pdtn_layer_norm_bwd_partial_rows": [_I, _I, _LL, _I, _I],
     },
     "flash_attention": {
         "pdtn_flash_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -108,7 +121,9 @@ _SIGNATURES = {
                            _F, _P],
     },
     "int8_quant": {
-        "pdtn_quantize_int8_scaled": [_P, _P, _P, _LL, _U, _I, _P],
+        "pdtn_quantize_int8_scaled_group": [
+            _I, _PP, _PP, _PP, ctypes.POINTER(_LL), ctypes.POINTER(_U),
+            ctypes.POINTER(_I), _P],
         "pdtn_quantize_int8": [_P, _P, _P, _P, _LL, _U, _I, _P],
         "pdtn_dequantize_int8": [_P, _P, _P, _LL, _I, _P],
     },
@@ -259,11 +274,25 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return _ln_forward(x, gamma, beta, eps, out_dtype, with_stats=True)
 
 
+def layer_norm_bwd_vectorised(x: torch.Tensor, dy: torch.Tensor,
+                              dx: torch.Tensor) -> bool:
+    """Which backward kernel takes these contiguous operands: the
+    vectorised one (rows in registers, 16-byte loads) when D is one of
+    :data:`LN_BWD_WIDTHS` and x, dy and dx start on 16-byte boundaries
+    (every row then does: D * elem is a multiple of 16), else the general
+    one (scalar loads, any D). A dispatch on shape and alignment; both
+    compute the same function."""
+    return x.shape[-1] in LN_BWD_WIDTHS and bool(
+        _aligned((x, 16), (dy, 16), (dx, 16)))
+
+
 def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mu: torch.Tensor,
                    rs: torch.Tensor, dy: torch.Tensor):
-    """(dx in x's dtype, dgamma, dbeta): the backward kernel's dx and
-    per-block partials, the partials summed here (``torch.sum``, as the
-    JAX package sums them outside the kernel)."""
+    """(dx in x's dtype, dgamma, dbeta): the backward kernel's dx, and
+    its per-block partial rows of dgamma / dbeta summed in a fixed order
+    by its second kernel (the JAX package sums its partials outside the
+    kernel). One count per call; the kernel is chosen by
+    :func:`layer_norm_bwd_vectorised`."""
     if _on_cpu(x, gamma, mu, rs, dy):
         return reference.layer_norm_bwd(x, gamma, mu, rs, dy)
     D, N = _ln_params(x, gamma)
@@ -281,19 +310,22 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mu: torch.Tensor,
         zeros = torch.zeros(D, dtype=torch.float32, device=x.device)
         return dx, zeros, zeros.clone()
     lib = _lib("layer_norm")
-    rows = lib.pdtn_layer_norm_bwd_rows_per_block()
-    part = torch.empty((2, -(-N // rows), D), dtype=torch.float32,
-                       device=x.device)
     x2, dy2 = x.contiguous(), dy.contiguous()
     mu, rs, gamma = mu.contiguous(), rs.contiguous(), gamma.contiguous()
+    vec = int(layer_norm_bwd_vectorised(x2, dy2, dx))
+    P = lib.pdtn_layer_norm_bwd_partial_rows(x_code, dy_code, N, D, vec)
+    if P < 1:
+        raise RuntimeError(f"layer_norm_bwd: no partial rows for N={N}, "
+                           f"D={D} (vectorised={vec})")
+    part = torch.empty((2, P, D), dtype=torch.float32, device=x.device)
+    dgdb = torch.empty((2, D), dtype=torch.float32, device=x.device)
     rc = lib.pdtn_layer_norm_bwd(
-        x_code, dy_code, x2.data_ptr(), dy2.data_ptr(), mu.data_ptr(),
-        rs.data_ptr(), gamma.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), N, D, _stream(x),
+        x_code, dy_code, vec, x2.data_ptr(), dy2.data_ptr(), mu.data_ptr(),
+        rs.data_ptr(), gamma.data_ptr(), dx.data_ptr(), part.data_ptr(), P,
+        dgdb.data_ptr(), N, D, _stream(x),
     )
     _check(lib, "layer_norm_bwd", rc)
-    sums = part.sum(dim=1)
-    return dx, sums[0], sums[1]
+    return dx, dgdb[0], dgdb[1]
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -511,29 +543,55 @@ def _aligned(*pairs) -> int:
     return int(all(t.data_ptr() % b == 0 for t, b in pairs))
 
 
+def quantize_int8_scaled_group(xs: Sequence[torch.Tensor], scales,
+                               seeds: Sequence[int]) -> List[torch.Tensor]:
+    """Stochastic int8 rounding of a group of leaves, each with its given
+    scale: ``q_i = clip(floor(x_i / scale_i + u_i), -127, 127)``, x_i f32
+    of any shape -> int8 of x_i's shape. ``scales`` holds one f32 value per
+    leaf: a (k,) tensor, or a sequence of one-value tensors (read on the
+    device, no host sync) or numbers; ``u_i`` comes from Philox4x32-10
+    keyed by the 32-bit ``seeds[i]`` (:func:`.reference.philox_uniform`),
+    numbered within the leaf. One launch, counted once, covers up to
+    :data:`QUANT_GROUP_LEAVES` non-empty leaves."""
+    xs, seeds = list(xs), list(seeds)
+    if torch.is_tensor(scales):
+        scales = scales.reshape(-1).unbind()
+    scales = list(scales)
+    if not len(xs) == len(scales) == len(seeds):
+        raise ValueError(f"quantize_int8_scaled_group: {len(xs)} leaves, "
+                         f"{len(scales)} scales, {len(seeds)} seeds")
+    if not xs:
+        return []
+    if _on_cpu(*xs, *(s for s in scales if torch.is_tensor(s))):
+        return reference.quantize_int8_scaled_group(xs, scales, seeds)
+    device = xs[0].device
+    xs = [_int8_operands(x, "quantize_int8_scaled") for x in xs]
+    scales = [_scale_tensor(s, device) for s in scales]
+    qs = [torch.empty(x.shape, dtype=torch.int8, device=device) for x in xs]
+    live = [i for i, x in enumerate(xs) if x.numel()]
+    lib = _lib("int8_quant")
+    for start in range(0, len(live), QUANT_GROUP_LEAVES):
+        idx = live[start:start + QUANT_GROUP_LEAVES]
+        k = len(idx)
+        ptrs = [(ctypes.c_void_p * k)(*(t[i].data_ptr() for i in idx))
+                for t in (xs, qs, scales)]
+        rc = lib.pdtn_quantize_int8_scaled_group(
+            k, *ptrs, (_LL * k)(*(xs[i].numel() for i in idx)),
+            (_U * k)(*(int(seeds[i]) & 0xFFFFFFFF for i in idx)),
+            (_I * k)(*(_aligned((xs[i], 16), (qs[i], 4)) for i in idx)),
+            _stream(xs[0]))
+        _check(lib, "quantize_int8_scaled", rc)
+    return qs
+
+
 def quantize_int8_scaled(x: torch.Tensor, scale, seed: int) -> torch.Tensor:
     """Stochastic int8 rounding with a given scale: ``clip(floor(x / scale
     + u), -127, 127)``, x f32 of any shape -> int8 of x's shape. ``scale``
     is a one-value f32 tensor (read on the device, no host sync) or a
     number; ``u`` comes from Philox4x32-10 keyed by the 32-bit ``seed``
-    (:func:`.reference.philox_uniform`)."""
-    if _on_cpu(x) and not (torch.is_tensor(scale) and scale.is_cuda):
-        return reference.quantize_int8_scaled(x, scale, seed=seed)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_int8_scaled: x on {x.device}, scale on "
-                         "the card")
-    x2 = _int8_operands(x, "quantize_int8_scaled")
-    s = _scale_tensor(scale, x.device)
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    n = x2.numel()
-    if n == 0:
-        return q
-    lib = _lib("int8_quant")
-    rc = lib.pdtn_quantize_int8_scaled(
-        x2.data_ptr(), s.data_ptr(), q.data_ptr(), n, int(seed) & 0xFFFFFFFF,
-        _aligned((x2, 16), (q, 4)), _stream(x))
-    _check(lib, "quantize_int8_scaled", rc)
-    return q
+    (:func:`.reference.philox_uniform`). A group of one leaf
+    (:func:`quantize_int8_scaled_group`)."""
+    return quantize_int8_scaled_group([x], [scale], [seed])[0]
 
 
 def quantize_int8(x: torch.Tensor, seed: int):

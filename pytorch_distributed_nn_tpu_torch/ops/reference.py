@@ -18,7 +18,7 @@ x's leading shape, f32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +247,22 @@ def quantize_int8_scaled(x: torch.Tensor, scale, seed: Optional[int] = None,
     ``u`` is given, or drawn from ``seed`` as the kernel draws it."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     return _round_stochastic(x, scale, _noise(x, seed, u))
+
+
+def quantize_int8_scaled_group(xs: Sequence[torch.Tensor], scales,
+                               seeds: Optional[Sequence[int]] = None,
+                               us: Optional[Sequence[torch.Tensor]] = None
+                               ) -> List[torch.Tensor]:
+    """The grouped ``quantize_int8_scaled``: :func:`quantize_int8_scaled`
+    of each leaf with its scale (``scales`` a (k,) tensor or a sequence of
+    one value each) and its seed, or its given noise ``us[i]``."""
+    if torch.is_tensor(scales):
+        scales = scales.reshape(-1).unbind()
+    n = len(xs)
+    seeds = [None] * n if seeds is None else seeds
+    us = [None] * n if us is None else us
+    return [quantize_int8_scaled(x, s, seed=k, u=u)
+            for x, s, k, u in zip(xs, scales, seeds, us)]
 
 
 def quantize_int8(x: torch.Tensor, seed: Optional[int] = None,

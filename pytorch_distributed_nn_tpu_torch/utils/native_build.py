@@ -131,27 +131,43 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                      r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|Li(\d+)E")
+_TEMPLATE_ARG = re.compile(r"f|13__nv_bfloat16|S([0-9A-Z]*)_|Li(\d+)E")
 
 
 def _kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled (template) kernel in a namespace, the
     arguments read as ``float``, ``bf16`` and integers; anything else
-    comes back as it is."""
+    comes back as it is. A repeated class-type argument is mangled as a
+    substitution (``S<seq>_``) that refers back to an earlier component:
+    the namespace, the template or a class-type argument, in that order
+    (``S_`` the first, ``S0_`` the second, ``S1_`` the third); it reads
+    ``bf16`` when it refers to an earlier ``__nv_bfloat16``."""
     if not mangled.startswith("_ZN"):
         return mangled
-    i, name = 3, None
+    i, name, table = 3, None, []  # table: the substitution candidates
     while i < len(mangled) and mangled[i].isdigit():  # length-prefixed
         j = i
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        table.append(name)
     if name is None or not mangled.startswith("I", i):
         return name or mangled
     args, i = [], i + 1
     while (m := _TEMPLATE_ARG.match(mangled, i)):
-        args.append(m.group(1) or ("float" if m.group(0) == "f" else "bf16"))
+        if m.group(0) == "13__nv_bfloat16":
+            table.append("bf16")
+        if m.group(1) is not None:  # a substitution
+            k = int(m.group(1), 36) + 1 if m.group(1) else 0
+            if k >= len(table) or table[k] != "bf16":
+                return mangled
+            args.append("bf16")
+        else:
+            args.append(m.group(2) or ("float" if m.group(0) == "f"
+                                       else "bf16"))
         i = m.end()
+    if not mangled.startswith("E", i):
+        return mangled
     return f"{name}<{','.join(args)}>"
 
 

@@ -371,8 +371,74 @@ def test_cuda_model_gradients_match_the_plain_model(card, network):
         assert rel <= chip_smoke.GRAD_TOL, name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dy_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dm", [64, 96, 128, 200, 768, 1024])
+def test_cuda_layer_norm_backward_kernels_match_plain(card, x_dt, dy_dt, Dm):
+    """Both backward kernels against the plain version: the vectorised one
+    at the widths it is built for, the general one at the others and on a
+    copy of x one element off a 16-byte boundary; N = 1 and row counts no
+    block size divides; two launches equal bit for bit; one count per
+    call."""
+    gen = torch.Generator().manual_seed(Dm)
+    g = (torch.rand(Dm, generator=gen) + 0.5).to(card)
+    dx_tol = (1e-4, 1e-4) if x_dt == torch.float32 else (2e-2, 1e-2)
+    for N in (1, 37, 1000):
+        x = (torch.randn((N, Dm), generator=gen) * 3 + 1).to(card, x_dt)
+        dy = torch.randn((N, Dm), generator=gen).to(card, dy_dt)
+        _, mu, rs = reference.layer_norm_fwd(x, g, torch.zeros_like(g))
+        want = reference.layer_norm_bwd(x, g, mu, rs, dy)
+        x_off = torch.empty(N * Dm + 1, dtype=x_dt, device=card)[1:]
+        x_off = x_off.view(N, Dm).copy_(x)
+        for xin, vec in ((x, Dm in kernels.LN_BWD_WIDTHS), (x_off, False)):
+            assert kernels.layer_norm_bwd_vectorised(
+                xin, dy, torch.empty_like(x)) == vec
+            before = kernels.launch_counts()["layer_norm_bwd"]
+            got = kernels.layer_norm_bwd(xin, g, mu, rs, dy)
+            again = kernels.layer_norm_bwd(xin, g, mu, rs, dy)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["layer_norm_bwd"] == before + 2
+            for a, b in zip(got, again):
+                assert torch.equal(a, b)
+            assert got[0].dtype == x_dt and got[0].shape == x.shape
+            assert _excess(got[0], want[0], *dx_tol) <= 0
+            for a, w in zip(got[1:], want[1:]):
+                assert a.shape == (Dm,) and _excess(a, w, 1e-4, 1e-4) <= 0
+
+
 # -- the int8 gradient codec: kernel and plain version equal bit for bit
 # (the same Philox noise, IEEE division, the same floor and clip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [
+    (1,), (3,), (16384,), (36865,), (2359296,), (1, 3, 16384, 36865, 2359296),
+    tuple(1 + 997 * i for i in range(70)), (), (5, 0, 16384)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_cuda_quantize_int8_scaled_group_equals_plain_bitwise(card, sizes,
+                                                              misaligned):
+    """One grouped launch per 64 non-empty leaves (none for an empty
+    group), each leaf bit for bit its plain quantize with its own scale
+    and seed; ``misaligned`` starts every leaf one element off its
+    16-byte boundary (such a leaf goes element by element)."""
+    rng = np.random.RandomState(len(sizes))
+    xs = [torch.from_numpy((rng.randn(n + misaligned) * rng.uniform(0.01, 1))
+                           .astype(np.float32)).to(card)[misaligned:]
+          for n in sizes]
+    scales = torch.tensor([x.abs().max().item() / 127.0 if x.numel() else 1.0
+                           for x in xs], device=card)
+    seeds = [1000 + 7 * i for i in range(len(sizes))]
+    live = sum(n > 0 for n in sizes)
+    before = kernels.launch_counts()["quantize_int8_scaled"]
+    got = kernels.quantize_int8_scaled_group(xs, scales, seeds)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quantize_int8_scaled"] == before + -(
+        -live // kernels.QUANT_GROUP_LEAVES)
+    want = reference.quantize_int8_scaled_group(xs, scales, seeds)
+    assert len(got) == len(sizes)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int8 and torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -423,8 +489,9 @@ def test_cuda_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 @pytest.mark.cuda
 def test_cuda_int8_sync_on_one_nccl_rank_equals_the_plain_quantizer(card):
-    """GradSync int8 over a world-size-1 NCCL group: the kernel on the
-    large leaves, bit for bit the plain quantizer's result."""
+    """GradSync int8 over a world-size-1 NCCL group: one grouped kernel
+    launch over the large leaves, bit for bit the plain grouped
+    quantizer's result."""
     from pytorch_distributed_nn_tpu_torch.ops import compression
     from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
         make_grad_sync,
@@ -434,15 +501,14 @@ def test_cuda_int8_sync_on_one_nccl_rank_equals_the_plain_quantizer(card):
     group, dev = init_group(card)
     rng = np.random.RandomState(2)
     grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
-             for s in ((512, 512, 3, 3), (64,), (100, 64))]
+             for s in ((512, 512, 3, 3), (64,), (100, 64), (256, 128, 3, 3))]
     sync = make_grad_sync(group, compression="int8")
     before = kernels.launch_counts()["quantize_int8_scaled"]
     got = sync(grads, 123)
     assert kernels.launch_counts()["quantize_int8_scaled"] == before + 1
     want = compression.int8_psum_mean(
         grads, compression.leaf_seeds(123, 2)[1], group,
-        scaled_quantizer=lambda x, s, seed: reference.quantize_int8_scaled(
-            x, s, seed=seed))
+        group_quantizer=reference.quantize_int8_scaled_group)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -199,17 +199,25 @@ def test_wrappers_on_cpu_tensors_take_the_plain_versions():
 
 
 def test_quantize_leaf_dispatches_by_size_as_the_jax_package():
+    """Every leaf of at least 16384 elements goes to the grouped quantizer,
+    all of them in one call; the smaller ones take the small-leaf formula."""
     big = torch.from_numpy(_grad_like(compression.QUANT_KERNEL_MIN_SIZE, 1))
     small = big[:-1].clone()
     calls = []
 
-    def spy(x, scale, seed):
-        calls.append(x.numel())
-        return reference.quantize_int8_scaled(x, scale, seed=seed)
+    def spy(xs, scales, seeds):
+        calls.append([x.numel() for x in xs])
+        return reference.quantize_int8_scaled_group(xs, scales, seeds)
 
-    for g in (big, small):
-        compression.quantize_leaf(g, 5, g.abs().amax(), spy)
-    assert calls == [compression.QUANT_KERNEL_MIN_SIZE]
+    leaves = [small, big, small, big * 2]
+    amax = torch.stack([g.abs().amax() for g in leaves])
+    qs = compression.quantize_leaves(leaves, [5, 6, 7, 8], amax, spy)
+    assert calls == [[compression.QUANT_KERNEL_MIN_SIZE] * 2]
+    assert [q.shape for q in qs] == [g.shape for g in leaves]
+    assert torch.equal(qs[3], reference.quantize_int8_scaled(
+        leaves[3], amax[3] * reference.RECIP127, seed=8))
+    assert torch.equal(qs[0], compression.quantize_small_leaf(
+        small, amax[0], compression.leaf_noise(small.shape, 5, "cpu")))
     assert jax_compression._PALLAS_QUANT_MIN_SIZE \
         == compression.QUANT_KERNEL_MIN_SIZE
 
@@ -228,5 +236,71 @@ def test_int8_psum_mean_single_contributor_equals_jax_bitwise():
         [jnp.asarray(g) for g in leaves], jax.random.PRNGKey(0), None)
     got = compression.int8_psum_mean([torch.from_numpy(g) for g in leaves],
                                      123, None)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("sizes", [(16384,), (16384, 40000, 131073),
+                                   (1, 3, 20000)])
+def test_quantize_int8_scaled_group_plain_equals_pallas_bitwise(sizes):
+    """The plain grouped quantize is the Pallas ``quantize_int8_scaled``
+    leaf by leaf, each leaf with its own scale and the noise its own call
+    draws in interpret mode."""
+    xs, scales, us, want = [], [], [], []
+    for i, n in enumerate(sizes):
+        seed = 77 + 13 * i + n
+        x = _grad_like(n, seed)
+        scale = np.float32(np.abs(x).max() / 127.0)
+        want.append(np.asarray(jax_quantize_int8_scaled(
+            jnp.asarray(x).reshape(1, -1), seed, scale)).reshape(-1))
+        xs.append(torch.from_numpy(x))
+        scales.append(scale)
+        us.append(torch.from_numpy(_jax_scaled_noise(seed, n)))
+    got = reference.quantize_int8_scaled_group(
+        xs, torch.tensor(np.asarray(scales)), us=us)
+    assert len(got) == len(sizes)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int8
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_quantize_int8_scaled_group_wrapper_on_cpu_is_the_plain_group():
+    """On CPU tensors the grouped wrapper is the plain group (a leaf per
+    seed, scales as a vector or one value each), launches nothing, and
+    an empty group gives an empty list."""
+    xs = [torch.from_numpy(_grad_like(n, n)) for n in (5, 16384, 70000)]
+    scales = torch.stack([x.abs().amax() / 127.0 for x in xs])
+    before = kernels.launch_counts()
+    got = kernels.quantize_int8_scaled_group(xs, scales, [1, 2, 3])
+    for x, s, k, q in zip(xs, scales, (1, 2, 3), got):
+        assert torch.equal(q, reference.quantize_int8_scaled(x, s, seed=k))
+    again = kernels.quantize_int8_scaled_group(xs, list(scales), [1, 2, 3])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert kernels.quantize_int8_scaled_group([], [], []) == []
+    with pytest.raises(ValueError):
+        kernels.quantize_int8_scaled_group(xs, scales, [1, 2])
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("sizes", [(20000, 300, 16384, 7, 50000),
+                                   (300, 20000)])
+def test_int8_psum_mean_stacked_amax_single_contributor_equals_jax_bitwise(
+        sizes):
+    """The port reduces every leaf's amax as one vector and quantizes the
+    large leaves in one grouped call; with one contributor (no collective)
+    it still equals the JAX per-leaf sync bit for bit on scale-exact
+    gradients (an all-zero leaf included, whose scale is 0)."""
+    rng = np.random.RandomState(len(sizes))
+    leaves = []
+    for n in sizes:
+        g = rng.randint(-127, 128, size=n).astype(np.float32)
+        g[n // 2] = 127.0
+        leaves.append(g)
+    leaves.append(np.zeros(16384, np.float32))
+    want = jax_compression.int8_psum_mean(
+        [jnp.asarray(g) for g in leaves], jax.random.PRNGKey(1), None)
+    got = compression.int8_psum_mean([torch.from_numpy(g) for g in leaves],
+                                     9, None)
+    assert len(got) == len(leaves)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -181,3 +181,39 @@ def test_layer_norm_outside_autograd_is_the_serving_forward():
     assert kernels.layer_norm(tx, tg, tb).grad_fn is not None
     with torch.no_grad():
         assert kernels.layer_norm(tx, tg, tb).grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dm", [64, 96, 128, 200, 768, 1024])
+def test_layer_norm_bwd_dispatch_by_width_and_alignment(Dm, dtype):
+    """The backward takes its vectorised kernel for the widths it is built
+    for when x, dy and dx start on 16-byte boundaries, and its general
+    kernel for any other width or a row that is not aligned."""
+    x = torch.zeros((5, Dm), dtype=dtype)
+    dy = torch.zeros((5, Dm), dtype=torch.float32)
+    dx = torch.empty_like(x)
+    assert kernels.layer_norm_bwd_vectorised(x, dy, dx) == (
+        Dm in kernels.LN_BWD_WIDTHS)
+    flat = torch.zeros(5 * Dm + 1, dtype=dtype)
+    shifted = flat[1:].view(5, Dm)  # one element off the boundary
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert not kernels.layer_norm_bwd_vectorised(shifted, dy, dx)
+    assert kernels.LN_BWD_WIDTHS == (64, 128, 768)
+
+
+@pytest.mark.parametrize("N,Dm", [(1, 64), (33, 128), (9, 768)])
+def test_layer_norm_bwd_plain_matches_jax_vjp_at_kernel_widths(N, Dm):
+    """At each width the vectorised kernel is built for, and one row,
+    the plain backward (the kernel's CPU path) against
+    ``jax.vjp(fused_layer_norm)``."""
+    x, g, b, dy = _ln_inputs(N, Dm, seed=N + Dm)
+    _, vjp = jax.vjp(
+        lambda a, c, d: fused_layer_norm(a, c, d, 1e-6,
+                                         out_dtype=jnp.float32),
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(dy))
+    tx, tg, tb, tdy = map(torch.from_numpy, (x, g, b, dy))
+    _, mu, rs = kernels.layer_norm_fwd(tx, tg, tb, 1e-6, torch.float32)
+    got = kernels.layer_norm_bwd(tx, tg, mu, rs, tdy)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4)

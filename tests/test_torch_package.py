@@ -174,3 +174,63 @@ def test_ptxas_report_is_read_per_kernel():
         "flash_dkv_kernel<float,32>": {"registers": 128, "stack": 8,
                                        "spill_stores": 8, "spill_loads": 4},
     }
+
+
+_LN_NS = "_ZN46_GLOBAL__N__772f812e_13_layer_norm_cu_42f3f65717"
+
+
+@pytest.mark.parametrize("mangled,name", [
+    # entry names as an sm_90a build of csrc/layer_norm.cu and
+    # csrc/int8_quant.cu prints them (``ptxas -v``, ``cuobjdump -sass``)
+    (_LN_NS + "ln_bwd_vec_kernelI13__nv_bfloat16S1_Li32ELi3ELi192ELi2EEEvPKT_"
+     "PKT0_PKfS9_S9_PS2_Pfx", "ln_bwd_vec_kernel<bf16,bf16,32,3,192,2>"),
+    (_LN_NS + "ln_bwd_vec_kernelI13__nv_bfloat16fLi32ELi3ELi192ELi2EEEvPKT_"
+     "PKT0_PKfS9_S9_PS2_Pfx", "ln_bwd_vec_kernel<bf16,float,32,3,192,2>"),
+    (_LN_NS + "ln_bwd_vec_kernelIf13__nv_bfloat16Li8ELi1ELi256ELi2EEEvPKT_"
+     "PKT0_PKfS9_S9_PS2_Pfx", "ln_bwd_vec_kernel<float,bf16,8,1,256,2>"),
+    (_LN_NS + "ln_bwd_vec_kernelIffLi16ELi1ELi256ELi2EEEvPKT_PKT0_PKfS8_S8_"
+     "PS1_Pfx", "ln_bwd_vec_kernel<float,float,16,1,256,2>"),
+    (_LN_NS + "ln_bwd_sum_kernelEPKfiiPf", "ln_bwd_sum_kernel"),
+    ("_ZN46_GLOBAL__N__d77a33f1_13_int8_quant_cu_ae572f0118quant_group_"
+     "kernelENS_9LeafGroupE", "quant_group_kernel"),
+    # a substitution for the namespace (S_) or the template (S0_) is not
+    # bf16: the name comes back as it is
+    (_LN_NS + "ln_bwd_vec_kernelI13__nv_bfloat16S_Li8ELi1ELi256ELi2EEEvPKT_",
+     None),
+    (_LN_NS + "ln_bwd_vec_kernelI13__nv_bfloat16S0_Li8ELi1ELi256ELi2EEEvPKT_",
+     None),
+])
+def test_ptxas_names_tell_every_instantiation_apart(mangled, name):
+    """Each instantiation of the vectorised LayerNorm backward keeps its
+    own entry (a repeated bf16 argument is mangled as a substitution), so
+    ``chip_smoke.py`` can hold every one of them to no spills."""
+    from pytorch_distributed_nn_tpu_torch.utils.native_build import (
+        _kernel_name,
+    )
+
+    assert _kernel_name(mangled) == (mangled if name is None else name)
+
+
+def test_chip_smoke_profile_knows_every_kernel_of_the_sources():
+    """``chip_smoke.py --out`` reports each of the port's CUDA kernels
+    apart in its step profiles; the kernels it looks for are read from
+    the sources, so a new kernel is reported without a list to keep."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    names = chip_smoke.port_kernel_names()
+    for want in ("decode_attn_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+                 "ln_bwd_vec_kernel", "ln_bwd_sum_kernel",
+                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                 "flash_dkv_tc_kernel", "quant_group_kernel",
+                 "dequant_kernel"):
+        assert want in names
+    from pytorch_distributed_nn_tpu_torch.ops import kernels
+
+    sources = "".join((REPO / "pytorch_distributed_nn_tpu_torch" / "ops"
+                       / "csrc" / f"{lib}.cu").read_text()
+                      for lib in kernels.LIBRARIES)
+    assert len(names) == sources.count("__global__")
