@@ -12,14 +12,17 @@ Phases, each printed on its own line:
 2. build every hand-written kernel from ``pytorch_distributed_nn_tpu_torch/
    ops/csrc/`` (one ``nvcc`` per source, in parallel), timed; print
    ``ptxas -v``'s registers, stack and spills of the flash kernels, the
-   vectorised LayerNorm backward and the grouped quantize, and fail if a
-   bf16 tensor-core flash kernel, a vectorised LayerNorm backward or the
-   grouped quantize spills;
+   vectorised LayerNorm backward, the grouped and the own-scale quantize
+   and every decode attention instantiation, and fail if a bf16
+   tensor-core flash kernel or any of the others spills;
 3. hold each kernel against its plain PyTorch version on the card, with
    TF32 off for the f32 comparisons: decode attention over every (batch
-   bucket, cache bucket) pair of GptMini and LayerNorm at (N, 128), as
-   before; flash attention forward (out, lse), dq and dk/dv at BertBase
-   shapes (B 1 and 16, L 128 and 512, 12 heads of 64) and GptMini's
+   bucket, cache bucket) pair of GptMini, on misaligned caches (its scalar
+   branch), on long caches (S 512 and 2048 at 12 heads of 64: the split
+   path) and on 64 x 32 heads, f32 and bf16, each case launched twice and
+   equal bit for bit, and LayerNorm at (N, 128); flash attention forward
+   (out, lse), dq and dk/dv at BertBase shapes (B 1 and 16, L 128 and
+   512, 12 heads of 64) and GptMini's
    (8 x 128, 4 heads of 32, causal), f32 and bf16, with and without a pad
    mask, causal and not, and ragged L (77, 200, 333) at head dims 16, 32
    and 64; each flash kernel launched twice per case, bit for bit equal;
@@ -32,14 +35,17 @@ Phases, each printed on its own line:
    the int8 codec (quantize_int8_scaled at n from 1 to 2,359,296; the
    grouped quantize over ResNet-18's 18 kernel-sized leaves in one launch,
    over 70 leaves in two, with a misaligned leaf, and an empty group in
-   none; quantize_int8 and dequantize_int8 at 2-D shapes) bit for bit,
+   none; quantize_int8 and dequantize_int8 at 2-D shapes, and
+   quantize_int8 on both sides of the elements its grid holds in
+   registers, at one element and all zero, aligned and not) bit for bit,
    then the largest leaf's mean rounding error within 4 standard errors
    of 0 and another seed giving another q. Fails past the stated
    tolerance;
 4. serving: write a random-init GptMini artifact, serve it with the
    port's server on an ephemeral port, answer a burst of concurrent
    ``POST /v1/generate`` requests; check the responses, that the serving
-   kernels launched, that no kernel was built after warmup
+   kernels launched (decode attention exactly once per layer per decode
+   step), that no kernel was built after warmup
    (``retraces() == 0``), and one request's served logits against a
    full-recompute plain forward on the card;
 5. training: BertBase at full width (12 x 768, L 512, vocab 30522) through
@@ -71,8 +77,10 @@ Phases, each printed on its own line:
    for bit equal leaf by leaf;
 6. timings: each kernel, its plain version and the nearest single
    PyTorch call by CUDA-graph replay (the serving kernels at GptMini's
-   decode shapes as before; the training kernels at BertBase's training
-   shapes, bf16, with the achieved TFLOP/s of the flash kernels),
+   decode shapes as before, and decode attention off that path: long
+   caches and heads enough to fill the card; the training kernels at
+   BertBase's training shapes, bf16, with the achieved TFLOP/s of the
+   flash kernels),
    beside the least time the card could take; the
    serving decode step, tokens/s and TTFT; the BertBase training step
    and tokens/s with ``--attn-impl pallas`` and, as a second line,
@@ -165,6 +173,12 @@ TRAIN_STEPS = 10
 INT8_SIZES = (1, 1000, 16383, 16384, 131072, 131073, 2359296)
 INT8_SHAPES = ((1, 1), (8, 125), (127, 129), (128, 128), (257, 510),
                (4608, 512))
+#: decode attention off GptMini's path: long caches at BertBase's head
+#: width (H = 12, D = 64; the split path, and at 16384 keys several
+#: rounds of scores a warp), and (B, H) heads enough to fill the card
+#: (2048 warps)
+DECODE_LONG_S = (512, 2048, 16384)
+DECODE_FILL = (64, 32)
 #: a group of more leaves than one grouped launch takes (64): two launches
 INT8_GROUP_CHUNKED = tuple(1 + 997 * i for i in range(70))
 #: ResNet-18 on the synthetic CIFAR-10: 60 steps of SGD at lr 0.05,
@@ -253,6 +267,67 @@ def attn_cost(B, S, H, D, elem, positions):
     nbytes = 2 * B * H * D * elem + 2 * live * H * D * elem + 4 * B
     flops = live * H * (4 * D + 4)
     return nbytes, flops
+
+
+def misaligned(t):
+    """A copy of ``t`` one element past a 16-byte boundary (same shape,
+    contiguous): the decode kernel stages it with scalar loads."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_decode(kernels, reference, gen, H, Dh):
+    """Phase 3, decode attention against its plain version on the card,
+    f32 and bf16, each case launched twice and equal bit for bit: every
+    (batch, cache) bucket of GptMini (one warp a head), the largest on
+    misaligned caches (the scalar branch), the long caches of
+    :data:`DECODE_LONG_S` at H = 12, D = 64 (the split path), and
+    :data:`DECODE_FILL` heads. Returns the (name, dtype, B, S, err)
+    cases."""
+    import numpy as np
+    import torch
+
+    cases = [(B, S, H, Dh, False) for S in (16, 32, 64, 128)
+             for B in (1, 2, 4, 8)]
+    cases += [(8, 128, H, Dh, True), (3, 77, H, Dh, True)]
+    cases += [(2, S, 12, 64, mis) for S in DECODE_LONG_S
+              for mis in (False, True)]
+    cases.append((DECODE_FILL[0], 128, DECODE_FILL[1], Dh, False))
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for B, S, nh, D, mis in cases:
+            rng = np.random.RandomState(S * 10 + B)
+            pos = rng.randint(0, S, size=B)
+            pos[0], pos[-1] = 0, S - 1
+            q, k, v, p = attn_inputs(B, S, nh, D, dtype, pos, gen)
+            if mis:
+                k, v = misaligned(k), misaligned(v)
+            vec = kernels.decode_vector_loads(k, v)
+            plan = kernels.decode_launch_plan(B, nh, S, D, q.element_size())
+            if vec == mis or (plan["warps_per_head"] > 1) != (S > 128):
+                fail(f"decode_attention B={B} S={S} H={nh} D={D}: vector "
+                     f"loads {vec} on a {'mis' if mis else ''}aligned "
+                     f"cache, plan {plan}")
+            got = kernels.decode_attention(q, k, v, p)
+            again = kernels.decode_attention(q, k, v, p)
+            torch.cuda.synchronize()
+            want = reference.decode_attention(q, k, v, p)
+            err = (got.float() - want.float()).abs().max().item()
+            what = (f"decode_attention B={B} S={S} H={nh} D={D} {dtype}"
+                    + (" misaligned" if mis else ""))
+            if not torch.equal(got, again):
+                fail(f"{what}: two launches differ")
+            if not err <= tol:
+                fail(f"{what}: max abs err {err} > {tol}")
+            checks.append(("decode_attention",
+                           str(dtype) + (" misaligned" if mis else ""),
+                           B, S if nh == H else f"{S} H={nh} D={D}", err))
+    return checks
 
 
 def ln_cost(N, D, in_elem, out_elem):
@@ -354,6 +429,37 @@ def sweep(kernels, reference, F, H, Dh, d_model, gen):
                     x.float(), (d_model,), g, b, 1e-6)),
                 "bound_ms": bound_ms(*ln_cost(N, d_model, elem, 4))[0],
             })
+    return rows
+
+
+def time_decode_off_path(kernels, reference, F, gen):
+    """Phase 6 rows of decode attention off GptMini's path: the long
+    caches of :data:`DECODE_LONG_S` at B = 2, H = 12, D = 64 (the split
+    path), f32 and bf16, and :data:`DECODE_FILL` heads at S = 128, f32;
+    every key live."""
+    import torch
+
+    rows = []
+    cases = [(2, S, 12, 64, dt) for dt in (torch.float32, torch.bfloat16)
+             for S in DECODE_LONG_S]
+    cases.append((DECODE_FILL[0], 128, DECODE_FILL[1], 32, torch.float32))
+    for B, S, H, D, dtype in cases:
+        elem = 4 if dtype == torch.float32 else 2
+        pos = [S - 1] * B
+        q, k, v, p = attn_inputs(B, S, H, D, dtype, pos, gen)
+        valid = torch.arange(S, device="cuda")[None] <= p[:, None].long()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bms, by = bound_ms(*attn_cost(B, S, H, D, elem, pos))
+        rows.append({
+            "shape": f"B={B} S={S} H={H} D={D} {str(dtype).split('.')[1]}",
+            "ms": time_ms(lambda: kernels.decode_attention(q, k, v, p)),
+            "plain_ms": time_ms(
+                lambda: reference.decode_attention(q, k, v, p)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=valid[:, None, None, :])),
+            "bound_ms": bms, "bound_by": by,
+            "plan": kernels.decode_launch_plan(B, H, S, D, elem),
+        })
     return rows
 
 
@@ -1017,6 +1123,29 @@ def check_int8_kernels(kernels, reference, gen, leaf_sizes):
             fail(f"dequantize_int8 {shape}: not equal to the plain version")
         cases += [("quantize_int8", str(shape), 0.0),
                   ("dequantize_int8", str(shape), 0.0)]
+    # the own-scale quantize around the elements its grid holds in
+    # registers (past them, a second pass over x in the same launch), at
+    # one element and on an all-zero x (scale 1), aligned and one element
+    # off; launched twice, bit for bit equal
+    held = kernels.quantize_int8_register_elements()
+    for n in (1, held - 3, held, held + 5, 2 * held + 3, 5000):
+        x = (torch.randn(n, generator=gen) * 3).cuda()
+        if n == 5000:
+            x.zero_()
+        seed = n & 0xFFFF
+        for xx, where in ((x, "aligned"), (misaligned(x), "misaligned")):
+            q, s = kernels.quantize_int8(xx, seed)
+            q2, s2 = kernels.quantize_int8(xx, seed)
+            torch.cuda.synchronize()
+            qw, sw = reference.quantize_int8(xx, seed=seed)
+            what = (f"quantize_int8 n={n} ({held} held in registers) "
+                    f"{where}" + (" all zero" if n == 5000 else ""))
+            if not (torch.equal(q, qw) and s.item() == sw.item()):
+                fail(f"{what}: q equal {torch.equal(q, qw)}, scale "
+                     f"{s.item()} vs {sw.item()}")
+            if not (torch.equal(q, q2) and torch.equal(s, s2)):
+                fail(f"{what}: two launches differ")
+            cases.append(("quantize_int8", what, 0.0))
     # unbiased: the mean error over the largest leaf within 4 of its
     # standard errors of 0 (each element's error has variance
     # f (1 - f) scale^2, f the fraction x / scale - floor(x / scale))
@@ -1038,6 +1167,7 @@ def check_int8_kernels(kernels, reference, gen, leaf_sizes):
         fail("quantize_int8_scaled: seeds 7 and 8 gave the same q")
     stats = {"n": n, "mean_err": mean_err, "standard_error": se,
              "differ_other_seed": differ}
+    stats["quantize_int8_register_elements"] = held
     return cases, {k: 0.0 for k in ("quantize_int8_scaled", "quantize_int8",
                                     "dequantize_int8")}, stats
 
@@ -1309,19 +1439,25 @@ def main() -> int:
                            for u in tc.values()):
         fail(f"the tensor-core flash kernels (3 x D in {{16, 32, 64}}) "
              f"must build without spills: {tc}")
-    redesigned = {k: u for lib in ("layer_norm", "int8_quant")
+    redesigned = {k: u for lib in ("layer_norm", "int8_quant",
+                                   "decode_attention")
                   for k, u in ptxas_usage(lib).items()
-                  if k.startswith(("ln_bwd_vec_kernel<", "quant_group_kernel"))}
-    log("phase 2 ptxas -v, layer_norm.cu and int8_quant.cu (sm_90a): "
+                  if k.startswith(("ln_bwd_vec_kernel<", "quant_group_kernel",
+                                   "quant_own_kernel", "decode_attn_kernel<"))}
+    log("phase 2 ptxas -v, layer_norm.cu, int8_quant.cu and "
+        "decode_attention.cu (sm_90a): "
         + "; ".join(f"{k} {u.get('registers')} registers, {u.get('stack')} B "
                     f"stack, {u.get('spill_stores')}/{u.get('spill_loads')} B "
                     "spill stores/loads" for k, u in sorted(redesigned.items())))
     n_vec = 4 * len(kernels.LN_BWD_WIDTHS)
-    if len(redesigned) != n_vec + 1 or any(
+    #: decode: 2 dtypes x (3 head dims + the general one) x 2 slot counts
+    n_decode = 2 * (len(kernels.DECODE_HEAD_DIMS) + 1) * 2
+    if len(redesigned) != n_vec + 2 + n_decode or any(
             u.get("spill_stores", 1) or u.get("spill_loads", 1)
             for u in redesigned.values()):
-        fail(f"the vectorised LayerNorm backward ({n_vec} instantiations) "
-             f"and the grouped quantize must build without spills: "
+        fail(f"the vectorised LayerNorm backward ({n_vec} instantiations), "
+             f"the grouped and the own-scale quantize and decode attention "
+             f"({n_decode} instantiations) must build without spills: "
              f"{redesigned}")
     report["ptxas"] = {**usage, **redesigned}
 
@@ -1329,25 +1465,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
     cfg = build_model("GptMini").config
     H, Dh, d_model = cfg.num_heads, cfg.d_model // cfg.num_heads, cfg.d_model
-    errs = {"decode_attention": 0.0, "layer_norm": 0.0}
-    checks = []
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = TOL[str(dtype).split(".")[1]]
-        for S in (16, 32, 64, 128):
-            for B in (1, 2, 4, 8):
-                rng = np.random.RandomState(S * 10 + B)
-                pos = rng.randint(0, S, size=B)
-                pos[0], pos[-1] = 0, S - 1
-                q, k, v, p = attn_inputs(B, S, H, Dh, dtype, pos, gen)
-                got = kernels.decode_attention(q, k, v, p)
-                torch.cuda.synchronize()
-                want = reference.decode_attention(q, k, v, p)
-                err = (got.float() - want.float()).abs().max().item()
-                checks.append(("decode_attention", str(dtype), B, S, err))
-                errs["decode_attention"] = max(errs["decode_attention"], err)
-                if not err <= tol:
-                    fail(f"decode_attention B={B} S={S} {dtype}: max abs "
-                         f"err {err} > {tol}")
+    checks = check_decode(kernels, reference, gen, H, Dh)
+    errs = {"decode_attention": max(c[-1] for c in checks),
+            "layer_norm": 0.0}
     for in_dt, out_dt in ((torch.float32, torch.float32),
                           (torch.bfloat16, torch.float32)):
         for N, D in ((1, d_model), (8, d_model), (128, d_model),
@@ -1366,7 +1486,11 @@ def main() -> int:
                      f"{err} > {TOL['float32']}")
     log(f"phase 3 kernels vs plain: {len(checks)} cases pass; max abs err "
         f"decode_attention {errs['decode_attention']:.3e} (tol f32 "
-        f"{TOL['float32']}, bf16 {TOL['bfloat16']}), layer_norm "
+        f"{TOL['float32']}, bf16 {TOL['bfloat16']}; every decode case "
+        f"launched twice, bit for bit equal: GptMini's buckets, "
+        f"misaligned caches on the scalar branch, S = "
+        f"{list(DECODE_LONG_S)} at H = 12, D = 64 on the split path, and "
+        f"{DECODE_FILL[0]} x {DECODE_FILL[1]} heads), layer_norm "
         f"{errs['layer_norm']:.3e} (tol {TOL['float32']})")
     train_cases, train_errs = check_training_kernels(kernels, reference, gen)
     atol_needed = train_errs.pop("bf16_bwd_atol_needed")
@@ -1390,7 +1514,11 @@ def main() -> int:
         f"over ResNet-18's {len(resnet_leaf_sizes)} kernel-sized leaves in "
         f"one launch, over {len(INT8_GROUP_CHUNKED)} leaves in two, with a "
         f"misaligned leaf, and an empty group in none; "
-        f"quantize_int8 and dequantize_int8 at {list(INT8_SHAPES)}); "
+        f"quantize_int8 and dequantize_int8 at {list(INT8_SHAPES)}; "
+        f"quantize_int8 around the "
+        f"{int8_stats['quantize_int8_register_elements']} elements its grid "
+        f"holds in registers, at n = 1 and all zero, aligned and not, "
+        f"twice each); "
         f"largest leaf: mean error of q * scale - x {int8_stats['mean_err']:.3e}"
         f" (4 standard errors {4 * int8_stats['standard_error']:.3e}); "
         f"another seed changes {int8_stats['differ_other_seed']} of "
@@ -1429,6 +1557,7 @@ def main() -> int:
         threads = [threading.Thread(target=one, args=(i,))
                    for i in range(len(prompts))]
         kernels.reset_launch_counts()
+        steps_before = engine.decode_steps
         t_burst = time.perf_counter()
         for t in threads:
             t.start()
@@ -1437,12 +1566,19 @@ def main() -> int:
         torch.cuda.synchronize()
         burst_s = time.perf_counter() - t_burst
         launches = kernels.launch_counts()
+        decode_steps = engine.decode_steps - steps_before
     finally:
         scheduler.close()
         server.close()
     for name in ("decode_attention", "layer_norm"):
         if launches[name] < 1:
             fail(f"the serving path never launched kernel {name}: {launches}")
+    # one decode launch per layer per decode step (4 for GptMini), and
+    # none in the prefills
+    if launches["decode_attention"] != cfg.num_layers * decode_steps:
+        fail(f"the burst's {decode_steps} decode steps launched decode "
+             f"attention {launches['decode_attention']} times, not "
+             f"{cfg.num_layers} per step")
     for i, r in enumerate(results):
         if r is None or r[0] != 200:
             fail(f"request {i} failed: {r}")
@@ -1480,7 +1616,8 @@ def main() -> int:
     ttft = sorted(r[1]["ttft_ms"][0] for r in results)
     log(f"phase 4 serve: GptMini (fused_ln, seed {args.seed}) warmed in "
         f"{warm_s:.3f} s; {len(results)} concurrent requests -> 200; "
-        f"launches {launches}; retraces {engine.retraces()}; "
+        f"launches {launches} ({decode_steps} decode steps x "
+        f"{cfg.num_layers} decode launches); retraces {engine.retraces()}; "
         f"fence_violations {engine.fence_violations}; served logits vs "
         f"plain full recompute max abs err {logit_err:.3e} (tol {LOGITS_TOL})")
 
@@ -1611,6 +1748,8 @@ def main() -> int:
         "eager_ms": time_ms(run, graph=False),
         "shape": f"B={B} S={S} H={H} D={Dh} float32, positions S-1",
     })
+    decode_off_path = time_decode_off_path(kernels, reference, F, gen)
+    report["decode_off_path"] = decode_off_path
     N = B
     x = torch.randn((N, d_model), generator=gen).cuda()
     g = torch.ones(d_model, device="cuda")
@@ -1675,6 +1814,11 @@ def main() -> int:
             f"plain {e['plain_ms']:.6f} ms; library {lib}; bound "
             f"{e['bound_ms']:.6f} ms ({e['bound_by']}); launches "
             f"{e['launches']}{extra}")
+    for r in decode_off_path:
+        log(f"phase 6 decode_attention off the main path ({r['shape']}): "
+            f"{r['ms']:.6f} ms; plain {r['plain_ms']:.6f} ms; library "
+            f"{r['library_ms']:.6f} ms; bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}); plan {r['plan']}")
     tok_s = new_tokens / burst_s
     log(f"phase 6 serving: decode step (B={B}, S={S}) {decode_step_ms:.3f} "
         f"ms; burst of {len(results)} requests: {new_tokens} tokens in "

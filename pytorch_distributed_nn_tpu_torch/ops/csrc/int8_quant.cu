@@ -9,10 +9,10 @@
 //     as int8, its scale given (the cross-replica amax / 127 of the
 //     gradient collective). The TPU program makes one call per leaf; one
 //     launch here covers up to 64 leaves;
-//   - amax_kernel + quant_own_kernel <- `quantize_int8` (`_quant_kernel_prng`):
+//   - quant_own_kernel <- `quantize_int8` (`_quant_kernel_prng`):
 //     amax = max |x|, scale = amax * f32(1/127) (1 when amax is 0; XLA's
 //     form of the TPU program's amax / 127), then the same rounding; the
-//     scale is written beside q;
+//     scale is written beside q. One cooperative launch (below);
 //   - dequant_kernel <- `dequantize_int8` (`_dequant_kernel`): q * scale in f32.
 //
 // Noise. The TPU kernels draw u from the chip's own generator, which has
@@ -25,10 +25,26 @@
 // x / scale is IEEE division (__fdiv_rn; the build has no fast-math flag).
 //
 // What bounds them: bytes. Each element is read once as f32 and written
-// once as int8 (5 bytes; the own-scale kernel reads x twice, once for
-// amax, but L2 holds a gradient leaf of up to 9.4 MB between the passes),
-// against 10 Philox rounds per 4 elements, about 40 integer operations an
-// element, under the card's integer rate at 5 bytes an element.
+// once as int8 (5 bytes), against 10 Philox rounds per 4 elements, about
+// 40 integer operations an element, under the card's integer rate at 5
+// bytes an element.
+//
+// The own-scale quantize. The scale needs every element before any can be
+// rounded: a grid-wide dependency. The TPU program holds the whole array
+// in VMEM for it; here the card's registers hold it. One cooperative launch
+// (cudaLaunchCooperativeKernel, so every block is resident) of at most the
+// card's resident blocks: each thread loads up to 5 quads (16-byte loads,
+// 2.7M elements over the whole card at 4 blocks of 256 an SM) and reduces
+// |x|, to one partial amax a block, written to that block's slot of a
+// scratch array. After the grid barrier (cooperative_groups' grid sync)
+// every block takes the max of the slots, draws the Philox noise of its
+// quads and rounds the quads it holds. x is read from device memory once;
+// no memset (every slot is written before it is read) and no float
+// atomics (a max is exact in any order, so the result is deterministic). Inputs
+// larger than the registers hold read their remaining quads once for the
+// amax and again, from L2, for the rounding, in the same launch. (It was
+// a memset, an amax kernel with one atomicMax a warp, and a second pass
+// over x from a second kernel.)
 //
 // The grouped quantize. A ResNet-18 step quantizes 18 leaves of 36,864 to
 // 2,359,296 elements; one launch each spent most of its time in the
@@ -58,10 +74,16 @@
 //
 // ptxas -v (sm_90a, CUDA 12.8, H100 build): quant_group_kernel takes 71
 // registers, no spills (3 blocks of 256 an SM; capped at 64 for 4 blocks it
-// spills 16 bytes). chip_smoke.py phase 2 prints them and fails on a spill.
+// spills 16 bytes); quant_own_kernel 55 registers under its 4-block
+// launch bound (Q = 3 or 4 quads a thread at 6 or 5 blocks an SM ran
+// slower), no spills. chip_smoke.py phase 2 prints them and fails on a
+// spill.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -110,60 +132,6 @@ __device__ __forceinline__ int8_t round_stochastic(float x, float scale,
   float q = floorf(__fadd_rn(__fdiv_rn(x, scale), u));
   q = fminf(fmaxf(q, -127.f), 127.f);
   return static_cast<int8_t>(static_cast<int>(q));
-}
-
-// The quantize body of the own-scale kernel: every quad of x, grid-stride.
-__device__ __forceinline__ void quantize_quads(const float* __restrict__ x,
-                                               int8_t* __restrict__ q,
-                                               long long n, float scale,
-                                               uint32_t seed, bool aligned) {
-  const long long quads = (n + 3) >> 2;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < quads; t += stride) {
-    const U4 r = philox4x32_10(static_cast<uint32_t>(t),
-                               static_cast<uint32_t>(t >> 32), 0u, 0u, seed,
-                               0u);
-    const long long i0 = t << 2;
-    if (aligned && i0 + 3 < n) {
-      const float4 v = reinterpret_cast<const float4*>(x)[t];
-      char4 out;
-      out.x = round_stochastic(v.x, scale, uniform24(r.v[0]));
-      out.y = round_stochastic(v.y, scale, uniform24(r.v[1]));
-      out.z = round_stochastic(v.z, scale, uniform24(r.v[2]));
-      out.w = round_stochastic(v.w, scale, uniform24(r.v[3]));
-      reinterpret_cast<char4*>(q)[t] = out;
-    } else {
-      for (int j = 0; j < 4 && i0 + j < n; ++j)
-        q[i0 + j] = round_stochastic(x[i0 + j], scale, uniform24(r.v[j]));
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-amax_kernel(const float* __restrict__ x, long long n,
-            unsigned int* __restrict__ amax_bits) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  float m = 0.f;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride)
-    m = fmaxf(m, fabsf(x[i]));
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) atomicMax(amax_bits, __float_as_uint(m));
-}
-
-__global__ void __launch_bounds__(kThreads)
-quant_own_kernel(const float* __restrict__ x,
-                 const unsigned int* __restrict__ amax_bits,
-                 int8_t* __restrict__ q, float* __restrict__ scale_out,
-                 long long n, uint32_t seed, int aligned) {
-  const float amax = __uint_as_float(amax_bits[0]);
-  const float scale = amax > 0.f ? __fmul_rn(amax, kRecip127) : 1.f;
-  if (blockIdx.x == 0 && threadIdx.x == 0) scale_out[0] = scale;
-  quantize_quads(x, q, n, scale, seed, aligned != 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -316,20 +284,138 @@ quant_group_kernel(const __grid_constant__ LeafGroup g) {
   }
 }
 
+// -- the own-scale quantize: one cooperative launch -----------------------
+
+// quads a thread holds in registers
+constexpr int kOwnQuads = 5;
+
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ x,
+                                            long long t, long long n,
+                                            bool aligned) {
+  const long long i0 = t << 2;
+  if (aligned && i0 + 3 < n) return reinterpret_cast<const float4*>(x)[t];
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = i0 + j < n ? x[i0 + j] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float abs_max4(float m, float4 v) {
+  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))),
+               fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+__device__ __forceinline__ void store_quad(int8_t* __restrict__ q,
+                                           long long t, long long n,
+                                           bool aligned, char4 c) {
+  const long long i0 = t << 2;
+  if (aligned && i0 + 3 < n) {
+    reinterpret_cast<char4*>(q)[t] = c;
+    return;
+  }
+  const int8_t v[4] = {c.x, c.y, c.z, c.w};
+  for (int j = 0; j < 4 && i0 + j < n; ++j) q[i0 + j] = v[j];
+}
+
+// Quad k of a thread is t = g + k * T (g the thread's index in the grid, T
+// the grid's threads: each load instruction coalesced across the warp).
+// Its first kOwnQuads quads stay in registers across the grid barrier;
+// the quads past kOwnQuads * T (inputs larger than the grid holds) are
+// read once for the amax and again, from L2, for the rounding. The noise
+// is drawn after the barrier: drawn before it (into shared memory, while
+// the loads flew) it lengthened the slowest block's way to the barrier,
+// and the whole launch ran longer on an H100.
+__global__ void __launch_bounds__(kThreads, 4)
+quant_own_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                 float* __restrict__ scale_out, float* __restrict__ partial,
+                 long long n, uint32_t seed, int aligned_flag) {
+  __shared__ float red[kThreads / 32];
+  const bool aligned = aligned_flag != 0;
+  const long long quads = (n + 3) >> 2;
+  const long long T = static_cast<long long>(gridDim.x) * kThreads;
+  const long long g = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  float4 v[kOwnQuads];
+#pragma unroll
+  for (int k = 0; k < kOwnQuads; ++k)
+    v[k] = load_quad(x, g + k * T, n, aligned);  // zeros past n
+  float m = 0.f;
+#pragma unroll
+  for (int k = 0; k < kOwnQuads; ++k) m = abs_max4(m, v[k]);
+  for (long long t = g + kOwnQuads * T; t < quads; t += T)
+    m = abs_max4(m, load_quad(x, t, n, aligned));
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float b = red[0];
+    for (int w = 1; w < kThreads / 32; ++w) b = fmaxf(b, red[w]);
+    partial[blockIdx.x] = b;  // every block's slot is written: no memset
+  }
+  cg::this_grid().sync();
+  // amax over the blocks' slots (a max: exact in any order)
+  m = 0.f;
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kThreads)
+    m = fmaxf(m, __ldcg(partial + i));
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  __syncthreads();  // red is reused
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  float amax = red[0];
+  for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float scale = amax > 0.f ? __fmul_rn(amax, kRecip127) : 1.f;
+  if (blockIdx.x == 0 && threadIdx.x == 0) scale_out[0] = scale;
+#pragma unroll
+  for (int k = 0; k < kOwnQuads; ++k)
+    if (g + k * T < quads)
+      store_quad(q, g + k * T, n, aligned,
+                 round_quad(v[k], scale, leaf_noise(g + k * T, seed)));
+  for (long long t = g + kOwnQuads * T; t < quads; t += T)
+    store_quad(q, t, n, aligned,
+               round_quad(load_quad(x, t, n, aligned), scale,
+                          leaf_noise(t, seed)));
+}
+
+// the most blocks of `kernel` (blocks of kThreads) the current card holds
+// at once, -1 on error; kept per device in `cache`
+constexpr int kMaxDevices = 64;
+int resident_blocks(const void* kernel, int (&cache)[kMaxDevices]) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, 0) !=
+          cudaSuccess ||
+      per_sm < 1)
+    return -1;
+  if (dev < kMaxDevices) cache[dev] = sms * per_sm;
+  return sms * per_sm;
+}
+int own_resident[kMaxDevices];
+int group_resident[kMaxDevices];
+
+// blocks of the own-scale quantize for n elements: enough to hold every
+// quad in registers, at most the resident ones (the cooperative launch's
+// limit); -1 on error
+int own_blocks(long long n) {
+  const int resident = resident_blocks(
+      reinterpret_cast<const void*>(quant_own_kernel), own_resident);
+  if (resident < 1) return -1;
+  const long long per_block = kThreads * kOwnQuads;
+  const long long need = ((n + 3) / 4 + per_block - 1) / per_block;
+  return static_cast<int>(need < resident ? need : resident);
+}
+
 // blocks of the grouped quantize: the card's resident capacity, or fewer
 // tiles
 int group_blocks(long long quads) {
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, quant_group_kernel, kThreads, 0) != cudaSuccess)
-      return -1;
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  const int resident = resident_blocks(
+      reinterpret_cast<const void*>(quant_group_kernel), group_resident);
+  if (resident < 1) return -1;
   const long long tiles = (quads + kTileQuads - 1) / kTileQuads;
   return static_cast<int>(tiles < resident ? tiles : resident);
 }
@@ -373,26 +459,42 @@ int pdtn_quantize_int8_scaled_group(int k, void* const* x, void* const* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (n,) f32 -> q (n,) int8 and scale (1,) f32; amax_scratch is one
-// 4-byte word on the card, zeroed here before the amax pass.
-int pdtn_quantize_int8(const void* x, void* q, void* scale,
-                       void* amax_scratch, long long n, unsigned int seed,
-                       int aligned, void* stream) {
+// Blocks the own-scale quantize of n elements launches on the current
+// card: the length of its partial-amax scratch (-1 on error).
+int pdtn_quantize_int8_blocks(long long n) {
+  return n > 0 ? own_blocks(n) : 0;
+}
+
+// Elements the own-scale quantize holds in registers across its grid
+// barrier on the current card; a larger x takes a second pass over its
+// remaining quads in the same launch (-1 on error).
+int pdtn_quantize_int8_register_elements() {
+  const int blocks = own_blocks(1LL << 62);
+  return blocks < 1 ? -1 : 4 * kThreads * kOwnQuads * blocks;
+}
+
+// x (n,) f32 -> q (n,) int8 and scale (1,) f32, in one cooperative launch
+// of pdtn_quantize_int8_blocks(n) blocks of 256 threads; partial holds
+// `slots` f32 on the card, at least one a block, each written before it
+// is read (no memset).
+int pdtn_quantize_int8(const void* x, void* q, void* scale, void* partial,
+                       long long n, unsigned int seed, int aligned,
+                       int slots, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(amax_scratch, 0, sizeof(unsigned int), s);
+  const int blocks = own_blocks(n);
+  if (blocks < 1 || blocks > slots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xp = static_cast<const float*>(x);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(scale);
+  float* pp = static_cast<float*>(partial);
+  uint32_t sd = seed;
+  void* args[] = {&xp, &qp, &sp, &pp, &n, &sd, &aligned};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(quant_own_kernel),
+      dim3(blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long amax_blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
-  if (amax_blocks > 1024) amax_blocks = 1024;
-  amax_kernel<<<static_cast<unsigned int>(amax_blocks), kThreads, 0, s>>>(
-      static_cast<const float*>(x), n,
-      static_cast<unsigned int*>(amax_scratch));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quant_own_kernel<<<blocks_for((n + 3) >> 2), kThreads, 0, s>>>(
-      static_cast<const float*>(x),
-      static_cast<const unsigned int*>(amax_scratch),
-      static_cast<int8_t*>(q), static_cast<float*>(scale), n, seed, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 

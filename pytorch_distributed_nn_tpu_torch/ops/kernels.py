@@ -15,6 +15,7 @@ quantize_int8_scaled  csrc/int8_quant.cu        ``_quant_scaled_kernel_prng``
                                                 (one launch per group of
                                                 up to 64 leaves)
 quantize_int8         csrc/int8_quant.cu        ``_quant_kernel_prng``
+                                                (one cooperative launch)
 dequantize_int8       csrc/int8_quant.cu        ``_dequant_kernel``
 ====================  ========================  ==============================
 
@@ -103,7 +104,7 @@ def launch_counts() -> Dict[str, int]:
 _SIGNATURES = {
     "decode_attention": {
         "pdtn_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  *[_LL] * 8, _F, _P],
+                                  *[_LL] * 8, _F, *[_I] * 6, _P],
     },
     "layer_norm": {
         "pdtn_layer_norm_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _F,
@@ -124,7 +125,9 @@ _SIGNATURES = {
         "pdtn_quantize_int8_scaled_group": [
             _I, _PP, _PP, _PP, ctypes.POINTER(_LL), ctypes.POINTER(_U),
             ctypes.POINTER(_I), _P],
-        "pdtn_quantize_int8": [_P, _P, _P, _P, _LL, _U, _I, _P],
+        "pdtn_quantize_int8_blocks": [_LL],
+        "pdtn_quantize_int8_register_elements": [],
+        "pdtn_quantize_int8": [_P, _P, _P, _P, _LL, _U, _I, _I, _P],
         "pdtn_dequantize_int8": [_P, _P, _P, _LL, _I, _P],
     },
 }
@@ -193,6 +196,73 @@ def _stream(t: torch.Tensor) -> int:
 
 # -- decode attention ----------------------------------------------------
 
+#: head dims the decode kernel is compiled for with q in registers (GptTiny
+#: 16, GptMini 32, BertBase 64); any other D <= 256 takes its general
+#: instantiation
+DECODE_HEAD_DIMS = (16, 32, 64)
+#: warps a block of the decode kernel may have (csrc/decode_attention.cu)
+_DECODE_MAX_WARPS = 16
+#: keys a warp takes when a head is split over several
+_DECODE_KEYS_PER_WARP = 128
+#: a block's staging for K and V: one warp per head stages both of a short
+#: cache at once in it; the warps of a split head share it for their tiles
+_DECODE_STAGE_BYTES = 96 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def decode_launch_plan(B: int, H: int, S: int, D: int,
+                       elem: int) -> Dict[str, int]:
+    """The decode kernel's launch geometry for a (B, S, H, D) cache of
+    ``elem``-byte elements, a pure function of the shapes: one block per
+    (batch, head), B * H blocks of 32 * ``warps_per_head`` threads.
+
+    - One warp per (batch, head) when the head's K and V rows (S rounded
+      up to 32, at most 128) fit :data:`_DECODE_STAGE_BYTES`: the warp
+      stages both at once and passes no barrier.
+    - Otherwise the keys are split over the block's ``warps_per_head``
+      warps (128 keys a warp, up to 16 warps, fewer where their smallest
+      tiles would not fit the staging; any S), each staging its share K
+      tile by tile and then V, in tiles of ``tile_keys`` keys (a multiple
+      of 32) under :data:`_DECODE_STAGE_BYTES`.
+
+    Returns blocks, warps_per_head, keys_per_warp, tile_keys, together
+    (1: K and V staged at once) and smem_bytes (the block's shared memory,
+    as ``pdtn_decode_attention`` checks it). Raises ValueError for a head
+    dim the kernel does not take."""
+    if not 1 <= D <= 256:
+        raise ValueError(f"decode_attention: head dim {D} not in [1, 256]")
+    row = _round_up(D * elem, 16) + 16  # a row in shared memory, padded
+    keys = _round_up(S, 32)
+    extra = 8 * D + 8  # partial sums, q and the statistics of a warp
+    if keys <= _DECODE_KEYS_PER_WARP and 2 * keys * row <= _DECODE_STAGE_BYTES:
+        W, C, tile, together = 1, keys, keys, 1
+    else:
+        # the fewest warps that hold 128 keys each, at most as many as
+        # whose smallest tiles (32 keys) fit the staging
+        fit = _DECODE_STAGE_BYTES // (32 * row + extra)
+        W = min(_DECODE_MAX_WARPS, fit, -(-S // _DECODE_KEYS_PER_WARP))
+        C = _round_up(-(-S // W), 32)
+        W = -(-S // C)  # no warp without keys
+        tile = min(C, (_DECODE_STAGE_BYTES // W - extra) // row // 32 * 32)
+        together = 0
+    smem = W * ((2 if together else 1) * tile * row + extra)
+    return {"blocks": B * H, "warps_per_head": W, "keys_per_warp": C,
+            "tile_keys": tile, "together": together, "smem_bytes": smem}
+
+
+def decode_vector_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the decode kernel stages k and v with 16-byte copies: every
+    row of both starts on a 16-byte boundary (data pointer and batch,
+    sequence and head strides) and is a whole number of 16 bytes long.
+    Otherwise it stages them with scalar loads (the same kernel)."""
+    elem = k.element_size()
+    return all(t.data_ptr() % 16 == 0
+               and all(st * elem % 16 == 0 for st in t.stride()[:-1])
+               for t in (k, v)) and k.shape[-1] * elem % 16 == 0
+
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
@@ -213,9 +283,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("decode_attention: the head axis (D) must be "
                          "contiguous")
-    if D > 256:
-        raise ValueError(f"decode_attention: head dim {D} > 256")
     code = _dtype_code(q, "decode_attention")
+    plan = decode_launch_plan(B, H, S, D, q.element_size())
     positions = positions.contiguous()
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     lib = _lib("decode_attention")
@@ -224,7 +293,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         positions.data_ptr(), out.data_ptr(), B, H, S, D,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), 1.0 / math.sqrt(D),
-        _stream(q),
+        plan["warps_per_head"], plan["keys_per_warp"], plan["tile_keys"],
+        plan["together"],
+        int(decode_vector_loads(k, v)), plan["smem_bytes"], _stream(q),
     )
     _check(lib, "decode_attention", rc)
     return out
@@ -594,10 +665,22 @@ def quantize_int8_scaled(x: torch.Tensor, scale, seed: int) -> torch.Tensor:
     return quantize_int8_scaled_group([x], [scale], [seed])[0]
 
 
+def quantize_int8_register_elements() -> int:
+    """Elements the own-scale quantize holds in registers across its grid
+    barrier on this card; a larger x takes a second pass over its
+    remaining quads inside the same launch."""
+    held = _lib("int8_quant").pdtn_quantize_int8_register_elements()
+    if held < 1:
+        raise RuntimeError("quantize_int8: no resident blocks on this card")
+    return held
+
+
 def quantize_int8(x: torch.Tensor, seed: int):
     """One-pass int8 quantization with its own scale: (q int8 of x's
     shape, scale 0-d f32) with ``scale = max|x| / 127`` (1 for an all-zero
-    x) and the rounding of :func:`quantize_int8_scaled`."""
+    x) and the rounding of :func:`quantize_int8_scaled`. One cooperative
+    launch, its grid sized by the C entry; its per-block partial amax
+    scratch is written before it is read, so nothing is zeroed first."""
     if _on_cpu(x):
         return reference.quantize_int8(x, seed=seed)
     x2 = _int8_operands(x, "quantize_int8")
@@ -606,11 +689,15 @@ def quantize_int8(x: torch.Tensor, seed: int):
     n = x2.numel()
     if n == 0:
         return q, scale
-    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
     lib = _lib("int8_quant")
+    blocks = lib.pdtn_quantize_int8_blocks(n)
+    if blocks < 1:
+        raise RuntimeError("quantize_int8: no resident blocks on this card")
+    partial = torch.empty(blocks, dtype=torch.float32, device=x.device)
     rc = lib.pdtn_quantize_int8(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), scratch.data_ptr(), n,
-        int(seed) & 0xFFFFFFFF, _aligned((x2, 16), (q, 4)), _stream(x))
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), partial.data_ptr(), n,
+        int(seed) & 0xFFFFFFFF, _aligned((x2, 16), (q, 4)), blocks,
+        _stream(x))
     _check(lib, "quantize_int8", rc)
     return q, scale
 

@@ -82,6 +82,55 @@ def test_cuda_decode_attention_matches_plain(card, dtype, pad):
             assert _max_excess(got, want, dtype) <= 0
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,Dh,mis", [
+    (8, 128, 4, 32, False),   # GptMini's largest bucket: one warp a head
+    (8, 128, 4, 32, True),    # the scalar branch
+    (3, 77, 4, 16, True),
+    (2, 77, 3, 24, False),    # the general head-dim instantiation
+    (2, 512, 12, 64, False),  # long caches: the split path
+    (2, 512, 12, 64, True),
+    (2, 2048, 12, 64, False),
+    (1, 2048, 12, 64, True),
+    (2, 16384, 12, 64, False),  # several rounds a warp, scored again
+    (1, 16384, 12, 64, True),
+    (1, 50000, 2, 64, False),
+    (2, 4000, 2, 256, False),  # wide rows: 2 warps, general head dim
+    (64, 128, 32, 32, False),  # heads enough to fill the card
+])
+def test_cuda_decode_attention_paths_match_plain_and_repeat(
+        card, dtype, B, S, nh, Dh, mis):
+    """Each path of the decode kernel (one warp a head, split over a
+    block's warps, 16-byte or scalar staging, templated or general head
+    dim) against the plain version; two launches equal bit for bit."""
+    gen = torch.Generator().manual_seed(S + B)
+    q = torch.randn((B, 1, nh, Dh), generator=gen).to(card, dtype)
+    k = torch.randn((B, S, nh, Dh), generator=gen).to(card, dtype)
+    v = torch.randn((B, S, nh, Dh), generator=gen).to(card, dtype)
+    if mis:
+        k, v = _misaligned(k), _misaligned(v)
+    pos = torch.randint(0, S, (B,), generator=gen, dtype=torch.int32)
+    pos[0], pos[-1] = 0, S - 1
+    pos = pos.to(card)
+    assert kernels.decode_vector_loads(k, v) == (not mis)
+    got = kernels.decode_attention(q, k, v, pos)
+    again = kernels.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = reference.decode_attention(q, k, v, pos)
+    assert got.dtype == dtype and got.shape == (B, 1, nh, Dh)
+    assert _max_excess(got, want, dtype) <= 0
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, k, v, pos = _attn_inputs(2, 16, 0, card, torch.float16)
@@ -472,6 +521,54 @@ def test_cuda_quantize_and_dequantize_int8_equal_plain(card, shape):
                        reference.dequantize_int8(q, s))
     z, sz = kernels.quantize_int8(torch.zeros(shape, device=card), 1)
     assert sz.item() == 1.0 and not z.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["below", "at", "above", "twice", "one",
+                                   "zeros"])
+def test_cuda_quantize_int8_around_its_register_capacity(card, where):
+    """The own-scale quantize on both sides of the elements its grid holds
+    in registers (past them, a second pass over x in the same launch), at
+    one element and on an all-zero x, aligned and one element off: bit
+    for bit equal to the plain version, and to itself on a second
+    launch."""
+    held = kernels.quantize_int8_register_elements()
+    n = {"below": held - 3, "at": held, "above": held + 5,
+         "twice": 2 * held + 3, "one": 1, "zeros": 5000}[where]
+    gen = torch.Generator().manual_seed(n % 1000)
+    x = (torch.randn(n, generator=gen) * 3).to(card)
+    if where == "zeros":
+        x.zero_()
+    for xx in (x, _misaligned(x)):
+        before = kernels.launch_counts()["quantize_int8"]
+        q, s = kernels.quantize_int8(xx, 21)
+        q2, s2 = kernels.quantize_int8(xx, 21)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["quantize_int8"] == before + 2
+        qw, sw = reference.quantize_int8(xx, seed=21)
+        assert torch.equal(q, qw) and s.item() == sw.item()
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_int8_captures_in_a_cuda_graph(card):
+    """The cooperative launch replays from a CUDA graph (chip_smoke.py
+    times it that way) and gives the same bits."""
+    x = (torch.randn(4608 * 512, generator=torch.Generator().manual_seed(3))
+         * 0.05).to(card)
+    q0, s0 = kernels.quantize_int8(x, 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.quantize_int8(x, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        q, s = kernels.quantize_int8(x, 8)
+    q.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(q, q0) and torch.equal(s, s0)
 
 
 @pytest.mark.cuda

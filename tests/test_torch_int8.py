@@ -100,7 +100,7 @@ def test_quantize_int8_scaled_plain_equals_pallas_bitwise(n):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("shape", [(64, 256), (7, 1000), (1, 5)])
+@pytest.mark.parametrize("shape", [(64, 256), (7, 1000), (1, 5), (1, 1)])
 def test_quantize_int8_plain_equals_pallas_bitwise(shape):
     seed = shape[0] * 31 + shape[1]
     x = _grad_like(int(np.prod(shape)), seed).reshape(shape)
@@ -136,6 +136,15 @@ def test_scale_is_the_xla_product_with_the_f32_reciprocal():
 def test_quantize_int8_of_zeros_has_scale_one():
     q, s = reference.quantize_int8(torch.zeros(3, 4), seed=0)
     assert s.item() == 1.0 and not q.any()
+
+
+def test_quantize_int8_of_zeros_equals_pallas():
+    x = np.zeros((5, 6), np.float32)
+    q_j, s_j = jax_quantize_int8(jnp.asarray(x), 4)
+    u = np.array(jax.random.uniform(jax.random.PRNGKey(4), x.shape))
+    q, s = reference.quantize_int8(torch.from_numpy(x), u=torch.from_numpy(u))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_j))
+    assert s.item() == float(s_j) == 1.0
 
 
 @pytest.mark.parametrize("shape", [(64, 256), (3, 7)])

@@ -54,6 +54,110 @@ def test_decode_attention_matches_pallas(S, B):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
+def test_decode_attention_matches_pallas_on_a_long_cache():
+    """At BertBase's head width and a cache the kernel splits over the
+    warps of a block (S = 512)."""
+    rng = np.random.RandomState(11)
+    B, S, nh, Dh = 2, 512, 12, 64
+    q = rng.randn(B, 1, nh, Dh).astype(np.float32)
+    k = rng.randn(B, S, nh, Dh).astype(np.float32)
+    v = rng.randn(B, S, nh, Dh).astype(np.float32)
+    pos = np.asarray([100, S - 1], np.int32)
+    want = np.asarray(pallas_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos)))
+    got = kernels.decode_attention(*map(torch.from_numpy, (q, k, v, pos)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [16, 32, 64, 128])
+def test_decode_launch_plan_gives_every_gptmini_bucket_one_warp(S, B, elem):
+    """GptMini's decode buckets: one warp per (batch, head), a block of
+    one warp, K and V of the head staged at once, no block barrier."""
+    plan = kernels.decode_launch_plan(B, H, S, D, elem)
+    assert plan["blocks"] == B * H
+    assert plan["warps_per_head"] == 1 and plan["together"] == 1
+    assert plan["keys_per_warp"] == plan["tile_keys"] == -(-S // 32) * 32
+    row = D * elem + 16
+    assert plan["smem_bytes"] == 2 * plan["keys_per_warp"] * row + 8 * D + 8
+
+
+@pytest.mark.parametrize("S,elem,warps,keys,tile", [
+    (512, 2, 4, 128, 128),
+    (512, 4, 4, 128, 64),
+    (2048, 2, 16, 128, 32),
+    (2048, 4, 10, 224, 32),
+    (8192, 4, 10, 832, 32),
+    (16384, 2, 16, 1024, 32),
+    (16384, 4, 10, 1664, 32),
+    (50000, 4, 10, 5024, 32),
+])
+def test_decode_launch_plan_splits_long_caches(S, elem, warps, keys, tile):
+    """Past 128 keys the keys are split over the warps of one block (128
+    a warp, up to 16 warps, fewer where their smallest tiles would not fit
+    the staging; any S), staged K tile by tile and then V, in tiles of a
+    multiple of 32 keys under one staging budget whatever the number of
+    heads."""
+    for B, nh in ((2, 12), (64, 12)):
+        plan = kernels.decode_launch_plan(B, nh, S, 64, elem)
+        assert plan["blocks"] == B * nh
+        assert (plan["warps_per_head"], plan["keys_per_warp"],
+                plan["tile_keys"], plan["together"]) == (warps, keys, tile, 0)
+        assert plan["smem_bytes"] <= 96 * 1024
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("Dh", [1, 16, 24, 32, 64, 256])
+def test_decode_launch_plan_holds_every_key_in_its_staging(Dh, elem):
+    """For any cache length: the warps' shares cover S and none is empty,
+    tiles are whole slots of 32 keys within a share, K and V staged at
+    once only by one warp, and the block's shared memory is its staging
+    plus the warps' partial sums, q and statistics, under 96 KB."""
+    row = -(-Dh * elem // 16) * 16 + 16
+    for S in (1, 31, 33, 127, 128, 129, 300, 1000, 4097, 8193, 65537):
+        plan = kernels.decode_launch_plan(1, 1, S, Dh, elem)
+        W, C = plan["warps_per_head"], plan["keys_per_warp"]
+        tile, together = plan["tile_keys"], plan["together"]
+        assert 1 <= W <= 16 and (W - 1) * C < S <= W * C
+        assert C % 32 == 0 and tile % 32 == 0 and 32 <= tile <= C
+        assert not together or (W == 1 and tile == C <= 128)
+        assert plan["smem_bytes"] == W * ((2 if together else 1) * tile * row
+                                          + 8 * Dh + 8) <= 96 * 1024
+
+
+def test_decode_launch_plan_refuses_what_one_block_cannot_hold():
+    """Head dims past 256 (a lane's output elements); no cache length is
+    refused: wide rows take fewer warps, and a warp's share any number
+    of rounds."""
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.decode_launch_plan(1, 1, 16, 257, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.decode_launch_plan(1, 1, 16, 0, 4)
+    plan = kernels.decode_launch_plan(1, 1, 3000, 256, 4)
+    assert plan["warps_per_head"] == 2 and plan["keys_per_warp"] == 1504
+    plan = kernels.decode_launch_plan(1, 1, 1 << 20, 64, 2)
+    assert plan["warps_per_head"] == 16 and plan["keys_per_warp"] == 1 << 16
+
+
+def test_decode_vector_loads_need_aligned_rows():
+    """16-byte staging for caches whose every row starts on a 16-byte
+    boundary; a cache one element off, or rows that are not a whole
+    number of 16 bytes, take the kernel's scalar branch."""
+    k = torch.zeros((2, 16, H, D))
+    assert kernels.decode_vector_loads(k, k.clone())
+    flat = torch.zeros(k.numel() + 1)
+    off = flat[1:].view(k.shape)
+    assert off.data_ptr() % 16 != 0
+    assert not kernels.decode_vector_loads(off, k)
+    assert not kernels.decode_vector_loads(k, off)
+    odd = torch.zeros((2, 16, H, 6))  # 24-byte rows
+    assert not kernels.decode_vector_loads(odd, odd.clone())
+    page = torch.zeros((2, 24, H, D))  # a view into a longer panel
+    assert kernels.decode_vector_loads(page[:, :16], page[:, :16])
+    assert kernels.decode_vector_loads(k.bfloat16(), k.bfloat16())
+
+
 def test_decode_attention_masks_dead_rows():
     """Rows past a sequence's position never reach the output: garbage
     there (other requests' stale pages) changes nothing."""

@@ -139,7 +139,11 @@ def test_cli_serve_run_on_the_cpu(tmp_path):
         assert all(0 <= t < 256 for t in doc["outputs"][0])
     finally:
         proc.terminate()
-        proc.wait(timeout=30)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:  # never leave a server behind
+            proc.kill()
+            proc.wait(timeout=30)
     assert os.path.exists(os.path.join(art, "serve", "serving.jsonl"))
 
 
