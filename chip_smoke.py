@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: generative serving
-of GptMini, MLM training of BertBase (and GptMini), and data-parallel
-ResNet-18/CIFAR-10 training with the int8 gradient collective.
+of GptMini, MLM training of BertBase (and GptMini), data-parallel
+ResNet-18/CIFAR-10 training with the int8 gradient collective, and the
+checkpoints, resume, polling evaluator and SIGTERM path of the last two.
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
+    python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
+
+The second form only times the training steps of the checkout beside
+the script (``step_times``), for comparing two commits in one call.
 
 Phases, each printed on its own line:
 
@@ -81,7 +86,9 @@ Phases, each printed on its own line:
    caches and heads enough to fill the card; the training kernels at
    BertBase's training shapes, bf16, with the achieved TFLOP/s of the
    flash kernels),
-   beside the least time the card could take; the
+   beside the least time the card could take, the flash kernels' f32
+   instantiations beside SDPA on the same f32 operands (forward, and the
+   autograd backward: dq, dk and dv in one call); the
    serving decode step, tokens/s and TTFT; the BertBase training step
    and tokens/s with ``--attn-impl pallas`` and, as a second line,
    ``--attn-impl full``; the LayerNorm backward at BertBase's shape also
@@ -94,12 +101,38 @@ Phases, each printed on its own line:
    with the device time per launch of each of the port's CUDA kernels
    (a wrapper's kernels apart: the LayerNorm backward's rows and its
    partial-row sum);
-7. one JSON line listing the kernels (launches on the driven paths, error
-   against the plain version, times, least possible time), then the
-   result line ``{"ok": true, "device": {...}}``.
+7. checkpoints, in a temporary train_dir, each reading printed beside
+   the card's name and power limit: the native codec built and every
+   checkpoint is ``PDTZ``; ResNet-18 as in phase 5 for 20 steps at
+   ``--eval-freq 10 --keep-last 1`` (async): ``model_step_20`` verifies,
+   ``model_step_10`` was collected, the ``checkpoint_write`` events carry
+   bytes, ``write_ms`` and ``stall_ms``, a sync save of the same state
+   gives the same bytes, and ``--resume`` to step 25 restores parameters,
+   momentum and BatchNorm statistics bit for bit, with one
+   ``quantize_int8_scaled`` launch per resumed step; BertBase as in phase
+   5 for 4 steps at ``--eval-freq 2 --keep-last 1``, then ``--resume`` to
+   step 6 with exact launch counts per step, the losses of steps 5 and 6
+   and the parameters after step 6 against an uninterrupted 6-step run
+   (within ``BERT_RESUME_TOL`` and ``RESUME_PARAM_TOL``), and two faulty
+   resumes (the data stream a batch on; the dropout generator seeded
+   once) that must fall outside both; meanwhile the ``evaluator``
+   subprocess polls the same train_dir (``--follow-latest --max-evals 2
+   --timeout 300``): its loss, acc1 and acc5 against
+   ``Trainer.evaluate()`` of the same state (within ``EVAL_TOL``, which
+   must be below the eval loss's move from step 4 to 6) and its
+   launch counts (12 flash forward and 26 LayerNorm forward a batch, no
+   backward); then a supervised ``train`` subprocess gets SIGTERM after
+   its first step, exits 0 and leaves an emergency checkpoint that
+   verifies. Checkpoint bytes (raw and PDTZ), write, stall and restore
+   ms, the evaluator's ms per checkpoint, and the step times of the 10
+   steps after an async save against 9 steps without one;
+8. one JSON line listing the kernels (launches on the driven paths of
+   phases 4 and 5, error against the plain version, times, least possible
+   time), then the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
-burst, each model's training steps and eval pass) and read just after.
+burst, each model's training steps and eval pass, the resumed steps of
+phase 7) and read just after; the evaluator subprocess counts its own.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -111,6 +144,7 @@ import argparse
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -980,6 +1014,16 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
             lambda: kernels.flash_attention_dkv(*f32_args)[0],
     }
     costs32 = flash_costs(B, L, H, D, "float32")
+    # the library on the same f32 operands: SDPA's forward, and its
+    # backward (dq, dk and dv in one autograd call) replayed eagerly
+    qt32, kt32, vt32 = (t.transpose(1, 2) for t in (q32, k32, v32))
+    sdpa32_fwd = time_ms(
+        lambda: F.scaled_dot_product_attention(qt32, kt32, vt32), n)
+    leaves32 = [t.detach().requires_grad_() for t in (qt32, kt32, vt32)]
+    o32 = F.scaled_dot_product_attention(*leaves32)
+    dot32 = do32.transpose(1, 2)
+    sdpa32_bwd = time_ms(lambda: torch.autograd.grad(
+        o32, leaves32, dot32, retain_graph=True)[0], n, graph=False)
     entries = []
     for name, (run, plain, lib) in calls.items():
         bms, by = bound_ms(*costs[name])
@@ -997,10 +1041,12 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
             "sdpa_fwd_bwd_ms": sdpa_both, "library_vs_kernels": lib_diff,
             "gflop": flops / 1e9, "tflop_per_s": flops / (ms * 1e-3) / 1e12,
             "f32_ms": f32_ms, "f32_bound_ms": f32_bms, "f32_bound_by": f32_by,
+            "f32_library_ms": sdpa32_fwd if name == "flash_attention_fwd"
+            else sdpa32_bwd,
             "shape": shape,
         })
     del q, k, v, do, out, lse, delta, q32, k32, v32, do32, out32, lse32
-    del delta32, f32_args
+    del delta32, f32_args, qt32, kt32, vt32, leaves32, o32, dot32
     N, Dm = B * L, 768
     x = torch.randn((N, Dm), generator=gen).to("cuda", dt)
     g = (1 + 0.1 * torch.randn((Dm,), generator=gen)).cuda()
@@ -1360,6 +1406,612 @@ def time_int8_kernels(kernels, reference, gen, leaf_sizes, launches, errs):
 
 
 
+# -- phase 7: checkpoints, resume, the evaluator, SIGTERM ---------------------
+
+#: the resumed BertBase run against the uninterrupted one: the same
+#: weights, batches and dropout masks, equal bit for bit on an H100 so
+#: far. Between that and the faulty resumes of the phase, which read a
+#: loss 0.004 (dropout seeded once) and 0.022 (data a batch on) apart and
+#: parameters 3e-4 apart after two Adam steps of lr 1e-4 (PERF.md §6);
+#: above a float32 ulp of either (1e-6 at 10.45, 1.2e-7 at 1)
+BERT_RESUME_TOL = 1e-5  # the losses of steps 5 and 6
+RESUME_PARAM_TOL = 1e-6  # the parameters after step 6
+#: the evaluator subprocess against Trainer.evaluate() of the same state:
+#: the same kernels and weights in another process, equal bit for bit on
+#: an H100 so far; 160x below the eval loss's move from step 4 to step 6
+#: (1.6e-3), which the phase checks it stays above. acc1 and acc5 read 0
+#: at this init, so the loss carries the comparison
+EVAL_TOL = 1e-5
+
+
+def first_difference(got, want, where=""):
+    """The path of the first leaf where two state dicts differ in keys,
+    dtype, shape or any bit; None when they are equal."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return where or "/"
+        for k in want:
+            d = first_difference(got[k], want[k], f"{where}/{k}")
+            if d:
+                return d
+        return None
+    if want is None:
+        return None if got is None else where
+    g, w = np.asarray(got), np.asarray(want)
+    if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+        return where
+    return None
+
+
+def read_stream(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def checked_checkpoint(ckpt, directory, want_steps, what):
+    """The newest checkpoint of ``directory``, after checking the steps
+    left, its manifest and its magic."""
+    steps = ckpt.all_steps(directory)
+    if steps != want_steps:
+        fail(f"{what}: checkpoints {steps}, expected {want_steps} "
+             "(--keep-last 1)")
+    path = ckpt.checkpoint_path(directory, steps[-1])
+    ok, reason = ckpt.verify_checkpoint(path)
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if not ok or magic != b"PDTZ":
+        fail(f"{what}: {path} verifies {ok} ({reason}), magic {magic!r}")
+    return path
+
+
+def write_events(stream, steps, what):
+    writes = [e for e in stream if e.get("type") == "checkpoint_write"]
+    if [w["step"] for w in writes] != steps or not all(
+            w.get("async") and w["bytes"] > 0 and w["write_ms"] > 0
+            and w["stall_ms"] >= 0 for w in writes):
+        fail(f"{what}: checkpoint_write events {writes}")
+    return writes
+
+
+def resnet_checkpoints(kernels, seed, root):
+    """ResNet-18 int8 (phase 5's configuration): 20 steps at --eval-freq
+    10 --keep-last 1, async; the files; a sync save of the same state;
+    --resume to step 25."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import flax_msgpack
+
+    d = os.path.join(root, "resnet")
+    cfg = dataclasses.replace(resnet_config("int8", 20, seed), eval_freq=10,
+                              keep_last=1, train_dir=d)
+    t1 = Trainer(cfg)
+    try:
+        history = t1.train()
+    finally:
+        t1.close()
+    path = checked_checkpoint(ckpt, d, [20], "ResNet18")
+    stream = read_stream(os.path.join(d, "telemetry.jsonl"))
+    writes = write_events(stream, [10, 20], "ResNet18")
+    gc = [e for e in stream if e.get("type") == "checkpoint_gc"]
+    if not gc or gc[-1]["deleted"] != [10]:
+        fail(f"ResNet18: model_step_10 was not collected: {gc}")
+    waits = [e["waited_ms"] for e in stream
+             if e.get("type") == "ckpt_backpressure"]
+    saved = ckpt.state_tree(t1.state)
+    t0 = time.perf_counter()
+    sync_path = ckpt.save_checkpoint(os.path.join(root, "resnet_sync"),
+                                     t1.state, step=20)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    with open(path, "rb") as a, open(sync_path, "rb") as b:
+        if a.read() != b.read():
+            fail("ResNet18: the sync save of step 20's state differs from "
+                 "the async checkpoint")
+    raw = 4 + flax_msgpack.pack_array(saved).nbytes
+    del t1
+    torch.cuda.empty_cache()
+    t2 = Trainer(dataclasses.replace(cfg, max_steps=25, resume=True))
+    try:
+        if t2.start_step != 20:
+            fail(f"ResNet18 resume started at {t2.start_step}, not 20")
+        diff = first_difference(ckpt.state_tree(t2.state), saved)
+        if diff:
+            fail(f"ResNet18 resume: the restored state differs from the "
+                 f"saved one at {diff}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(path, t2.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        kernels.reset_launch_counts()
+        resumed = t2.train()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        t2.close()
+    del t2
+    torch.cuda.empty_cache()
+    expect_launches(kernels, launches, {"quantize_int8_scaled": 1}, 5,
+                    "ResNet18 resumed")
+    if [r["step"] for r in resumed] != [21, 22, 23, 24, 25] or not all(
+            math.isfinite(r["loss"]) for r in resumed):
+        fail(f"ResNet18 resumed steps {resumed}")
+    before, after = save_windows(history)
+    return {"path": path, "pdtz_bytes": os.path.getsize(path),
+            "raw_bytes": raw, "writes": writes, "backpressure_ms": waits,
+            "sync_write_ms": sync_ms, "restore_ms": restore_ms,
+            "launches": launches,
+            "steps_without_save_ms": before, "steps_after_save_ms": after,
+            "losses": [r["loss"] for r in history + resumed]}
+
+
+def save_windows(history):
+    """Step ms of a run that saves at steps 10 and 20, in step order:
+    steps 2-10 (no save in flight) and steps 11-20 (the step-10 save
+    being written)."""
+    return ([r["step_ms"] for r in history[1:10]],
+            [r["step_ms"] for r in history[10:20]])
+
+
+def window_stats(ms):
+    """Median, mean and max of a list of step ms."""
+    s = sorted(ms)
+    return {"median": s[len(s) // 2], "mean": sum(s) / len(s), "max": s[-1]}
+
+
+def start_evaluator(repo, model_dir, seed, log_path):
+    """The polling evaluator as a subprocess on the BertBase train_dir,
+    started before the run writes: it follows the newest checkpoint."""
+    cmd = [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch",
+           "evaluator", "--model-dir", model_dir, "--network", "BertBase",
+           "--dataset", "MLMSynth", "--eval-freq", "2", "--follow-latest",
+           "--eval-interval", "0.5", "--max-evals", "2", "--timeout", "300",
+           "--test-batch-size", "16", "--eval-batches", "2", "--seed",
+           str(seed), "--attn-impl", "pallas", "--fused-ln", "--dtype",
+           "bfloat16"]
+    err = open(log_path, "w")
+    try:
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+    except OSError:
+        err.close()
+        raise
+    # the run starts once the evaluator polls (it imports torch and builds
+    # its model first), so that it sees the first checkpoints
+    deadline = time.monotonic() + 180
+    while proc.poll() is None and time.monotonic() < deadline:
+        with open(log_path) as f:
+            if "Evaluator polling" in f.read():
+                return proc, err
+        time.sleep(0.2)
+    proc.kill()
+    proc.communicate(timeout=60)
+    err.close()
+    with open(log_path) as f:
+        fail(f"the evaluator subprocess did not start polling: "
+             f"{f.read()[-4000:]}")
+
+
+def finish_evaluator(proc, err, log_path, timeout=360.0):
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate(timeout=60)
+        fail(f"evaluator subprocess did not end in {timeout} s")
+    finally:
+        err.close()
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            fail(f"evaluator subprocess exited {proc.returncode}: "
+                 f"{f.read()[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def state_gaps(got, want):
+    """Max |got - want| over two trainers' parameters, and over their
+    optimizer state, on the card."""
+    from pytorch_distributed_nn_tpu_torch.models.convert import (
+        train_state_tensors,
+    )
+
+    _, a = train_state_tensors(got.state)
+    _, b = train_state_tensors(want.state)
+    if set(a) != set(b):
+        fail(f"state keys differ: {sorted(set(a) ^ set(b))[:8]}")
+    gaps = {"params": 0.0, "opt_state": 0.0}
+    for k, t in a.items():
+        part = "params" if k.startswith("params/") else "opt_state"
+        gap = (t.float() - b[k].float()).abs().max().item()
+        gaps[part] = max(gaps[part], gap)
+    return gaps
+
+
+def bert_checkpoints(kernels, seed, root, repo):
+    """BertBase (phase 5's configuration): 4 steps at --eval-freq 2
+    --keep-last 1, --resume to step 6 with exact launch counts, the
+    resumed run against an uninterrupted 6-step run (its losses and its
+    final state), two faulty resumes the check must tell apart (the data
+    stream one batch on, the dropout generator seeded once and never
+    again, as the port's was), and the evaluator subprocess polling the
+    same train_dir meanwhile."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import flax_msgpack
+
+    d = os.path.join(root, "bert")
+    faulty_dir = os.path.join(root, "bert_faulty")
+    log_path = os.path.join(root, "evaluator.log")
+    proc, err = start_evaluator(repo, d, seed, log_path)
+    try:
+        cfg = train_config("BertBase", 4, seed=seed, eval_freq=2,
+                           keep_last=1, train_dir=d)
+        t1 = Trainer(cfg)
+        try:
+            t1.train()
+            ev4 = t1.evaluate()
+        finally:
+            t1.close()
+        path4 = checked_checkpoint(ckpt, d, [4], "BertBase")
+        raw = 4 + flax_msgpack.pack_array(ckpt.state_tree(t1.state)).nbytes
+        del t1
+        torch.cuda.empty_cache()
+        # the faulty resumes start from a copy of step 4 (the resumed run
+        # collects it)
+        os.makedirs(faulty_dir)
+        for f in (path4, ckpt.meta_path(path4), ckpt.data_state_path(path4)):
+            shutil.copy(f, faulty_dir)
+        t2 = Trainer(dataclasses.replace(cfg, max_steps=6, resume=True))
+        L = t2.model.config.num_layers
+        per_step = {"flash_attention_fwd": L, "flash_attention_dq": L,
+                    "flash_attention_dkv": L, "layer_norm": 2 * L + 2,
+                    "layer_norm_bwd": 2 * L + 2}
+        try:
+            if t2.start_step != 4:
+                fail(f"BertBase resume started at {t2.start_step}, not 4")
+            kernels.reset_launch_counts()
+            resumed = t2.train()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            ev6 = t2.evaluate()
+        finally:
+            t2.close()
+        path = checked_checkpoint(ckpt, d, [6], "BertBase resumed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(path, t2.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        out = finish_evaluator(proc, err, log_path)
+    finally:
+        err.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+    expect_launches(kernels, launches, per_step, 2, "BertBase resumed")
+    stream = read_stream(os.path.join(d, "telemetry.jsonl"))
+    writes = write_events(stream, [2, 4, 6], "BertBase")
+    straight = Trainer(train_config("BertBase", 6, seed=seed))
+    try:
+        want = straight.train()
+        ref = [r["loss"] for r in want[4:6]]
+        sound = {"losses": [r["loss"] for r in resumed],
+                 **state_gaps(t2, straight)}
+        del t2
+        torch.cuda.empty_cache()
+        faulty = {}
+        for fault in ("data stream one batch on", "dropout seeded once"):
+            t = Trainer(train_config("BertBase", 6, seed=seed, resume=True,
+                                     train_dir=faulty_dir))
+            try:
+                if fault.startswith("data"):
+                    t.train_loader.skip(1)
+                else:
+                    t.state.dropout_generator.manual_seed(t.state.seed)
+                    t.state.dropout_generator = None  # the model keeps it
+                faulty[fault] = {"losses": [r["loss"] for r in t.train()],
+                                 **state_gaps(t, straight)}
+            finally:
+                t.close()
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        straight.close()
+    del straight
+    torch.cuda.empty_cache()
+    for r in (sound, *faulty.values()):
+        r["loss_gap"] = max(abs(x - y) for x, y in zip(r["losses"], ref))
+    got = sound["losses"]
+    if [r["step"] for r in resumed] != [5, 6] or not all(
+            math.isfinite(x) for x in got) or \
+            sound["loss_gap"] > BERT_RESUME_TOL or \
+            sound["params"] > RESUME_PARAM_TOL:
+        fail(f"BertBase resumed losses {got} against the uninterrupted "
+             f"run's {ref} (tol {BERT_RESUME_TOL}); parameters apart by "
+             f"{sound['params']} (tol {RESUME_PARAM_TOL})")
+    for fault, r in faulty.items():
+        if r["loss_gap"] <= BERT_RESUME_TOL or \
+                r["params"] <= RESUME_PARAM_TOL:
+            fail(f"BertBase resume check cannot tell a faulty resume "
+                 f"({fault}) from a sound one: {r}")
+    # the evaluator: its metrics against Trainer.evaluate() of the state
+    evaluated = {int(k): v for k, v in out["evaluated"].items()}
+    compared = {s: e for s, e in ((4, ev4), (6, ev6)) if s in evaluated}
+    if len(evaluated) != 2 or not compared:
+        fail(f"evaluator evaluated steps {sorted(evaluated)} (expected 2 of "
+             "2, 4, 6, with 4 or 6 among them)")
+    if abs(ev4["loss"] - ev6["loss"]) <= EVAL_TOL:
+        fail(f"the evaluator check cannot tell step 4 from step 6: eval "
+             f"losses {ev4['loss']} and {ev6['loss']} (tol {EVAL_TOL})")
+    for s, e in compared.items():
+        if any(abs(evaluated[s][k] - e[k]) > EVAL_TOL
+               for k in ("loss", "acc1", "acc5")):
+            fail(f"evaluator step {s}: {evaluated[s]} against "
+                 f"Trainer.evaluate() {e} (tol {EVAL_TOL})")
+    per_batch = {"flash_attention_fwd": L, "layer_norm": 2 * L + 2}
+    expect_launches(kernels, out["launches"], per_batch,
+                    len(evaluated) * out["eval_batches"], "evaluator")
+    return {"path": path, "pdtz_bytes": os.path.getsize(path),
+            "raw_bytes": raw, "writes": writes, "restore_ms": restore_ms,
+            "launches": launches, "per_step": per_step,
+            "straight_losses": ref, "sound": sound, "faulty": faulty,
+            "eval_steps": {4: ev4, 6: ev6},
+            "evaluator": out, "compared": {s: {"trainer": e,
+                                               "evaluator": evaluated[s]}
+                                           for s, e in compared.items()}}
+
+
+def sigterm_run(repo, root):
+    """A supervised ``train`` subprocess on the card (ResNet-18 int8, a
+    small synthetic set) gets SIGTERM once its first step is done: it must
+    exit 0 and leave an emergency checkpoint at its completed step."""
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+
+    d = os.path.join(root, "sigterm")
+    cmd = [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch", "train",
+           "--network", "ResNet18", "--dataset", "Cifar10", "--batch-size",
+           "256", "--learning-rate", "0.05", "--dtype", "bfloat16",
+           "--compress-grad", "int8", "--synthetic-size", "2048",
+           "--max-steps", "100000", "--supervise", "--train-dir", d]
+    log_path = os.path.join(root, "sigterm.log")
+    exit_s = None
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.DEVNULL,
+                                stderr=err)
+        try:
+            deadline = time.monotonic() + 300
+            while not os.path.exists(os.path.join(d, "heartbeat.json")):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+            if proc.poll() is None:
+                t0 = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                proc.wait(timeout=180)
+                exit_s = time.perf_counter() - t0
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+                fail("the supervised train subprocess did not exit on "
+                     "SIGTERM")
+    if proc.returncode != 0 or exit_s is None:
+        with open(log_path) as f:
+            fail(f"the supervised train subprocess exited "
+                 f"{proc.returncode} (signalled: {exit_s is not None}): "
+                 f"{f.read()[-4000:]}")
+    stream = read_stream(os.path.join(d, "telemetry.jsonl"))
+    preempt = [e for e in stream if e.get("type") == "preempt"]
+    if len(preempt) != 1 or preempt[0]["signal"] != signal.SIGTERM:
+        fail(f"SIGTERM run: preempt events {preempt}")
+    step = preempt[0]["step"]
+    path = checked_checkpoint(ckpt, d, [step], "SIGTERM run")
+    return {"step": step, "path": path, "exit_s": exit_s,
+            "bytes": os.path.getsize(path)}
+
+
+def checkpoint_phase(kernels, seed, smi, repo):
+    from pytorch_distributed_nn_tpu_torch.ops import host_codec
+
+    if not host_codec.available():
+        fail("the native host codec (native/codec.cpp) did not build: the "
+             "card's checkpoints must be PDTZ")
+    with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as root:
+        resnet = resnet_checkpoints(kernels, seed, root)
+        rw = resnet["writes"]
+        log(f"phase 7 codec: native/codec.cpp built; checkpoints are PDTZ "
+            f"({smi})")
+        log(f"phase 7 ResNet18 checkpoints (B={RESNET_B}, bf16, int8 sync, "
+            f"20 steps, --eval-freq 10 --keep-last 1, async): model_step_20 "
+            f"verifies, PDTZ, model_step_10 collected; PDTZ "
+            f"{resnet['pdtz_bytes']} bytes, raw {resnet['raw_bytes']} bytes "
+            f"({smi})")
+        for w in rw:
+            log(f"phase 7 ResNet18 async checkpoint_write step {w['step']}: "
+                f"{w['bytes']} bytes, write_ms {w['write_ms']}, stall_ms "
+                f"{w['stall_ms']}, fetch_ms {w['fetch_ms']}, queued_ms "
+                f"{w['queued_ms']} ({smi})")
+        log(f"phase 7 ResNet18 sync save of step 20's state: the same bytes "
+            f"as the async file; write_ms {resnet['sync_write_ms']:.3f}; "
+            f"backpressure waits {resnet['backpressure_ms']} ms ({smi})")
+        log(f"phase 7 ResNet18 --resume to step 25: parameters, momentum "
+            f"buffers and BatchNorm statistics bit for bit equal to the "
+            f"saved ones; restore {resnet['restore_ms']:.3f} ms; launches "
+            f"{resnet['launches']} (5 x quantize_int8_scaled 1) ({smi})")
+        b = window_stats(resnet["steps_without_save_ms"])
+        a = window_stats(resnet["steps_after_save_ms"])
+        log(f"phase 7 ResNet18 step ms, steps 2-10 (no save in flight): "
+            f"median {b['median']:.3f}, mean {b['mean']:.3f}, max "
+            f"{b['max']:.3f}; steps 11-20 (the step-10 save being written): "
+            f"median {a['median']:.3f}, mean {a['mean']:.3f}, max "
+            f"{a['max']:.3f}; in order "
+            f"{[round(x, 3) for x in resnet['steps_after_save_ms']]} "
+            f"({smi})")
+        bert = bert_checkpoints(kernels, seed, root, repo)
+        log(f"phase 7 BertBase checkpoints (B=16, L=512, bf16, adam, 4 "
+            f"steps at --eval-freq 2 --keep-last 1, --resume to 6): "
+            f"model_step_6 verifies, PDTZ; PDTZ {bert['pdtz_bytes']} bytes, "
+            f"raw {bert['raw_bytes']} bytes; restore "
+            f"{bert['restore_ms']:.3f} ms ({smi})")
+        for w in bert["writes"]:
+            log(f"phase 7 BertBase async checkpoint_write step {w['step']}: "
+                f"{w['bytes']} bytes, write_ms {w['write_ms']}, stall_ms "
+                f"{w['stall_ms']}, fetch_ms {w['fetch_ms']} ({smi})")
+        log(f"phase 7 BertBase resumed launches {bert['launches']} (= 2 x "
+            f"{bert['per_step']}) ({smi})")
+        for what, r in (("the resumed run", bert["sound"]),
+                        *(("faulty resume: " + k, v)
+                          for k, v in bert["faulty"].items())):
+            log(f"phase 7 BertBase {what}: losses (steps 5, 6) "
+                f"{r['losses']} against the uninterrupted run's "
+                f"{bert['straight_losses']}, apart by {r['loss_gap']} (tol "
+                f"{BERT_RESUME_TOL}); state after step 6 apart by "
+                f"{r['params']} (parameters, tol {RESUME_PARAM_TOL}), "
+                f"{r['opt_state']} (Adam's m and v) ({smi})")
+        ev = bert["evaluator"]
+        log(f"phase 7 evaluator subprocess: steps "
+            f"{sorted(int(s) for s in ev['evaluated'])}, launches "
+            f"{ev['launches']} ({ev['eval_batches']} batches an evaluation: "
+            f"12 flash forward and 26 LayerNorm forward a batch, no "
+            f"backward); against Trainer.evaluate() "
+            f"{bert['compared']} (tol {EVAL_TOL}; Trainer.evaluate() at "
+            f"steps 4 and 6: {bert['eval_steps']}) ({smi})")
+        for s, m in sorted(ev["evaluated"].items(), key=lambda x: int(x[0])):
+            log(f"phase 7 evaluator step {s}: restore_ms "
+                f"{m['restore_ms']:.3f}, eval_ms {m['eval_ms']:.3f}, loss "
+                f"{m['loss']:.6f}, acc1 {m['acc1']:.6f}, acc5 "
+                f"{m['acc5']:.6f} ({smi})")
+        sig = sigterm_run(repo, root)
+        log(f"phase 7 SIGTERM: a supervised train subprocess exited 0 "
+            f"{sig['exit_s']:.3f} s after SIGTERM with an emergency "
+            f"checkpoint model_step_{sig['step']} ({sig['bytes']} bytes) "
+            f"that verifies ({smi})")
+    for r in (resnet, bert):
+        r.pop("path", None)
+    return {"resnet": resnet, "bert": bert, "sigterm": sig}
+
+
+# -- --step-times: this checkout's training steps, nothing checked ---------
+
+STEP_TIMES_STEPS = 40
+STEP_TIMES = ("BertBase", "ResNet18", "ResNet18-saves")
+
+
+def step_times(which, seed):
+    """Step ms of the training paths of the checkout beside this script,
+    as phases 5 and 7 train them: BertBase and ResNet18 over
+    STEP_TIMES_STEPS steps (the median of steps 3 on); ResNet18-saves 20
+    steps at --eval-freq 10 --keep-last 1, async (``save_windows``; its
+    ``checkpoint_write`` events, the writer's pack and compress calls, the
+    end of each step after the tenth and Python's garbage collections of
+    generation 2 or of 1 ms or more, each in seconds from the tenth
+    step's record). To
+    compare two commits, copy this script into a checkout of each and
+    run them in turn in one call (parent, change, change, parent): the
+    host-bound steps spread between calls."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    from pytorch_distributed_nn_tpu_torch.ops import host_codec
+    from pytorch_distributed_nn_tpu_torch.utils import flax_msgpack
+
+    collections = []  # (generation, wall-clock start, ms) of each collection
+    phases = []  # (writer phase, wall-clock start, ms) of each call
+
+    def on_gc(phase, info):
+        if phase == "start":
+            on_gc.t0 = time.time()
+        else:
+            collections.append((info["generation"], on_gc.t0,
+                                (time.time() - on_gc.t0) * 1e3))
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.time()
+            try:
+                return fn(*args, **kw)
+            finally:
+                phases.append((name, t0, (time.time() - t0) * 1e3))
+        return call
+
+    out = {}
+    for name in which:
+        with tempfile.TemporaryDirectory(prefix="chip_steps_") as d:
+            if name == "BertBase":
+                cfg = train_config("BertBase", STEP_TIMES_STEPS, seed=seed)
+            elif name == "ResNet18":
+                cfg = resnet_config("int8", STEP_TIMES_STEPS, seed)
+            else:
+                cfg = dataclasses.replace(resnet_config("int8", 20, seed),
+                                          eval_freq=10, keep_last=1,
+                                          train_dir=d)
+            trainer = Trainer(cfg)
+            collections.clear()
+            phases.clear()
+            gc.callbacks.append(on_gc)
+            # the writer's two host phases, timed where the checkpoint
+            # module calls them
+            pack, compress = flax_msgpack.pack_array, host_codec.compress_parts
+            flax_msgpack.pack_array = timed("pack", pack)
+            host_codec.compress_parts = timed("compress", compress)
+            try:
+                history = trainer.train()
+            finally:
+                gc.callbacks.remove(on_gc)
+                flax_msgpack.pack_array = pack
+                host_codec.compress_parts = compress
+                trainer.close()
+            del trainer
+            torch.cuda.empty_cache()
+            if name == "ResNet18-saves":
+                stream = read_stream(os.path.join(d, "telemetry.jsonl"))
+                # wall-clock times from the step-10 record's on
+                t10 = next(r["time"] for r in stream
+                           if r.get("kind") == "step" and r["step"] == 10)
+                writes = [{"time_s": e["time"] - t10,
+                           **{k: e[k] for k in ("step", "fetch_ms",
+                                                "write_ms", "stall_ms")}}
+                          for e in stream
+                          if e.get("type") == "checkpoint_write"]
+                writer = [{"phase": n, "start_s": t - t10, "ms": ms}
+                          for n, t, ms in phases]
+                step_end_s = [r["time"] - t10 for r in stream
+                              if r.get("kind") == "step"
+                              and r.get("step", 0) > 10]
+                gcs = [{"generation": g, "start_s": t - t10, "ms": ms}
+                       for g, t, ms in collections
+                       if t >= t10 and (g == 2 or ms >= 1.0)]
+        if name == "ResNet18-saves":
+            before, after = save_windows(history)
+            out[name] = {"steps_2_10_ms": before, "steps_11_20_ms": after,
+                         "steps_2_10": window_stats(before),
+                         "steps_11_20": window_stats(after),
+                         "writes": writes, "writer_phases": writer,
+                         "step_end_s": step_end_s, "collections": gcs}
+        else:
+            ms = sorted(r["step_ms"] for r in history[2:])
+            out[name] = {"step_ms": ms, "median_ms": ms[len(ms) // 2]}
+    return out
+
+
 def post(url, doc, timeout=120.0):
     req = urllib.request.Request(
         url, data=json.dumps(doc).encode(),
@@ -1376,7 +2028,14 @@ def main() -> int:
                     help="also write the full report as JSON here, with a "
                          "per-shape kernel sweep and a profile of decode "
                          "steps")
+    ap.add_argument("--step-times", default=None,
+                    help="only time the training steps of a comma list "
+                         f"of {', '.join(STEP_TIMES)} and print them as "
+                         "one JSON line (nothing checked)")
     args = ap.parse_args()
+    which = args.step_times.split(",") if args.step_times else []
+    if not set(which) <= set(STEP_TIMES):
+        ap.error(f"--step-times takes a comma list of {STEP_TIMES}")
 
     import torch
 
@@ -1417,6 +2076,9 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     report["card"] = smi
+    if which:
+        print(json.dumps(step_times(which, args.seed)), flush=True)
+        return 0
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1796,7 +2458,11 @@ def main() -> int:
                       f"{e['tflop_per_s']:.1f} TFLOP/s")
         if "f32_ms" in e:
             extra += (f"; f32 (CUDA cores) {e['f32_ms']:.6f} ms, bound "
-                      f"{e['f32_bound_ms']:.6f} ms ({e['f32_bound_by']})")
+                      f"{e['f32_bound_ms']:.6f} ms ({e['f32_bound_by']}), "
+                      f"library (SDPA f32, "
+                      + ("forward" if e["name"] == "flash_attention_fwd"
+                         else "autograd backward: dq, dk, dv in one call")
+                      + f") {e['f32_library_ms']:.6f} ms")
         if "general_ms" in e:
             extra += (f"; general kernel (x one element off a 16-byte "
                       f"boundary) {e['general_ms']:.6f} ms")
@@ -1861,11 +2527,14 @@ def main() -> int:
         "tokens_per_s": tok_s, "ttft_ms": ttft,
     })
     report["kernels"] = entries
+
+    # -- 7. checkpoints, resume, the evaluator, SIGTERM -------------------
+    report["checkpoints"] = checkpoint_phase(kernels, args.seed, smi, repo)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(report, f, indent=2)
+            json.dump(report, f, indent=2, default=str)
 
-    # -- 7. result lines --------------------------------------------------
+    # -- 8. result lines --------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -21,9 +21,31 @@ flags (same names, defaults and meanings, so a command line moves across
 unchanged) and run ``train()`` then ``evaluate()``. ``--attn-impl
 pallas`` selects the hand-written flash kernel, ``full`` plain attention
 in PyTorch; ``--fused-ln`` is accepted (the port has one LayerNorm, the
-kernel). A flag the port cannot honour yet raises, naming the ROADMAP
-item that ports it. Training runs on the card unless ``--device cpu`` is
-given, and fails without one.
+kernel). ``--eval-freq N`` checkpoints every N steps into
+``--train-dir`` in the JAX package's format (``--no-async-ckpt`` writes
+inline, ``--keep-last K`` keeps the newest K, ``--overlap-eval`` scores
+each checkpoint on a thread); ``--resume`` continues from the newest
+valid checkpoint; ``--supervise`` turns SIGTERM into an emergency
+checkpoint and exit 0; ``--skip-nonfinite`` skips non-finite updates. A
+flag the port cannot honour yet raises, naming the ROADMAP item that
+ports it. Training runs on the card unless ``--device cpu`` is given,
+and fails without one.
+
+    python -m pytorch_distributed_nn_tpu_torch single [train flags]
+
+is the single-machine baseline: ``train`` on one rank with no sync.
+
+    python -m pytorch_distributed_nn_tpu_torch evaluator --model-dir DIR \
+        --network BertBase --dataset MLMSynth --eval-freq N \
+        [--max-evals K] [--timeout S] [--follow-latest] \
+        [--attn-impl pallas --fused-ln --dtype bfloat16] [--device cpu]
+
+polls ``DIR`` for ``model_step_<N>`` checkpoints (either package's) and
+scores each on the test set, with the JAX ``evaluator``'s flags; the MLM
+data flags (``--seed``, ``--seq-len``, ``--vocab-size``, ...) must match
+the trainer's, and so must the model flags the port adds (``--attn-impl``,
+``--fused-ln``, ``--dtype``). It prints one JSON line at the end: each
+step's metrics and restore/eval times, and the kernel launch counts.
 
     python -m pytorch_distributed_nn_tpu_torch serve run --artifact DIR \
         [--host 127.0.0.1] [--port 8000] [--device cuda] \
@@ -242,6 +264,8 @@ def _train(args) -> int:
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
+    if args.cmd == "single":  # the JAX main_single: one rank, no sync
+        args.sync_mode, args.num_workers = "local", 1
     trainer = Trainer(train_config(args), device=args.device)
     try:
         trainer.train()
@@ -251,12 +275,132 @@ def _train(args) -> int:
     return 0
 
 
+def _add_evaluator_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX ``evaluator``'s flags, and the model flags of the port's
+    forward (``--attn-impl``, ``--fused-ln``, ``--dtype``, ``--device``)."""
+    a = p.add_argument
+    a("--model-dir", required=True)
+    a("--network", default="ResNet18")
+    a("--dataset", default="Cifar10",
+      choices=["MNIST", "Cifar10", "Cifar100", "SVHN", "MLMSynth"])
+    a("--eval-freq", type=int, default=100)
+    a("--eval-interval", type=float, default=10.0,
+      help="poll period in seconds")
+    a("--test-batch-size", type=int, default=1000)
+    a("--max-evals", type=int, default=None)
+    a("--timeout", type=float, default=None)
+    a("--follow-latest", action="store_true")
+    a("--data-dir", default="./data")
+    a("--data-layout", choices=["auto", "device", "host"], default="auto")
+    a("--synthetic-size", type=int, default=None)
+    a("--seed", type=int, default=0,
+      help="MLM: must match the trainer's --seed (same corpus)")
+    a("--seq-len", type=int, default=None)
+    a("--vocab-size", type=int, default=None)
+    a("--mask-prob", type=float, default=0.15)
+    a("--corpus-branching", type=int, default=8)
+    a("--eval-batches", type=int, default=64)
+    a("--attn-impl", choices=["full", "pallas"], default="full",
+      help="text models: the trainer's --attn-impl")
+    a("--fused-ln", action="store_true")
+    a("--dtype", choices=["float32", "bfloat16"], default="float32")
+    a("--device", default=None,
+      help="torch device (default: the card; 'cpu' runs the kernels' "
+           "plain versions)")
+
+
+def _evaluator(args) -> int:
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.data.datasets import load_dataset
+    from pytorch_distributed_nn_tpu_torch.data.loader import (
+        DataLoader,
+        DeviceDataLoader,
+    )
+    from pytorch_distributed_nn_tpu_torch.data.text import (
+        MLMBatches,
+        MLMLoader,
+    )
+    from pytorch_distributed_nn_tpu_torch.models import (
+        input_spec,
+        is_text_model,
+    )
+    from pytorch_distributed_nn_tpu_torch.ops import kernels
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+    from pytorch_distributed_nn_tpu_torch.training.evaluator import Evaluator
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        create_train_state,
+    )
+    from pytorch_distributed_nn_tpu_torch.training.trainer import (
+        build_train_model,
+    )
+    from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s: %(message)s")
+    device = resolve_device(args.device)
+    text = is_text_model(args.network)
+    cfg = TrainConfig(network=args.network, dataset=args.dataset,
+                      seed=args.seed, seq_len=args.seq_len,
+                      vocab_size=args.vocab_size, dtype=args.dtype,
+                      attn_impl=args.attn_impl if text else "full",
+                      fused_ln=args.fused_ln and text)
+    # the trainer's model of these flags, on an SGD template (the
+    # evaluator restores parameters and statistics only)
+    model = build_train_model(cfg)
+    state = create_train_state(
+        model, lambda p: build_optimizer("sgd", p, 0.1), device)
+    bs = args.test_batch_size
+    if text:
+        seq_len = args.seq_len or input_spec(args.network)[0]
+        loader = MLMLoader(
+            MLMBatches(vocab_size=model.config.vocab_size, seq_len=seq_len,
+                       batch_size=bs, seed=args.seed + 10_000,
+                       corpus_seed=args.seed, mask_prob=args.mask_prob,
+                       branching=args.corpus_branching),
+            device, eval_batches=args.eval_batches)
+    else:
+        test_ds = load_dataset(args.dataset, train=False,
+                               data_dir=args.data_dir,
+                               synthetic_size=args.synthetic_size)
+        bs = min(bs, len(test_ds))
+        on_device = args.data_layout == "device" or (
+            args.data_layout == "auto"
+            and test_ds.raw_images.nbytes < 2 << 30)
+        loader = (DeviceDataLoader(test_ds, bs, device, shuffle=False)
+                  if on_device else
+                  DataLoader(test_ds, bs, shuffle=False, prefetch=0,
+                             device=device))
+    evaluator = Evaluator(state, loader, args.model_dir,
+                          eval_freq=args.eval_freq,
+                          eval_interval=args.eval_interval,
+                          follow_latest=args.follow_latest)
+    results = {}
+    kernels.reset_launch_counts()
+    try:
+        evaluator.run(max_evals=args.max_evals, timeout=args.timeout,
+                      on_metrics=lambda step, m: results.__setitem__(
+                          step, {**m, **evaluator.timings[step]}))
+    finally:
+        loader.close()
+    print(json.dumps({"evaluated": {str(k): v for k, v in results.items()},
+                      "eval_batches": args.eval_batches if text else None,
+                      "launches": kernels.launch_counts()}), flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     _add_train_flags(sub.add_parser(
         "train", help="train an image model (data-parallel) or a text "
                       "model (one device)"))
+    _add_train_flags(sub.add_parser(
+        "single", help="the single-machine baseline: train on one rank "
+                       "with no sync"))
+    _add_evaluator_flags(sub.add_parser(
+        "evaluator", help="poll a train_dir's checkpoints and score each"))
     serve = sub.add_parser("serve", help="serving commands")
     ssub = serve.add_subparsers(dest="serve_cmd", required=True)
     run = ssub.add_parser("run", help="serve a generative artifact")
@@ -279,6 +423,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd == "train":
+    if args.cmd in ("train", "single"):
         return _train(args)
+    if args.cmd == "evaluator":
+        return _evaluator(args)
     return _serve_run(args)

@@ -12,6 +12,11 @@ stream, and a fixed eval set drawn in canonical 512-sequence chunks.
 Special ids follow BERT conventions: 0=[PAD] 1=[CLS] 2=[SEP] 3=[MASK];
 real tokens are ids >= NUM_SPECIAL. ``MLMLoader`` moves batches to the
 trainer's device as int64 tensors.
+
+The training stream's position is one counter: ``skip(n)`` fast-forwards
+it, and ``state()`` / ``restore()`` carry it through a checkpoint's
+``model_step_<N>.data.json`` sidecar in the JAX package's format, so a
+resumed run continues the exact batch stream.
 """
 
 from __future__ import annotations
@@ -120,6 +125,23 @@ class MLMBatches:
         toks = self.corpus.sample_tokens(rng, self.batch_size, self.seq_len)
         return mask_tokens(toks, rng, self.vocab_size, self.mask_prob)
 
+    def skip(self, n: int) -> None:
+        """Fast-forward the training stream by ``n`` batches (O(1))."""
+        self._counter += int(n)
+
+    #: the iterator state's format (the JAX package's)
+    STATE_FORMAT = "pdtn-mlm-state-v1"
+
+    def state(self) -> dict:
+        return {"format": self.STATE_FORMAT, "kind": "mlm",
+                "counter": int(self._counter)}
+
+    def restore(self, state: dict) -> None:
+        if state.get("kind") != "mlm":
+            raise ValueError(f"iterator state is kind {state.get('kind')!r},"
+                             " expected 'mlm'")
+        self._counter = int(state["counter"])
+
     def eval_set(self, n_batches: int):
         """A fixed eval set of ``n_batches`` batches: the same sequences
         every call, whatever the training stream has done."""
@@ -160,6 +182,16 @@ class MLMLoader:
     def eval_sequences(self) -> int:
         """Sequences every eval pass scores."""
         return self._eval_batches * self._batches.batch_size
+
+    def skip(self, n: int) -> None:
+        self._batches.skip(n)
+
+    def state(self) -> dict:
+        """The training stream's position, for a checkpoint's sidecar."""
+        return self._batches.state()
+
+    def restore(self, state: dict) -> None:
+        self._batches.restore(state)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a.astype(np.int64)).to(self.device)

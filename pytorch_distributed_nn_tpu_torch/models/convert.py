@@ -216,3 +216,214 @@ def state_dict_to_cnn(state_dict: Dict[str, torch.Tensor]):
         else:
             tree[leaf] = a
     return params, stats
+
+
+# -- the training state ----------------------------------------------------
+#
+# The JAX ``TrainState`` as ``flax.serialization.to_state_dict`` lays it out
+# (fields in declaration order, the model trees' keys sorted) against the
+# port's ``TrainState`` (``training/train_step.py``):
+#
+#   step        int32 ()                    TrainState.step
+#   params      the model's flax tree       model parameters (above)
+#   opt_state   SGDState: count int32 (),   ScheduledOptimizer.count;
+#                 momentum_buf tree | None  torch.optim.SGD momentum_buffer
+#               AdamState: count, mu, nu,   optim.Adam's m, v, v_max
+#                 nu_max tree | None          (amsgrad)
+#   batch_stats {<bn>: {mean, var}} | {}    BatchNorm running_mean/var
+#   ef_state    None                        (topk error feedback: not ported)
+#
+# The optimizer's trees have the params tree's structure. Before an
+# optimizer's first update the JAX state holds zeros and the torch one
+# nothing; both start the same way from either.
+
+
+def _sorted(tree):
+    """``tree`` with every dict's keys in order, as flax's trees are."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def is_cnn(model) -> bool:
+    """Whether ``model`` is of the CNN zoo (else a transformer)."""
+    from pytorch_distributed_nn_tpu_torch.models.layers import CNN
+
+    return isinstance(model, CNN)
+
+
+def _named_to_tree(layout: dict, named: dict) -> dict:
+    """Parameter-named tensors -> a flax params-shaped tree."""
+    if layout["cnn"]:
+        return _sorted(state_dict_to_cnn(named)[0])
+    return _sorted(state_dict_to_flax(named, layout["num_heads"]))
+
+
+def _tree_to_named(model, tree: dict) -> Dict[str, torch.Tensor]:
+    if is_cnn(model):
+        return cnn_to_state_dict(tree)
+    return flax_to_state_dict(tree)
+
+
+def _opt_kind(optimizer) -> str:
+    from pytorch_distributed_nn_tpu_torch.optim.adam import Adam
+
+    if isinstance(optimizer, Adam):
+        return "adam"
+    if isinstance(optimizer, torch.optim.SGD):
+        return "sgd"
+    raise TypeError(f"no JAX optimizer state for {type(optimizer).__name__}")
+
+
+def train_state_tensors(state):
+    """``(layout, tensors)`` of a port ``TrainState``: its live tensors,
+    flat, keyed ``params/<name>``, ``batch_stats/<name>``, and
+    ``<momentum_buf|mu|nu|nu_max>/<name>`` for the optimizer's state, and
+    the small facts :func:`train_state_to_flax` needs besides them. The
+    tensors are the state's own (a caller that keeps them past the next
+    step clones them)."""
+    model, sched = state.model, state.optimizer
+    opt = sched.optimizer
+    kind = _opt_kind(opt)
+    group = opt.param_groups[0]
+    layout = {"step": int(state.step), "count": int(sched.count),
+              "kind": kind}
+    tensors: Dict[str, torch.Tensor] = {}
+    named = list(model.named_parameters())
+    for n, p in named:
+        tensors["params/" + n] = p.detach()
+    for n, b in model.named_buffers():
+        tensors["batch_stats/" + n] = b
+
+    def slot(role, key):
+        for n, p in named:
+            st = opt.state.get(p, {})
+            t = st.get(key) if sched.count else None
+            tensors[f"{role}/{n}"] = (t.detach() if t is not None
+                                      else torch.zeros_like(p.detach()))
+
+    if kind == "sgd":
+        layout["momentum"] = bool(group["momentum"])
+        if layout["momentum"]:
+            slot("momentum_buf", "momentum_buffer")
+    else:
+        layout["amsgrad"] = bool(group["amsgrad"])
+        slot("mu", "m")
+        slot("nu", "v")
+        if layout["amsgrad"]:
+            slot("nu_max", "v_max")
+    layout["cnn"] = is_cnn(model)
+    layout["num_heads"] = None if layout["cnn"] else model.config.num_heads
+    return layout, tensors
+
+
+def train_state_to_flax(layout: dict, tensors: dict) -> dict:
+    """The JAX ``TrainState`` state dict of :func:`train_state_tensors`'s
+    output (``tensors`` on the host: CPU tensors), numpy leaves in flax's
+    order: what ``flax.serialization.to_bytes`` of the JAX state writes."""
+    def role(name):
+        pre = name + "/"
+        return {k[len(pre):]: v for k, v in tensors.items()
+                if k.startswith(pre)}
+
+    params = role("params")
+    if layout["cnn"]:
+        p_tree, stats = state_dict_to_cnn({**params, **role("batch_stats")})
+        p_tree, stats = _sorted(p_tree), _sorted(stats)
+    else:
+        p_tree, stats = _named_to_tree(layout, params), {}
+    count = np.asarray(layout["count"], np.int32)
+    if layout["kind"] == "sgd":
+        opt_state = {"count": count, "momentum_buf":
+                     _named_to_tree(layout, role("momentum_buf"))
+                     if layout["momentum"] else None}
+    else:
+        opt_state = {"count": count,
+                     "mu": _named_to_tree(layout, role("mu")),
+                     "nu": _named_to_tree(layout, role("nu")),
+                     "nu_max": _named_to_tree(layout, role("nu_max"))
+                     if layout["amsgrad"] else None}
+    return {"step": np.asarray(layout["step"], np.int32), "params": p_tree,
+            "opt_state": opt_state, "batch_stats": stats, "ef_state": None}
+
+
+def _expect_keys(what: str, got: dict, want) -> None:
+    if set(got) != set(want):
+        raise ValueError(f"{what}: the checkpoint has keys {sorted(got)}, "
+                         f"this state expects {sorted(want)}")
+
+
+def _check_shapes(what: str, got: dict, want: dict) -> None:
+    _expect_keys(what, got, want)
+    bad = [k for k in want if tuple(got[k].shape) != tuple(want[k].shape)]
+    if bad:
+        raise ValueError(f"{what}: shapes differ at {bad[:4]}: checkpoint "
+                         f"{[tuple(got[k].shape) for k in bad[:4]]}, state "
+                         f"{[tuple(want[k].shape) for k in bad[:4]]}")
+
+
+@torch.no_grad()
+def load_train_state(state, tree: dict, params_only: bool = False) -> None:
+    """Copy a JAX ``TrainState`` state dict (numpy leaves) into the port's
+    ``state`` in place: parameters, BatchNorm statistics and the step,
+    and, unless ``params_only``, the optimizer's state and count. Raises,
+    before changing anything, on a key the state does not have or lacks
+    and on a shape it does not have, as flax's ``from_state_dict``
+    refuses a tree that is not its template's."""
+    _expect_keys("state", tree, ("step", "params", "opt_state",
+                                 "batch_stats", "ef_state"))
+    if tree["ef_state"] is not None:
+        raise ValueError("the checkpoint holds topk error-feedback state, "
+                         "which the port does not run (ROADMAP Queue 1 "
+                         "item 2)")
+    model, sched = state.model, state.optimizer
+    if is_cnn(model):
+        sd = cnn_to_state_dict(tree["params"], tree["batch_stats"])
+    else:
+        if tree["batch_stats"]:
+            raise ValueError("batch_stats in a transformer's checkpoint")
+        sd = flax_to_state_dict(tree["params"])
+    _check_shapes("params and batch_stats", sd, model.state_dict())
+    named = dict(model.named_parameters())
+    new_opt_state, count = None, None
+    if not params_only:
+        opt = sched.optimizer
+        kind = _opt_kind(opt)
+        group = opt.param_groups[0]
+        ost = tree["opt_state"]
+        _expect_keys(f"opt_state ({kind})", ost,
+                     ("count", "momentum_buf") if kind == "sgd"
+                     else ("count", "mu", "nu", "nu_max"))
+        count = int(ost["count"])
+
+        def slots(role):
+            got = _tree_to_named(model, ost[role])
+            _check_shapes(f"opt_state.{role}", got, named)
+            return {n: got[n].to(named[n].device) for n in named}
+
+        if kind == "sgd":
+            if (ost["momentum_buf"] is None) != (not group["momentum"]):
+                raise ValueError("momentum buffers in the checkpoint and "
+                                 f"momentum={group['momentum']} disagree")
+            roles = {"momentum_buffer": "momentum_buf"} \
+                if group["momentum"] else {}
+            extra = {}
+        else:
+            if (ost["nu_max"] is None) == bool(group["amsgrad"]):
+                raise ValueError("the checkpoint's nu_max and amsgrad="
+                                 f"{group['amsgrad']} disagree")
+            roles = {"m": "mu", "v": "nu"}
+            if group["amsgrad"]:
+                roles["v_max"] = "nu_max"
+            extra = {"step": count}
+        got = {k: slots(r) for k, r in roles.items()}
+        new_opt_state = {
+            named[n]: ({**extra, **{k: got[k][n] for k in roles}}
+                       if count and roles else {})
+            for n in named}
+    model.load_state_dict(sd, strict=True)
+    state.step = int(tree["step"])
+    if new_opt_state is not None:
+        opt.state.clear()
+        opt.state.update(new_opt_state)
+        sched.count = count

@@ -1,1 +1,2 @@
-"""Telemetry and request tracing of the port's serving path."""
+"""Telemetry of the port's runs (training steps and events, served
+requests) and request tracing of its serving path."""

@@ -1,11 +1,16 @@
-"""The telemetry surface the generative scheduler and server call.
+"""The telemetry surface of the port's server, scheduler and trainer.
 
 A subset of ``pytorch_distributed_nn_tpu/observability/core.py``: the
 metric registry (counters, gauges, histograms), the append-only JSONL
-sink, and :class:`Telemetry` with ``emit`` (typed events) and
-``log_step`` (one record per served request, routed to the
-``serving_*`` metric family). Records keep the JAX package's stream
-format, so its ``obs`` tools read a port stream. Training-step
+sink whose first record is the run's ``manifest``, and
+:class:`Telemetry` with ``emit`` (typed events: ``checkpoint_write``,
+``checkpoint_gc``, ``ckpt_backpressure``, ``eval_result``, ``preempt``,
+``retry``, ``nonfinite_skip``, ``stall``) and ``log_step`` (one
+``kind: "step"`` record per training step, or per served request,
+routed to the ``serving_*`` metric family). The process default
+(:func:`get_telemetry`, :func:`install`) is where the low-level writers
+(checkpoint, retry, evaluator) emit. Records keep the JAX package's
+stream format, so its ``obs`` tools read a port stream. Training-step
 efficiency gauges and the Prometheus exporter are not ported yet.
 """
 
@@ -20,6 +25,8 @@ import uuid
 from typing import Dict, Optional, Tuple
 
 SCHEMA_VERSION = 2
+#: a run's stream inside its train_dir (rank 0's; the JAX package's name)
+STREAM_BASENAME = "telemetry.jsonl"
 
 #: latency-histogram bounds, seconds (the JAX package's DEFAULT_BUCKETS)
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -140,6 +147,14 @@ class TelemetrySink:
                     json.dumps(record, default=_json_default) + "\n"
                 )
 
+    def flush(self, fsync: bool = False) -> None:
+        with self._lock:
+            if self._file is None:
+                return
+            self._file.flush()
+            if fsync:
+                os.fsync(self._file.fileno())
+
     def close(self) -> None:
         with self._lock:
             if self._file is not None:
@@ -199,12 +214,21 @@ class Telemetry:
         return record
 
     def log_step(self, record: dict) -> dict:
-        """Write one served request's record (never mutates the caller's
-        dict) and update the ``serving_*`` metrics from it."""
+        """Write one training step's or served request's record (never
+        mutates the caller's dict). A served request (it has
+        ``latency_ms``) updates the ``serving_*`` metrics, a training step
+        ``steps_total`` and ``last_step``."""
         rec = {"kind": "step", **record}
         rec.setdefault("time", time.time())
         rec.setdefault("mono", time.monotonic())
         reg = self.registry
+        if rec.get("latency_ms") is None:
+            reg.counter("steps_total", help="completed optimizer steps").inc()
+            if "step" in rec:
+                reg.gauge("last_step", help="last completed step").set(
+                    rec["step"])
+            self._publish(rec)
+            return rec
         reg.counter("serving_requests_total", help="requests served").inc()
         for key, metric in (("latency_ms", "serving_latency_seconds"),
                             ("queue_ms", "serving_queue_seconds"),
@@ -229,14 +253,37 @@ class Telemetry:
         if self.sink is not None:
             self.sink.write(record)
 
+    def flush(self, fsync: bool = False) -> None:
+        if self.sink is not None:
+            self.sink.flush(fsync=fsync)
+
     def close(self) -> None:
         if self.sink is not None:
             self.sink.close()
 
 
 _default = Telemetry()
+_default_lock = threading.Lock()
 
 
 def get_telemetry() -> Telemetry:
-    """The process-wide Telemetry (in-memory registry, no stream)."""
+    """The process-wide Telemetry: a run's, when one is installed, else an
+    in-memory registry with no stream."""
     return _default
+
+
+def install(telemetry: Telemetry) -> Telemetry:
+    """Make ``telemetry`` the process default; returns the previous one."""
+    global _default
+    with _default_lock:
+        prev, _default = _default, telemetry
+        return prev
+
+
+def uninstall(telemetry: Telemetry, previous: Telemetry) -> None:
+    """Restore ``previous`` if ``telemetry`` is still the default (two runs
+    uninstalling out of order must not bring back a closed sink)."""
+    global _default
+    with _default_lock:
+        if _default is telemetry:
+            _default = previous

@@ -13,7 +13,8 @@ The reader covers what the JAX exporter writes: both magics, the CRC32
 check against the manifest, int8 leaves (``{"__int8__": q, "scale",
 "dtype"}``) dequantized on load, and flax's msgpack ndarray extension
 (type 1: a msgpack ``(shape, dtype name, C-order bytes)`` triple),
-decoded here without flax. The
+decoded without flax (:mod:`..utils.flax_msgpack`, which the checkpoints
+share). The
 writer, :func:`save_artifact`, emits the same format (PDAR, no
 quantization) from a port state_dict, so the JAX package's
 ``load_artifact`` reads it and the port can make an artifact with no
@@ -28,13 +29,13 @@ import time
 import zlib
 from typing import Dict, Optional
 
-import msgpack
 import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.ops.compression import (
     dequantize_int8_host,
 )
+from pytorch_distributed_nn_tpu_torch.utils import flax_msgpack
 
 ARTIFACT_FORMAT = "pdtn-artifact-v1"
 MANIFEST_NAME = "artifact.json"
@@ -42,25 +43,6 @@ PARAMS_NAME = "params.msgpack"
 
 _MAGIC_RAW = b"PDAR"
 _MAGIC_LZ = b"PDAZ"
-_EXT_NDARRAY = 1  # flax.serialization's msgpack ext type for ndarrays
-
-
-def _ext_unpack(code: int, data: bytes):
-    if code != _EXT_NDARRAY:
-        raise ValueError(f"unsupported msgpack ext type {code} in artifact")
-    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(
-        shape, order="C"
-    )
-
-
-def _ext_pack(x):
-    if isinstance(x, np.ndarray):
-        return msgpack.ExtType(_EXT_NDARRAY, msgpack.packb(
-            (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
-    raise TypeError(f"cannot serialize {type(x).__name__} into an artifact")
-
-
 def _dequantize_tree(tree):
     if isinstance(tree, dict):
         if "__int8__" in tree:
@@ -119,7 +101,7 @@ def load_artifact(artifact_dir: str):
         payload = host_codec.decompress(payload)
     elif magic != _MAGIC_RAW:
         raise ValueError(f"{params_path}: not a pdtn serving artifact")
-    tree = msgpack.unpackb(payload, ext_hook=_ext_unpack, raw=False)
+    tree = flax_msgpack.unpackb(payload)
     params = _dequantize_tree(tree["params"])
     return manifest, params, tree.get("batch_stats", {}) or {}
 
@@ -142,8 +124,7 @@ def save_artifact(out_dir: str, state_dict: Dict[str, torch.Tensor],
     model_kw = dict(model_kw or {})
     num_heads = build_model(network, **model_kw).config.num_heads
     params = state_dict_to_flax(state_dict, num_heads)
-    payload = msgpack.packb({"params": params, "batch_stats": {}},
-                            default=_ext_pack, strict_types=True)
+    payload = flax_msgpack.packb({"params": params, "batch_stats": {}})
     blob = _MAGIC_RAW + payload
     os.makedirs(out_dir, exist_ok=True)
     params_path = os.path.join(out_dir, PARAMS_NAME)

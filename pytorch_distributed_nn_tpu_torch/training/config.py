@@ -55,13 +55,15 @@ class TrainConfig:
     bucket_bytes: Optional[int] = None  # bucketed collectives (C12 parity)
     eval_freq: int = 0  # 0 = no checkpointing
     train_dir: str = "./train_dir"
-    # Zero-stall host I/O (training/async_ckpt.py, docs/checkpointing.md):
-    # periodic checkpoints snapshot on-device (async dispatch) and
-    # serialize/compress/publish on a background writer thread, so the
-    # step loop pays milliseconds instead of the full device->host fetch
-    # + write (seconds for ResNet-18, tens of seconds for a BERT-base
-    # Adam state on a remote-attached chip). Bytes are identical to the
-    # sync path; emergency saves are ALWAYS synchronous. Default on.
+    # Checkpoints written while training goes on (training/async_ckpt.py):
+    # the loop enqueues a device clone of the state on its stream and a
+    # background thread copies it to the host, serialises, compresses and
+    # publishes it, so the loop pays the clone (and a wait when the
+    # previous write is still running) instead of the write, which the
+    # host codec sets: on an H100 80GB HBM3 host about 3 s for ResNet-18
+    # and 45 s for a BERT-base Adam state, against a 4-12 ms stall
+    # (chip_smoke.py phase 7; PERF.md). Bytes are identical to the sync
+    # path; emergency saves are always synchronous. Default on.
     async_ckpt: bool = True
     # Retention: after every successful publish, delete verified
     # checkpoints older than the newest N (never the resume target,

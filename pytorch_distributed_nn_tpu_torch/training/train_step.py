@@ -19,15 +19,29 @@ are divided once by the total count: the masked mean of the whole batch,
 exactly, as the JAX step's ``pair_accum_fn`` path does. On one replica
 the JAX package's data-parallel sync (``grad_sync``) is the identity.
 
-The state is the model and its optimizer; the step updates both in
-place (the JAX step returns a new state: PyTorch owns its buffers).
-Metrics stay on the device as 0-d tensors until the caller reads them.
+The state is the model, its optimizer and the step count; the step
+updates them in place (the JAX step returns a new state: PyTorch owns
+its buffers). Metrics stay on the device as 0-d tensors until the caller
+reads them.
+
+Dropout draws from one generator on the device, re-seeded at every step
+from (seed, rank, step) (:func:`dropout_seed`), as the JAX step folds its
+dropout key with the rank and the step: a run resumed at step N draws at
+step N + 1 what an uninterrupted run draws there, with nothing of the
+generator in the checkpoint.
+
+``nonfinite_guard`` (``--skip-nonfinite``, the JAX step's guard): when
+the loss or a gradient (after the sync, so every rank decides alike) is
+not finite, the update is skipped: parameters, optimizer state and count,
+and BatchNorm statistics keep their values, the step count advances, and
+the metrics carry ``skipped_nonfinite`` 1 (else 0). The check reads one
+flag from the device each step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,35 +65,59 @@ from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
 @dataclasses.dataclass
 class TrainState:
     """What the JAX ``TrainState`` holds, for one device: the model (its
-    parameters; its dropout draws from a generator it holds) and the
-    optimizer (its state and update count)."""
+    parameters and BatchNorm statistics), the optimizer (its state and
+    update count, which a skipped step leaves alone) and the step count;
+    and the dropout generator the model draws from, with the seed and
+    rank it is re-seeded from at every step."""
 
     model: torch.nn.Module
     optimizer: ScheduledOptimizer
-
-    @property
-    def step(self) -> int:
-        return self.optimizer.count
+    step: int = 0
+    dropout_generator: Optional[torch.Generator] = None
+    seed: int = 0
+    rank: int = 0
 
 
 def create_train_state(model: torch.nn.Module, build_opt: Callable,
-                       device, seed: int = 0) -> TrainState:
+                       device, seed: int = 0, rank: int = 0) -> TrainState:
     """Move ``model`` to ``device``, build its optimizer with
-    ``build_opt(params)``, and seed a dropout generator on the device
-    (each rank passes its own ``seed``: the JAX step folds the dropout
-    key with the rank)."""
+    ``build_opt(params)``, and give it a dropout generator on the device
+    that each step re-seeds from ``(seed, rank, step)``."""
     device = torch.device(device)
     model = model.to(device)
-    model.set_dropout_generator(
-        torch.Generator(device=device).manual_seed(seed))
-    return TrainState(model, build_opt(model.parameters()))
+    gen = torch.Generator(device=device)
+    model.set_dropout_generator(gen)
+    return TrainState(model, build_opt(model.parameters()),
+                      dropout_generator=gen, seed=seed, rank=rank)
+
+
+def dropout_seed(seed: int, rank: int, step: int) -> int:
+    """The dropout generator's seed at a step: a function of (seed, rank,
+    step) alone, another for every rank and every step (the JAX step's
+    ``fold_in(fold_in(key, rank), step)``)."""
+    words = np.random.SeedSequence([int(seed), int(rank), int(step)]) \
+        .generate_state(2, np.uint64)
+    return int(words[0] >> np.uint64(1))
+
+
+def _seed_dropout(state: TrainState) -> None:
+    if state.dropout_generator is not None:
+        state.dropout_generator.manual_seed(
+            dropout_seed(state.seed, state.rank, state.step))
+
+
+def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether every element of every tensor is finite (one device read)."""
+    if not tensors:
+        return True
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
 
 
 def param_count(model: torch.nn.Module) -> int:
     return int(sum(p.numel() for p in model.parameters()))
 
 
-def build_train_step(grad_accum: int = 1):
+def build_train_step(grad_accum: int = 1, nonfinite_guard: bool = False):
     """``step(state, batch) -> metrics``: one update of ``state`` in
     place from ``batch = (tokens, labels)``."""
     if grad_accum < 1:
@@ -89,6 +127,7 @@ def build_train_step(grad_accum: int = 1):
         tokens, labels = batch
         model, opt = state.model, state.optimizer
         model.train()
+        _seed_dropout(state)
         opt.zero_grad()
         if grad_accum == 1:
             logits = model(tokens)
@@ -115,7 +154,15 @@ def build_train_step(grad_accum: int = 1):
             metrics = {"loss": sums["loss_sum"] / denom,
                        **{k: v / denom for k, v in sums.items()
                           if k not in ("loss_sum", "count")}}
-        opt.step()
+        ok = True
+        if nonfinite_guard:
+            ok = all_finite([metrics["loss"]] + [
+                p.grad for p in model.parameters() if p.grad is not None])
+            metrics["skipped_nonfinite"] = torch.tensor(
+                0.0 if ok else 1.0, device=tokens.device)
+        if ok:
+            opt.step()
+        state.step += 1
         return metrics
 
     return step
@@ -166,7 +213,8 @@ def bn_reduce(model: torch.nn.Module, mode: str, group) -> None:
 
 
 def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
-                           grad_accum: int = 1):
+                           grad_accum: int = 1,
+                           nonfinite_guard: bool = False):
     """``step(state, batch, seed) -> metrics``: one data-parallel update of
     ``state`` in place from this rank's ``batch = (images, labels)``, with
     the step's sync ``seed`` (:func:`sync_seed`). ``grad_accum = K`` splits
@@ -181,7 +229,10 @@ def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
         images, labels = batch
         model, opt = state.model, state.optimizer
         model.train()
+        _seed_dropout(state)
         opt.zero_grad()
+        stats = ([b.clone() for b in model.buffers()] if nonfinite_guard
+                 else None)
         n = images.shape[0]
         if n % grad_accum:
             raise ValueError(f"per-replica batch {n} not divisible by "
@@ -199,10 +250,24 @@ def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
             grads = [g / grad_accum for g in grads]
         for p, g in zip(params, grad_sync(grads, seed)):
             p.grad = g
-        opt.step()
-        bn_reduce(model, bn_stats_sync, group)
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        return _mean_over_ranks(metrics, group)
+        metrics = _mean_over_ranks(metrics, group)
+        ok = True
+        if nonfinite_guard:
+            # the synced gradients and the rank-mean loss: every rank
+            # takes the same branch
+            ok = all_finite([metrics["loss"]] + [p.grad for p in params])
+            metrics["skipped_nonfinite"] = torch.tensor(
+                0.0 if ok else 1.0, device=images.device)
+        if ok:
+            opt.step()
+            bn_reduce(model, bn_stats_sync, group)
+        else:
+            with torch.no_grad():
+                for b, old in zip(model.buffers(), stats):
+                    b.copy_(old)
+        state.step += 1
+        return metrics
 
     return step
 

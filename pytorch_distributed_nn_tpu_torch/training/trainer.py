@@ -20,14 +20,46 @@ for two paths.
 subset the port runs, and builds the model, the optimizer with its
 schedule and the loaders. ``train()`` runs ``max_steps`` steps (or
 ``epochs`` epochs) and returns one record per step: step, loss, acc1,
-acc5, step_ms and ``images_per_sec`` or ``tokens_per_sec``;
-``evaluate()`` scores the test split (images) or the fixed eval set
-(text).
+acc5, step_ms and ``images_per_sec`` or ``tokens_per_sec`` (and
+``skipped_nonfinite`` with ``skip_nonfinite``); ``evaluate()`` scores the
+test split (images) or the fixed eval set (text).
+
+Checkpoints, resume and supervision, as the JAX trainer runs them:
+
+- ``eval_freq = N`` writes ``<train_dir>/model_step_<k>`` every N steps
+  in the JAX package's FILE format (:mod:`.checkpoint`), through the
+  background writer (:mod:`.async_ckpt`; ``async_ckpt=False`` writes
+  inline). ``keep_last`` deletes older verified steps after each publish;
+  ``overlap_eval`` runs the eval pass on each checkpoint's device
+  snapshot on a thread and its own stream (``eval_result`` events with
+  ``source="overlap"``). Rank 0 writes.
+- ``resume`` restores the newest checkpoint that verifies, whichever
+  package wrote it (corrupt newer ones are quarantined), the MLM batch
+  stream from its ``.data.json`` sidecar (the image loaders restart, as
+  in the JAX package), and numbers the steps on from there. Dropout is
+  re-seeded from (seed, rank, step) at each step, so a resumed run draws
+  what an uninterrupted one draws.
+- ``supervise``: SIGTERM/SIGINT stop the run at the next step boundary
+  with an emergency checkpoint of the completed step and a ``preempt``
+  event (the process exits 0); ``heartbeat.json`` is beaten every step,
+  and ``heartbeat_grace`` adds the stall watchdog. The in-flight async
+  save is drained first, and at the end of every run.
+- ``skip_nonfinite``: the train step's guard (:mod:`.train_step`).
+
+The run's telemetry stream (``metrics_path``, else
+``<train_dir>/telemetry.jsonl`` when the run checkpoints or is
+supervised) starts with its ``manifest``; steps are ``kind: "step"``
+records and ``checkpoint_write``, ``checkpoint_gc``, ``eval_result``,
+``preempt`` and ``nonfinite_skip`` are events with the JAX package's
+field names.
 
 Every flag the port cannot honour yet raises, naming the ROADMAP item
 that ports it (:data:`UNSUPPORTED`, :data:`TEXT_UNSUPPORTED`); none is
-silently ignored. The trainer runs on the card unless ``device="cpu"`` is
-given; without a card it raises, it never falls back to the CPU.
+silently ignored: still ``faults``, ``flightrec`` and ``profile_steps``
+(item 4), the sharded and streaming paths (items 1 and 3) and the rest of
+the gradient sync (item 2). The trainer runs on the card unless
+``device="cpu"`` is given; without a card it raises, it never falls back
+to the CPU.
 
 Weights are initialised from ``seed`` with a ``torch.Generator``: the
 flax initialisation's scheme, not its numbers (JAX's PRNG differs).
@@ -35,10 +67,13 @@ flax initialisation's scheme, not its numbers (JAX's PRNG differs).
 
 from __future__ import annotations
 
-import json
+import contextlib
+import dataclasses
 import logging
+import os
+import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -53,6 +88,7 @@ from pytorch_distributed_nn_tpu_torch.models import (
     input_spec,
     is_text_model,
 )
+from pytorch_distributed_nn_tpu_torch.observability import core as obs
 from pytorch_distributed_nn_tpu_torch.ops import kernels
 from pytorch_distributed_nn_tpu_torch.optim import (
     build_optimizer,
@@ -61,9 +97,14 @@ from pytorch_distributed_nn_tpu_torch.optim import (
 from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
     make_grad_sync,
 )
-from pytorch_distributed_nn_tpu_torch.parallel.mesh import init_group
+from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
+    all_reduce,
+    init_group,
+)
+from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
 from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
 from pytorch_distributed_nn_tpu_torch.training.train_step import (
+    TrainState,
     build_eval_step,
     build_image_eval_step,
     build_image_train_step,
@@ -74,13 +115,17 @@ from pytorch_distributed_nn_tpu_torch.training.train_step import (
     sync_seed,
 )
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
+from pytorch_distributed_nn_tpu_torch.utils.timing import (
+    MetricsLogger,
+    PhaseTimer,
+)
 
 logger = logging.getLogger(__name__)
 
 _SYNC = "ROADMAP Queue 1 item 2 (gradient sync over torch.distributed)"
 _SPMD = "ROADMAP Queue 1 item 1 (dp x tp x sp training)"
 _DATA = "ROADMAP Queue 1 item 3 (data)"
-_CKPT = "ROADMAP Queue 1 item 4 (checkpoint, trainer, evaluator)"
+_CKPT = "ROADMAP Queue 1 item 4 (faults, flight recorder, profiler)"
 
 #: config field -> (the values the port runs, the ROADMAP item that ports
 #: the rest); any other value raises
@@ -93,14 +138,7 @@ UNSUPPORTED = {
     "warm_start": ((None,), _SPMD),
     "data_path": ((None,), _DATA),
     "loader_workers": ((0,), _DATA),
-    "eval_freq": ((0,), _CKPT),
-    "resume": ((False,), _CKPT),
-    "keep_last": ((None,), _CKPT),
-    "overlap_eval": ((False,), _CKPT),
     "faults": ((None,), _CKPT),
-    "skip_nonfinite": ((False,), _CKPT),
-    "supervise": ((False,), _CKPT),
-    "heartbeat_grace": ((None,), _CKPT),
     "flightrec": ((None,), _CKPT),
     "profile_steps": ((0,), _CKPT),
 }
@@ -159,6 +197,35 @@ def validate(c: TrainConfig) -> None:
                          f"grad_accum={c.grad_accum} microbatches")
     if c.warmup_steps < 0:
         raise ValueError(f"warmup_steps must be >= 0, got {c.warmup_steps}")
+    if c.eval_freq < 0:
+        raise ValueError(f"eval_freq must be >= 0, got {c.eval_freq}")
+    if c.keep_last is not None and c.keep_last < 1:
+        raise ValueError(f"keep_last must be >= 1, got {c.keep_last}")
+    if c.overlap_eval and not (c.async_ckpt and c.eval_freq):
+        raise ValueError(
+            "overlap_eval runs the eval pass on the async checkpoint "
+            "snapshot; it requires async_ckpt=True and eval_freq > 0")
+
+
+def build_train_model(c: TrainConfig) -> torch.nn.Module:
+    """A fresh model of ``c``'s network and model flags, its weights drawn
+    from ``c.seed`` (on the CPU)."""
+    if is_text_model(c.network):
+        model_kw = {"dtype": c.dtype}
+        if c.vocab_size is not None:
+            model_kw["vocab_size"] = c.vocab_size
+        if c.seq_len is not None:
+            model_kw["max_len"] = c.seq_len
+        if c.fused_ln:
+            model_kw["fused_ln"] = True
+        if c.attn_impl == "pallas":
+            model_kw["attn_fn"] = kernels.flash_attention
+        model = build_model(c.network, **model_kw)
+    else:
+        num_classes = 100 if c.dataset == "Cifar100" else 10
+        model = build_model(c.network, num_classes, dtype=c.dtype)
+    model.init_weights(torch.Generator().manual_seed(c.seed))
+    return model
 
 
 class Trainer:
@@ -179,32 +246,46 @@ class Trainer:
             self._init_text(build_opt)
         else:
             self._init_image(build_opt)
-        # one record stream per run: rank 0 writes it
-        self._metrics = (open(c.metrics_path, "a")
-                         if c.metrics_path and self.rank == 0 else None)
-        logger.info("Trainer: %s (%d params, %s) on %s, rank %d of %d",
-                    c.network, param_count(self.model), c.dtype, self.device,
-                    self.rank, self.n_workers)
+        if c.overlap_eval and self.n_workers > 1:
+            raise NotImplementedError(
+                "overlap_eval over several ranks (an eval pass on a thread "
+                f"beside the training collectives) is not ported yet: {_SYNC}")
+        self._geometry = {"devices": self.n_workers,
+                          "processes": self.n_workers}
+        self.start_step = 0
+        if c.resume:
+            self._resume()
+        self._init_telemetry()
+        # after the telemetry install: the writer's events land in the
+        # run's stream. Rank 0 writes (the state is the same on every rank)
+        self._async_ckpt = None
+        self._overlap_eval_thread: Optional[threading.Thread] = None
+        self._eval_model = None
+        self._eval_stream = None
+        if c.eval_freq and c.async_ckpt and self.rank == 0:
+            from pytorch_distributed_nn_tpu_torch.training.async_ckpt import (
+                AsyncCheckpointer,
+            )
+
+            self._async_ckpt = AsyncCheckpointer(
+                c.train_dir, keep_last=c.keep_last, geometry=self._geometry)
+            self._async_ckpt.warmup(self.state)
+        if self.start_step:
+            self._restore_data_stream()
+        logger.info("Trainer: %s (%d params, %s) on %s, rank %d of %d, from "
+                    "step %d", c.network, param_count(self.model), c.dtype,
+                    self.device, self.rank, self.n_workers, self.start_step)
 
     def _init_text(self, build_opt) -> None:
         c = self.config
         self.group, self.rank, self.n_workers = None, 0, 1
-        model_kw = {"dtype": c.dtype}
-        if c.vocab_size is not None:
-            model_kw["vocab_size"] = c.vocab_size
-        if c.seq_len is not None:
-            model_kw["max_len"] = c.seq_len
-        if c.fused_ln:
-            model_kw["fused_ln"] = True
-        if c.attn_impl == "pallas":
-            model_kw["attn_fn"] = kernels.flash_attention
-        self.model = build_model(c.network, **model_kw)
-        self.model.init_weights(torch.Generator().manual_seed(c.seed))
+        self.model = build_train_model(c)
         self.state = create_train_state(self.model, build_opt, self.device,
                                         seed=c.seed + 1)
         self.seq_len = c.seq_len or input_spec(c.network)[0]
         self.vocab_size = c.vocab_size or self.model.config.vocab_size
-        self.train_step = build_train_step(grad_accum=c.grad_accum)
+        self.train_step = build_train_step(grad_accum=c.grad_accum,
+                                           nonfinite_guard=c.skip_nonfinite)
         self.eval_step = build_eval_step()
         self.train_loader = MLMLoader(
             MLMBatches(vocab_size=self.vocab_size, seq_len=self.seq_len,
@@ -243,15 +324,14 @@ class Trainer:
             self.group, c.sync_mode, num_aggregate=c.num_aggregate,
             compression=c.compression, topk_ratio=c.topk_ratio,
             kill_ranks=tuple(c.kill_ranks), bucket_bytes=c.bucket_bytes)
-        num_classes = 100 if c.dataset == "Cifar100" else 10
-        self.model = build_model(c.network, num_classes, dtype=c.dtype)
-        self.model.init_weights(torch.Generator().manual_seed(c.seed))
-        # one dropout stream per rank, as the JAX step folds in the rank
+        self.model = build_train_model(c)
+        # one dropout stream per rank and step, as the JAX step folds the
+        # dropout key with both
         self.state = create_train_state(self.model, build_opt, self.device,
-                                        seed=c.seed + 1 + 1_000_003 * self.rank)
+                                        seed=c.seed + 1, rank=self.rank)
         self.train_step = build_image_train_step(
             self.grad_sync, bn_stats_sync=c.bn_stats_sync,
-            grad_accum=c.grad_accum)
+            grad_accum=c.grad_accum, nonfinite_guard=c.skip_nonfinite)
         self.eval_step = build_image_eval_step(self.group)
 
         train_ds = load_dataset(c.dataset, train=True, data_dir=c.data_dir,
@@ -280,14 +360,100 @@ class Trainer:
                 test_ds, test_bs, shuffle=False, prefetch=0,
                 device=self.device, **kw)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    # -- resume and telemetry ----------------------------------------------
 
-    def _log(self, record: dict) -> None:
-        if self._metrics is not None:
-            self._metrics.write(json.dumps(record) + "\n")
-            self._metrics.flush()
+    def _resume(self) -> None:
+        """Restore the newest valid checkpoint of ``train_dir``: rank 0
+        scans (verifying, quarantining what fails), the others restore the
+        step it found."""
+        from pytorch_distributed_nn_tpu_torch.resilience.supervisor import (
+            resume_latest_valid,
+        )
+
+        c = self.config
+        found = 0
+        if self.rank == 0:
+            restored = resume_latest_valid(c.train_dir, self.state)
+            found = 0 if restored is None else self.state.step + 1
+        if self.n_workers > 1:
+            flag = torch.tensor([found], dtype=torch.int64,
+                                device=self.device)
+            found = int(all_reduce(flag, "sum", self.group).item())
+            if self.rank != 0 and found:
+                ckpt.restore_checkpoint(
+                    ckpt.checkpoint_path(c.train_dir, found - 1), self.state)
+        if found:
+            self.start_step = self.state.step
+            logger.info("Resumed from step %d", self.start_step)
+        else:
+            logger.info("Resume: no valid checkpoint in %s; starting fresh",
+                        c.train_dir)
+
+    def _init_telemetry(self) -> None:
+        """The run's stream: ``metrics_path``, else
+        ``<train_dir>/telemetry.jsonl`` when the run checkpoints or is
+        supervised; rank 0 writes it (other ranks keep an in-memory
+        registry). The manifest is its first record."""
+        c = self.config
+        path = c.metrics_path
+        if path is None and (c.supervise or c.eval_freq):
+            path = os.path.join(c.train_dir, obs.STREAM_BASENAME)
+        if self.rank != 0:
+            path = None
+        manifest = obs.run_manifest(
+            config=dataclasses.asdict(c),
+            geometry=self._geometry,
+            param_count=param_count(self.model),
+            param_bytes=int(sum(p.numel() * p.element_size()
+                                for p in self.model.parameters())),
+            start_step=self.start_step,
+            device=str(self.device),
+        )
+        manifest["rank"] = self.rank
+        self.telemetry = obs.Telemetry.for_run(path, manifest)
+        self.telemetry.registry.gauge(
+            "num_workers", help="data-parallel degree").set(self.n_workers)
+        # the process default: the checkpoint, retry and evaluator writers
+        # emit into this run's stream
+        self._prev_telemetry = obs.install(self.telemetry)
+        self.metrics = MetricsLogger(telemetry=self.telemetry)
+
+    def _restore_data_stream(self) -> None:
+        """A resumed MLM run continues its batch stream from the
+        checkpoint's ``.data.json`` sidecar, else by skipping the steps
+        done; the image loaders restart their epoch (the JAX trainer's
+        semantics)."""
+        restore = getattr(self.train_loader, "restore", None)
+        if restore is None:
+            return
+        data_state = ckpt.load_data_state(
+            ckpt.checkpoint_path(self.config.train_dir, self.start_step))
+        if data_state is not None:
+            try:
+                restore(data_state)
+                logger.info("Restored the input stream at step %d (%s)",
+                            self.start_step, data_state)
+                return
+            except (ValueError, KeyError):
+                logger.exception("iterator-state restore failed; "
+                                 "falling back to skip-based fast-forward")
+        logger.warning("Input stream fast-forwarding %d batch(es) by skip "
+                       "(no usable iterator-state sidecar)", self.start_step)
+        self.telemetry.emit("data_refastforward", step=self.start_step,
+                            mode="skip", batches=self.start_step)
+        self.train_loader.skip(self.start_step)
+
+    def _loader_state(self) -> Optional[dict]:
+        fn = getattr(self.train_loader, "state", None)
+        return fn() if callable(fn) else None
+
+    # -- the loop ------------------------------------------------------------
+
+    def _sync(self) -> None:
+        # the training stream only: a device-wide sync would also wait for
+        # the checkpoint writer's copies to the host on its own stream
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One training step on ``batch`` (this rank's slice); metrics
@@ -300,11 +466,24 @@ class Trainer:
                                sync_seed(self.config.seed + 1,
                                          self.state.step))
 
+    def _stop_requested(self, sup) -> bool:
+        """Whether a signal asked this run to stop; over several ranks,
+        whether any rank's did (every rank leaves at the same step)."""
+        if sup is None:
+            return False
+        stop = sup.should_stop
+        if self.n_workers > 1:
+            flag = torch.tensor([int(stop)], dtype=torch.int64,
+                                device=self.device)
+            stop = bool(all_reduce(flag, "max", self.group).item())
+        return stop
+
     def train(self) -> List[dict]:
-        """Run the steps; returns the per-step records. Metrics are read
-        (one device sync) every ``log_every`` steps; a step's time is its
-        window's wall time less the batch fetches, over the window's
-        steps."""
+        """Run the steps from ``start_step``; returns the per-step
+        records. Metrics are read (one sync of the training stream)
+        every ``log_every`` steps; a step's time is its window's wall time
+        less the batch fetches, over the window's steps (a checkpoint's
+        stall is not billed to the next window)."""
         c = self.config
         per_epoch = self.train_loader.steps_per_epoch
         total = c.max_steps if c.max_steps is not None else per_epoch * c.epochs
@@ -312,10 +491,13 @@ class Trainer:
         rate_key = "tokens_per_sec" if self.is_text else "images_per_sec"
         history: List[dict] = []
         pending: List[dict] = []
+        timer = PhaseTimer(registry=self.telemetry.registry)
         window_t0, window_data = time.perf_counter(), 0.0
 
         def flush():
             nonlocal window_t0, window_data
+            if not pending:
+                return
             self._sync()
             step_s = max((time.perf_counter() - window_t0 - window_data)
                          / len(pending), 1e-9)
@@ -325,7 +507,9 @@ class Trainer:
                 rec["step_ms"] = step_s * 1e3
                 rec[rate_key] = items / step_s
                 history.append(rec)
-                self._log(rec)
+                self.metrics.log(rec)
+                if rec.get("skipped_nonfinite", 0):
+                    self.telemetry.emit("nonfinite_skip", step=rec["step"])
             last = pending[-1]
             logger.info("Step: %d, Epoch: %d, Loss: %.4f, Prec@1: %.4f, "
                         "Prec@5: %.4f, StepTime: %.4f ms, %s: %.1f",
@@ -335,22 +519,181 @@ class Trainer:
             pending.clear()
             window_t0, window_data = time.perf_counter(), 0.0
 
-        for step in range(total):
-            t0 = time.perf_counter()
-            batch = self.train_loader.next_batch()
-            data_s = time.perf_counter() - t0
-            window_data += data_s
-            metrics = self.step(batch)
-            pending.append({"step": step + 1, "epoch": step // per_epoch,
-                            "_metrics": metrics, "data_time": data_s,
-                            "input_wait_ms": self.train_loader.last_wait_ms})
-            if (step + 1) % c.log_every == 0 or step + 1 == total:
+        sup = None
+        if c.supervise:
+            from pytorch_distributed_nn_tpu_torch.resilience.supervisor import (
+                RunSupervisor,
+            )
+
+            sup = RunSupervisor(c.train_dir, grace=c.heartbeat_grace)
+            sup.extra["geometry"] = self._geometry
+
+        def preempt_exit(completed: int):
+            flush()
+            self.telemetry.emit("preempt", step=completed,
+                                signal=sup.stop_signal)
+            self._emergency_save()
+            self.telemetry.flush(fsync=True)
+            logger.warning("Preempted after step %d: emergency checkpoint "
+                           "written, exiting cleanly", completed)
+
+        ok = False
+        step = self.start_step - 1  # the last completed step
+        try:
+            with sup if sup is not None else contextlib.nullcontext():
+                for step in range(self.start_step, total):
+                    if self._stop_requested(sup):
+                        preempt_exit(step)
+                        break
+                    timer.reset()
+                    with timer.phase("data"):
+                        batch = self.train_loader.next_batch()
+                    window_data += timer.durations["data"]
+                    metrics = self.step(batch)
+                    pending.append({
+                        "step": step + 1, "epoch": step // per_epoch,
+                        "_metrics": metrics,
+                        "data_time": timer.durations["data"],
+                        "input_wait_ms": self.train_loader.last_wait_ms})
+                    if (step + 1) % c.log_every == 0 or step + 1 == total:
+                        flush()
+                    if c.eval_freq and (step + 1) % c.eval_freq == 0:
+                        flush()
+                        self._save_periodic(step + 1, timer)
+                        window_t0 = time.perf_counter()
+                    if sup is not None:
+                        sup.beat(step + 1)
+                        # a signal during the step stops here: the grace
+                        # window is one step and a checkpoint
+                        if self._stop_requested(sup):
+                            preempt_exit(step + 1)
+                            break
+            ok = True
+        finally:
+            # the last enqueued save publishes before the run is done, and
+            # a writer failure fails the run as a sync write would (on the
+            # success path; a failing run keeps its own error)
+            try:
+                self._finish_background_io(raise_errors=ok)
+            finally:
+                if sup is not None:
+                    sup.beat(step + 1)
                 flush()
+                self.telemetry.flush()
         return history
+
+    def _save_periodic(self, step: int, timer: PhaseTimer) -> None:
+        """The checkpoint of ``step`` (rank 0): handed to the async writer
+        (the loop stalls for the snapshot), or written inline."""
+        c = self.config
+        if self.rank != 0:
+            return
+        data_state = self._loader_state()
+        if self._async_ckpt is not None:
+            with timer.phase("checkpoint"):
+                handle = self._async_ckpt.save(
+                    self.state, step=step,
+                    retain_device_state=c.overlap_eval,
+                    data_state=data_state)
+            logger.info("Checkpoint step %d handed to the async writer "
+                        "(loop stalled %.1f ms)", step, handle.stall_ms)
+            if c.overlap_eval:
+                self._start_overlap_eval(handle)
+            return
+        with timer.phase("checkpoint"):
+            path = ckpt.save_checkpoint(c.train_dir, self.state, step=step,
+                                        data_state=data_state,
+                                        geometry=self._geometry)
+        if c.keep_last is not None:
+            ckpt.gc_checkpoints(c.train_dir, c.keep_last)
+        logger.info("Checkpointed step %d to %s", step, path)
+
+    def _snapshot_state(self, snap) -> TrainState:
+        """A model that reads the snapshot's tensors (no copy): the
+        overlapped eval's, built once."""
+        if self._eval_model is None:
+            self._eval_model = build_train_model(self.config).to(
+                self.device)
+        named = {k.split("/", 1)[1]: v for k, v in snap.tensors.items()
+                 if k.startswith(("params/", "batch_stats/"))}
+        self._eval_model.load_state_dict(named, strict=True, assign=True)
+        return TrainState(self._eval_model, None, step=snap.step)
+
+    def _start_overlap_eval(self, handle) -> None:
+        """The eval pass on ``handle``'s device snapshot, on a thread and
+        (on the card) its own stream, while training goes on; depth 1, as
+        the writer. Emits ``eval_result`` with ``source="overlap"``."""
+        prev = self._overlap_eval_thread
+        if prev is not None:
+            prev.join()
+        telemetry = self.telemetry
+        snap = handle.dev_state
+        if self.device.type == "cuda" and self._eval_stream is None:
+            self._eval_stream = torch.cuda.Stream(self.device)
+
+        def _run():
+            try:
+                with torch.cuda.stream(self._eval_stream) \
+                        if self._eval_stream is not None \
+                        else contextlib.nullcontext():
+                    snap.wait(self._eval_stream)
+                    out = run_eval_pass(self.eval_step,
+                                        self._snapshot_state(snap),
+                                        self.test_loader)
+                if out:
+                    seqs = getattr(self.test_loader, "eval_sequences", None)
+                    telemetry.emit(
+                        "eval_result", step=handle.step,
+                        loss=out["loss"], acc1=out["acc1"], acc5=out["acc5"],
+                        sequences=seqs, source="overlap")
+                    logger.info("Overlapped eval @ step %d: loss %.4f, "
+                                "prec@1 %.4f, prec@5 %.4f", handle.step,
+                                out["loss"], out["acc1"], out["acc5"])
+            except Exception:
+                logger.exception("overlapped eval failed (non-fatal)")
+            finally:
+                handle.dev_state = None
+
+        self._overlap_eval_thread = threading.Thread(
+            target=_run, name="pdtn-overlap-eval", daemon=True)
+        self._overlap_eval_thread.start()
+
+    def _finish_background_io(self, raise_errors: bool) -> None:
+        """Join the overlapped eval and drain the async writer: where the
+        writer's faults surface."""
+        prev = self._overlap_eval_thread
+        if prev is not None:
+            prev.join()
+            self._overlap_eval_thread = None
+        if self._async_ckpt is not None:
+            self._async_ckpt.drain(raise_errors=raise_errors)
+
+    def _emergency_save(self) -> Optional[str]:
+        """A synchronous checkpoint of the live state at the completed
+        step (the preemption path), after draining the async writer so
+        the two never race on one path. Best effort: logged, not
+        raised."""
+        c = self.config
+        try:
+            self._finish_background_io(raise_errors=False)
+        except Exception:
+            logger.exception("async drain before emergency save failed")
+        if self.rank != 0:
+            return None
+        try:
+            path = ckpt.save_checkpoint(c.train_dir, self.state,
+                                        data_state=self._loader_state(),
+                                        geometry=self._geometry)
+            logger.info("Emergency checkpoint: %s", path)
+            return path
+        except Exception:
+            logger.exception("emergency checkpoint failed")
+            return None
 
     def evaluate(self) -> Dict[str, float]:
         """Mean loss/acc1/acc5 over the test split (images) or the fixed
-        eval set (text); ``{}`` when it is empty."""
+        eval set (text); ``{}`` when it is empty. Emits ``eval_result``
+        (``source="trainer"``)."""
         out = run_eval_pass(self.eval_step, self.state, self.test_loader)
         if not out:
             logger.info("Validation skipped: eval set is empty")
@@ -364,12 +707,20 @@ class Trainer:
         logger.info("Validation: loss %.4f, prec@1 %.4f, prec@5 %.4f "
                     "(%d %s)", out["loss"], out["acc1"], out["acc5"], count,
                     unit)
-        self._log({"eval": out, "step": self.state.step, unit: count})
+        self.telemetry.emit("eval_result", step=self.state.step,
+                            loss=out["loss"], acc1=out["acc1"],
+                            acc5=out["acc5"], source="trainer",
+                            **{unit: count})
         return out
 
     def close(self) -> None:
-        self.train_loader.close()
-        self.test_loader.close()
-        if self._metrics is not None:
-            self._metrics.close()
-            self._metrics = None
+        try:
+            self._finish_background_io(raise_errors=False)
+            if self._async_ckpt is not None:
+                self._async_ckpt.close()
+        finally:
+            self.train_loader.close()
+            self.test_loader.close()
+            self.metrics.close()
+            self.telemetry.close()
+            obs.uninstall(self.telemetry, self._prev_telemetry)

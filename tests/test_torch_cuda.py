@@ -609,3 +609,126 @@ def test_cuda_int8_sync_on_one_nccl_rank_equals_the_plain_quantizer(card):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# -- checkpoints of a state on the card ------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_async_checkpoint_holds_its_steps_state(card, tmp_path):
+    """In-place safety on the card: a BertTiny (flash kernels, Adam) state
+    checkpointed async at step 2 while steps 3-5 update it in place on the
+    same stream (a sleep kernel ahead of the snapshot keeps the writer's
+    copy waiting while they are enqueued): the file holds step 2's state
+    bit for bit, the state moved on, and a sync save of step 2's state
+    gives the same bytes."""
+    from pytorch_distributed_nn_tpu_torch.data.text import MLMBatches
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.async_ckpt import (
+        AsyncCheckpointer,
+    )
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        build_train_step,
+        create_train_state,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    model = build_model("BertTiny", max_len=64,
+                        attn_fn=kernels.flash_attention)
+    model.init_weights(torch.Generator().manual_seed(0))
+    state = create_train_state(model, lambda ps: build_optimizer(
+        "adam", ps, 1e-3), card, seed=1)
+    step = build_train_step()
+    data = MLMBatches(vocab_size=model.config.vocab_size, seq_len=64,
+                      batch_size=8)
+
+    def run():
+        x, y = next(data)
+        step(state, (torch.from_numpy(x).long().to(card),
+                     torch.from_numpy(y).long().to(card)))
+
+    run(), run()
+    want = ckpt.state_tree(state)
+    sync = ckpt.save_checkpoint(str(tmp_path / "sync"), state)
+    ac = AsyncCheckpointer(str(tmp_path / "async"))
+    try:
+        torch.cuda._sleep(100_000_000)
+        handle = ac.save(state)
+        for _ in range(3):
+            run()
+        ac.wait()
+    finally:
+        ac.close(timeout=120)
+    assert handle.step == 2 and state.step == 5
+    assert chip_smoke.first_difference(ckpt.load_raw(handle.path), want) \
+        is None
+    assert chip_smoke.first_difference(ckpt.state_tree(state), want)
+    with open(sync, "rb") as a, open(handle.path, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.cuda
+def test_cuda_async_checkpoints_reuse_the_pinned_host_tensors(card,
+                                                              tmp_path):
+    """Two async saves of a ResNet-20 (SGD momentum, BatchNorm) state, a
+    step apart, through the one set of page-locked host tensors the
+    writer pins at warmup: each file holds its own step's state bit for
+    bit."""
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
+        make_grad_sync,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.async_ckpt import (
+        AsyncCheckpointer,
+    )
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        build_image_train_step,
+        create_train_state,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    model = build_model("ResNet20")
+    model.init_weights(torch.Generator().manual_seed(0))
+    state = create_train_state(model, lambda ps: build_optimizer(
+        "sgd", ps, 0.1, momentum=0.9), card)
+    step = build_image_train_step(make_grad_sync(None, "local"))
+    gen = torch.Generator().manual_seed(1)
+
+    def run():
+        x = torch.randn(16, 32, 32, 3, generator=gen).to(card)
+        y = torch.randint(0, 10, (16,), generator=gen).to(card)
+        step(state, (x, y), 0)
+
+    ac = AsyncCheckpointer(str(tmp_path / "async"))
+    try:
+        ac.warmup(state)
+        pinned = ac._host
+        run()
+        want = [ckpt.state_tree(state)]
+        first = ac.save(state)
+        run()
+        ac.wait()
+        want.append(ckpt.state_tree(state))
+        second = ac.save(state)
+        ac.wait()
+        assert ac._host is pinned
+        assert all(t.is_pinned() for t in pinned.values())
+    finally:
+        ac.close(timeout=120)
+    assert (first.step, second.step) == (1, 2)
+    for handle, tree in zip((first, second), want):
+        assert chip_smoke.first_difference(ckpt.load_raw(handle.path),
+                                           tree) is None
+    assert chip_smoke.first_difference(want[0], want[1])

@@ -274,8 +274,11 @@ def test_cli_trains_lenet_with_int8_sync_on_the_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     records = [json.loads(line) for line in
                metrics_path.read_text().splitlines() if line]
-    steps = [r for r in records if "eval" not in r]
+    assert records[0]["kind"] == "manifest"
+    steps = [r for r in records if r["kind"] == "step"]
     assert [r["step"] for r in steps] == [1, 2]
     assert all(np.isfinite(r["loss"]) and r["images_per_sec"] > 0
                for r in steps)
-    assert "Validation" in proc.stderr and records[-1]["images"] == 256
+    assert "Validation" in proc.stderr
+    assert records[-1]["type"] == "eval_result"
+    assert records[-1]["images"] == 256

@@ -310,12 +310,15 @@ def test_cli_train_on_the_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     records = [json.loads(line) for line in metrics_path.read_text().split(
         "\n") if line]
-    steps = [r for r in records if "eval" not in r]
+    assert records[0]["kind"] == "manifest"
+    steps = [r for r in records if r["kind"] == "step"]
     assert [r["step"] for r in steps] == [1, 2]
     for r in steps:
         assert np.isfinite(r["loss"]) and r["step_ms"] > 0
         assert r["tokens_per_sec"] > 0 and 0 <= r["acc1"] <= r["acc5"] <= 1
-    assert "Validation" in proc.stderr and records[-1]["sequences"] == 4
+    assert "Validation" in proc.stderr
+    assert records[-1]["type"] == "eval_result"
+    assert records[-1]["sequences"] == 4
 
 
 _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
@@ -324,8 +327,8 @@ _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
 
 @pytest.mark.parametrize("field,value", [
     ("sync_mode", "ps"), ("compression", "int8"), ("tensor_parallel", 2),
-    ("seq_parallel", 2), ("num_workers", 2), ("resume", True),
-    ("eval_freq", 5), ("remat", True), ("faults", "crash@2"),
+    ("seq_parallel", 2), ("num_workers", 2), ("flightrec", "default"),
+    ("profile_steps", 2), ("remat", True), ("faults", "crash@2"),
     ("warm_start", "ckpt"), ("data_path", "shards"), ("kill_ranks", (1,)),
 ])
 def test_unsupported_flags_raise_naming_their_roadmap_item(field, value):
