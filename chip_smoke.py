@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: generative serving
 of GptMini, MLM training of BertBase (and GptMini), data-parallel
-ResNet-18/CIFAR-10 training with the int8 gradient collective, and the
-checkpoints, resume, polling evaluator and SIGTERM path of the last two.
+ResNet-18/CIFAR-10 training with the int8 gradient collective, the
+checkpoints, resume, polling evaluator and SIGTERM path of the last two,
+and single-pass serving (``POST /v1/infer``) of their checkpoints.
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
+    python3 chip_smoke.py --serve-bench 2
 
 The second form only times the training steps of the checkout beside
-the script (``step_times``), for comparing two commits in one call.
+the script (``step_times``), and the third only runs that checkout's
+``serve bench`` in fresh processes on a random-init ResNet-18 artifact
+(``serve_bench_runs``), each for comparing two commits in one call.
 
 Phases, each printed on its own line:
 
@@ -126,13 +130,42 @@ Phases, each printed on its own line:
    verifies. Checkpoint bytes (raw and PDTZ), write, stall and restore
    ms, the evaluator's ms per checkpoint, and the step times of the 10
    steps after an async save against 9 steps without one;
-8. one JSON line listing the kernels (launches on the driven paths of
-   phases 4 and 5, error against the plain version, times, least possible
-   time), then the result line ``{"ok": true, "device": {...}}``.
+8. single-pass serving of phase 7's checkpoints, each reading beside the
+   card's name and power limit. ResNet-18 (11,173,962 parameters): exported
+   with ``quantize`` none and int8, each served by the ``InferenceEngine``
+   on the card (buckets 1-32): warmup time, logits against the same
+   artifact on the CPU (``SERVE_RTOL``) with top-1 equal, ``infer_ms`` by
+   bucket (median of ``SERVE_TIMED``) with the achieved FLOP/s,
+   ``retraces() == 0``, a profile of bucket 32; two ``serve run``
+   subprocesses on ephemeral ports: 8 concurrent clients of 1-4 rows whose
+   top-1 equals the in-process engine's, a body with a scalar image row
+   answered 400 and the next good row 200 with the engine's top-1, 8 rows
+   against ``--max-queue 1`` answered 429 with Retry-After, each drained
+   by SIGTERM to exit 0; ``serve bench``'s open-loop sweep at 500, 1000
+   and 2000 req/s for 2 s each, from the CLI in a fresh process (with the
+   ``infer_ms`` of its first ``FIRST_BATCHES`` batches) and then as
+   ``loadgen.sweep`` in this one, counting Python's garbage collections:
+   sustained req/s, p50/p95/p99, achieved FLOP/s, no retrace. BertBase (109,512,762
+   parameters, bf16): exported and served at batch buckets 1-8 and every
+   length bucket to 512; the LayerNorms' (in, out) dtypes read by hooks;
+   exactly 26 LayerNorm forward launches a batch and no other kernel over 4
+   engine batches and one short HTTP request, after a request with an id
+   equal to the vocabulary size was answered 400 (on the card such an id
+   would be a device-side assert); logits against the same
+   weights with the plain LayerNorm on the card, in bf16 and in f32 (the
+   kernels' model within ``BERT_SERVE_NOISE_FACTOR`` times the plain bf16
+   model's own distance from f32); ``infer_ms`` at 1 x 512 and 8 x 512 and
+   a profile of each; the LayerNorm forward kernel against its plain
+   version at (1, 768) and (4096, 768) bf16 -> f32, timed beside its bound
+   and ``F.layer_norm``;
+9. one JSON line listing the kernels (launches on the driven paths of
+   phases 4, 5 and 8, error against the plain version, times, least
+   possible time), then the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass, the resumed steps of
-phase 7) and read just after; the evaluator subprocess counts its own.
+phase 7, BertBase's served batches in phase 8) and read just after; the
+evaluator subprocess counts its own.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -150,6 +183,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 #: NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth, the f32 rate
@@ -497,6 +531,25 @@ def time_decode_off_path(kernels, reference, F, gen):
     return rows
 
 
+def device_rows(prof):
+    """A profile's device-side rows (kernels and copies), the largest
+    first: the host ops that launched them would count the same time
+    again, and user annotations (the optimizer's ``Optimizer.step#...``
+    range) span device time other rows count."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or getattr(e, "is_user_annotation", False) or "#" in e.key:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append({"name": e.key, "count": e.count,
+                         "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
 def profile_decode(engine, kvs, steps: int = 10):
     """torch.profiler over ``steps`` decode steps at the largest batch and
     cache bucket: wall time, device time by kernel, device busy share."""
@@ -518,18 +571,7 @@ def profile_decode(engine, kvs, steps: int = 10):
         wall_ms = (time.perf_counter() - t0) * 1e3
     for s in slots:
         engine.pools[S].free(s)
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): the host ops that
-        # launched them report the same time again
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append({"name": e.key, "count": e.count,
-                         "device_ms": dev_us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = device_rows(prof)
     device_ms = sum(r["device_ms"] for r in rows)
     return {"B": B, "S": S, "steps": steps, "wall_ms": wall_ms,
             "device_ms": device_ms,
@@ -926,19 +968,7 @@ def profile_train(trainer, steps: int = 5):
             trainer.step(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # kernels and copies only: user annotations (the optimizer's
-        # "Optimizer.step#..." range) span device time other rows count
-        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
-                or getattr(e, "is_user_annotation", False) or "#" in e.key:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append({"name": e.key, "count": e.count,
-                         "device_ms": dev_us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = device_rows(prof)
     device_ms = sum(r["device_ms"] for r in rows)
     # the port's own kernels: every CUDA kernel a wrapper launches, e.g.
     # the LayerNorm backward's rows and its partial-row sum
@@ -1824,85 +1854,638 @@ def sigterm_run(repo, root):
             "bytes": os.path.getsize(path)}
 
 
-def checkpoint_phase(kernels, seed, smi, repo):
+def checkpoint_phase(kernels, seed, smi, repo, root):
+    """Phase 7 in ``root``, whose train_dirs phase 8 exports from."""
     from pytorch_distributed_nn_tpu_torch.ops import host_codec
 
     if not host_codec.available():
         fail("the native host codec (native/codec.cpp) did not build: the "
              "card's checkpoints must be PDTZ")
-    with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as root:
-        resnet = resnet_checkpoints(kernels, seed, root)
-        rw = resnet["writes"]
-        log(f"phase 7 codec: native/codec.cpp built; checkpoints are PDTZ "
-            f"({smi})")
-        log(f"phase 7 ResNet18 checkpoints (B={RESNET_B}, bf16, int8 sync, "
-            f"20 steps, --eval-freq 10 --keep-last 1, async): model_step_20 "
-            f"verifies, PDTZ, model_step_10 collected; PDTZ "
-            f"{resnet['pdtz_bytes']} bytes, raw {resnet['raw_bytes']} bytes "
-            f"({smi})")
-        for w in rw:
-            log(f"phase 7 ResNet18 async checkpoint_write step {w['step']}: "
-                f"{w['bytes']} bytes, write_ms {w['write_ms']}, stall_ms "
-                f"{w['stall_ms']}, fetch_ms {w['fetch_ms']}, queued_ms "
-                f"{w['queued_ms']} ({smi})")
-        log(f"phase 7 ResNet18 sync save of step 20's state: the same bytes "
-            f"as the async file; write_ms {resnet['sync_write_ms']:.3f}; "
-            f"backpressure waits {resnet['backpressure_ms']} ms ({smi})")
-        log(f"phase 7 ResNet18 --resume to step 25: parameters, momentum "
-            f"buffers and BatchNorm statistics bit for bit equal to the "
-            f"saved ones; restore {resnet['restore_ms']:.3f} ms; launches "
-            f"{resnet['launches']} (5 x quantize_int8_scaled 1) ({smi})")
-        b = window_stats(resnet["steps_without_save_ms"])
-        a = window_stats(resnet["steps_after_save_ms"])
-        log(f"phase 7 ResNet18 step ms, steps 2-10 (no save in flight): "
-            f"median {b['median']:.3f}, mean {b['mean']:.3f}, max "
-            f"{b['max']:.3f}; steps 11-20 (the step-10 save being written): "
-            f"median {a['median']:.3f}, mean {a['mean']:.3f}, max "
-            f"{a['max']:.3f}; in order "
-            f"{[round(x, 3) for x in resnet['steps_after_save_ms']]} "
-            f"({smi})")
-        bert = bert_checkpoints(kernels, seed, root, repo)
-        log(f"phase 7 BertBase checkpoints (B=16, L=512, bf16, adam, 4 "
-            f"steps at --eval-freq 2 --keep-last 1, --resume to 6): "
-            f"model_step_6 verifies, PDTZ; PDTZ {bert['pdtz_bytes']} bytes, "
-            f"raw {bert['raw_bytes']} bytes; restore "
-            f"{bert['restore_ms']:.3f} ms ({smi})")
-        for w in bert["writes"]:
-            log(f"phase 7 BertBase async checkpoint_write step {w['step']}: "
-                f"{w['bytes']} bytes, write_ms {w['write_ms']}, stall_ms "
-                f"{w['stall_ms']}, fetch_ms {w['fetch_ms']} ({smi})")
-        log(f"phase 7 BertBase resumed launches {bert['launches']} (= 2 x "
-            f"{bert['per_step']}) ({smi})")
-        for what, r in (("the resumed run", bert["sound"]),
-                        *(("faulty resume: " + k, v)
-                          for k, v in bert["faulty"].items())):
-            log(f"phase 7 BertBase {what}: losses (steps 5, 6) "
-                f"{r['losses']} against the uninterrupted run's "
-                f"{bert['straight_losses']}, apart by {r['loss_gap']} (tol "
-                f"{BERT_RESUME_TOL}); state after step 6 apart by "
-                f"{r['params']} (parameters, tol {RESUME_PARAM_TOL}), "
-                f"{r['opt_state']} (Adam's m and v) ({smi})")
-        ev = bert["evaluator"]
-        log(f"phase 7 evaluator subprocess: steps "
-            f"{sorted(int(s) for s in ev['evaluated'])}, launches "
-            f"{ev['launches']} ({ev['eval_batches']} batches an evaluation: "
-            f"12 flash forward and 26 LayerNorm forward a batch, no "
-            f"backward); against Trainer.evaluate() "
-            f"{bert['compared']} (tol {EVAL_TOL}; Trainer.evaluate() at "
-            f"steps 4 and 6: {bert['eval_steps']}) ({smi})")
-        for s, m in sorted(ev["evaluated"].items(), key=lambda x: int(x[0])):
-            log(f"phase 7 evaluator step {s}: restore_ms "
-                f"{m['restore_ms']:.3f}, eval_ms {m['eval_ms']:.3f}, loss "
-                f"{m['loss']:.6f}, acc1 {m['acc1']:.6f}, acc5 "
-                f"{m['acc5']:.6f} ({smi})")
-        sig = sigterm_run(repo, root)
-        log(f"phase 7 SIGTERM: a supervised train subprocess exited 0 "
-            f"{sig['exit_s']:.3f} s after SIGTERM with an emergency "
-            f"checkpoint model_step_{sig['step']} ({sig['bytes']} bytes) "
-            f"that verifies ({smi})")
+    resnet = resnet_checkpoints(kernels, seed, root)
+    rw = resnet["writes"]
+    log(f"phase 7 codec: native/codec.cpp built; checkpoints are PDTZ "
+        f"({smi})")
+    log(f"phase 7 ResNet18 checkpoints (B={RESNET_B}, bf16, int8 sync, "
+        f"20 steps, --eval-freq 10 --keep-last 1, async): model_step_20 "
+        f"verifies, PDTZ, model_step_10 collected; PDTZ "
+        f"{resnet['pdtz_bytes']} bytes, raw {resnet['raw_bytes']} bytes "
+        f"({smi})")
+    for w in rw:
+        log(f"phase 7 ResNet18 async checkpoint_write step {w['step']}: "
+            f"{w['bytes']} bytes, write_ms {w['write_ms']}, stall_ms "
+            f"{w['stall_ms']}, fetch_ms {w['fetch_ms']}, queued_ms "
+            f"{w['queued_ms']} ({smi})")
+    log(f"phase 7 ResNet18 sync save of step 20's state: the same bytes "
+        f"as the async file; write_ms {resnet['sync_write_ms']:.3f}; "
+        f"backpressure waits {resnet['backpressure_ms']} ms ({smi})")
+    log(f"phase 7 ResNet18 --resume to step 25: parameters, momentum "
+        f"buffers and BatchNorm statistics bit for bit equal to the "
+        f"saved ones; restore {resnet['restore_ms']:.3f} ms; launches "
+        f"{resnet['launches']} (5 x quantize_int8_scaled 1) ({smi})")
+    b = window_stats(resnet["steps_without_save_ms"])
+    a = window_stats(resnet["steps_after_save_ms"])
+    log(f"phase 7 ResNet18 step ms, steps 2-10 (no save in flight): "
+        f"median {b['median']:.3f}, mean {b['mean']:.3f}, max "
+        f"{b['max']:.3f}; steps 11-20 (the step-10 save being written): "
+        f"median {a['median']:.3f}, mean {a['mean']:.3f}, max "
+        f"{a['max']:.3f}; in order "
+        f"{[round(x, 3) for x in resnet['steps_after_save_ms']]} "
+        f"({smi})")
+    bert = bert_checkpoints(kernels, seed, root, repo)
+    log(f"phase 7 BertBase checkpoints (B=16, L=512, bf16, adam, 4 "
+        f"steps at --eval-freq 2 --keep-last 1, --resume to 6): "
+        f"model_step_6 verifies, PDTZ; PDTZ {bert['pdtz_bytes']} bytes, "
+        f"raw {bert['raw_bytes']} bytes; restore "
+        f"{bert['restore_ms']:.3f} ms ({smi})")
+    for w in bert["writes"]:
+        log(f"phase 7 BertBase async checkpoint_write step {w['step']}: "
+            f"{w['bytes']} bytes, write_ms {w['write_ms']}, stall_ms "
+            f"{w['stall_ms']}, fetch_ms {w['fetch_ms']} ({smi})")
+    log(f"phase 7 BertBase resumed launches {bert['launches']} (= 2 x "
+        f"{bert['per_step']}) ({smi})")
+    for what, r in (("the resumed run", bert["sound"]),
+                    *(("faulty resume: " + k, v)
+                      for k, v in bert["faulty"].items())):
+        log(f"phase 7 BertBase {what}: losses (steps 5, 6) "
+            f"{r['losses']} against the uninterrupted run's "
+            f"{bert['straight_losses']}, apart by {r['loss_gap']} (tol "
+            f"{BERT_RESUME_TOL}); state after step 6 apart by "
+            f"{r['params']} (parameters, tol {RESUME_PARAM_TOL}), "
+            f"{r['opt_state']} (Adam's m and v) ({smi})")
+    ev = bert["evaluator"]
+    log(f"phase 7 evaluator subprocess: steps "
+        f"{sorted(int(s) for s in ev['evaluated'])}, launches "
+        f"{ev['launches']} ({ev['eval_batches']} batches an evaluation: "
+        f"12 flash forward and 26 LayerNorm forward a batch, no "
+        f"backward); against Trainer.evaluate() "
+        f"{bert['compared']} (tol {EVAL_TOL}; Trainer.evaluate() at "
+        f"steps 4 and 6: {bert['eval_steps']}) ({smi})")
+    for s, m in sorted(ev["evaluated"].items(), key=lambda x: int(x[0])):
+        log(f"phase 7 evaluator step {s}: restore_ms "
+            f"{m['restore_ms']:.3f}, eval_ms {m['eval_ms']:.3f}, loss "
+            f"{m['loss']:.6f}, acc1 {m['acc1']:.6f}, acc5 "
+            f"{m['acc5']:.6f} ({smi})")
+    sig = sigterm_run(repo, root)
+    log(f"phase 7 SIGTERM: a supervised train subprocess exited 0 "
+        f"{sig['exit_s']:.3f} s after SIGTERM with an emergency "
+        f"checkpoint model_step_{sig['step']} ({sig['bytes']} bytes) "
+        f"that verifies ({smi})")
     for r in (resnet, bert):
         r.pop("path", None)
     return {"resnet": resnet, "bert": bert, "sigterm": sig}
+
+
+# -- phase 8: single-pass serving of ResNet-18 and BertBase ------------------
+
+#: ResNet-18's logits on the card against the same artifact on the CPU
+#: (f32, TF32 off on the card): max |card - cpu| over max |cpu|. The two
+#: differ by the convolutions' reduction order only
+SERVE_RTOL = 1e-4
+#: BertBase served (the LayerNorm kernel) against the same weights with
+#: the plain LayerNorm on the card. The two LayerNorms agree to
+#: TOL["float32"], but their f32 outputs are cast to bf16 before the next
+#: layer, where a difference at a rounding boundary moves a value one bf16
+#: step, and 12 layers carry that on: measured on one H100, the two bf16
+#: models' logits differed by 3.5e-2. So the check is the gradient
+#: check's: each bf16 model against the plain model in f32, the kernel
+#: model no further than BERT_SERVE_NOISE_FACTOR times the plain bf16
+#: model's own error, plus BERT_SERVE_ABS
+BERT_SERVE_NOISE_FACTOR = 2.0
+BERT_SERVE_ABS = 1e-3
+#: timed batches per bucket (the median is reported)
+SERVE_TIMED = 25
+BERT_BUCKETS = (1, 2, 4, 8)
+#: rows of the 8 concurrent HTTP clients
+CLIENT_ROWS = (1, 2, 3, 4, 4, 3, 2, 1)
+#: the batches of a fresh ``serve bench`` whose infer_ms is reported: the
+#: first ones on the scheduler thread
+FIRST_BATCHES = 50
+#: the LayerNorm forward at BertBase's serving shapes: rows (batch bucket
+#: x length bucket) of D = 768, from one row to bucket 8 at L = 512
+LN_SERVE_ROWS = (1, 4096)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def start_server(repo, art, root, name, *flags):
+    """A ``serve run`` subprocess on the card, on an ephemeral port."""
+    port_file = os.path.join(root, f"{name}.port")
+    log_path = os.path.join(root, f"{name}.log")
+    err = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch", "serve",
+         "run", "--artifact", art, "--port", "0", "--port-file", port_file,
+         "--serve-dir", os.path.join(root, name), *flags],
+        cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+    return {"proc": proc, "err": err, "log": log_path,
+            "port_file": port_file, "name": name}
+
+
+def server_log(server):
+    server["err"].flush()
+    with open(server["log"]) as f:
+        return f.read()
+
+
+def kill_server(server):
+    if server["proc"].poll() is None:
+        server["proc"].kill()
+        server["proc"].wait(timeout=60)
+    server["err"].close()
+
+
+def server_url(server, timeout=240.0):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(server["port_file"]):
+        if server["proc"].poll() is not None or time.monotonic() > deadline:
+            fail(f"serve run {server['name']} did not come up (exit "
+                 f"{server['proc'].poll()}): {server_log(server)[-4000:]}")
+        time.sleep(0.05)
+    with open(server["port_file"]) as f:
+        return f"http://127.0.0.1:{int(f.read())}"
+
+
+def drain_server(server, timeout=60.0):
+    """SIGTERM: the server must drain, then exit 0. Returns the seconds
+    from the signal to the exit."""
+    proc = server["proc"]
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    exit_s = time.perf_counter() - t0
+    text = server_log(server)
+    kill_server(server)
+    if proc.returncode != 0 or "drain complete" not in text:
+        fail(f"serve run {server['name']}: SIGTERM gave exit "
+             f"{proc.returncode}: {text[-4000:]}")
+    return exit_s
+
+
+def profile_infer(engine, xs, calls: int = 5):
+    """torch.profiler over ``calls`` batches of ``engine.infer``: wall
+    time, device time by kernel and copy, device busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.infer(xs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            engine.infer(xs)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    device_ms = sum(r["device_ms"] for r in rows)
+    return {"calls": calls, "wall_ms": wall_ms / calls,
+            "device_ms": device_ms / calls,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "top": [{**r, "device_ms": r["device_ms"] / calls}
+                    for r in rows[:8]]}
+
+
+def bucket_times(engine, xs, buckets):
+    """Median ``infer_ms`` and ``pad_ms`` of :data:`SERVE_TIMED` batches
+    at each batch bucket (full buckets), with the bucket's FLOPs."""
+    out = {}
+    for b in buckets:
+        stats = [engine.infer(xs[:b])[1] for _ in range(SERVE_TIMED)]
+        infer_ms = median([st["infer_ms"] for st in stats])
+        flops = stats[0]["flops"]
+        out[b] = {"infer_ms": infer_ms,
+                  "pad_ms": median([st["pad_ms"] for st in stats]),
+                  "flops": flops,
+                  "achieved_tflop_per_s": flops / infer_ms / 1e9}
+    return out
+
+
+def resnet_serving(seed, repo, root):
+    """ResNet-18: phase 7's checkpoint exported (f32 and int8), served by
+    the engine on the card (buckets 1-32) and held to the CPU; over HTTP
+    by ``serve run`` subprocesses (8 concurrent clients, a 429 under
+    ``--max-queue 1``, a SIGTERM drain each); and ``serve bench``'s
+    open-loop sweep."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.serving import loadgen
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        export_artifact,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        DEFAULT_BATCH_BUCKETS,
+        InferenceEngine,
+    )
+
+    td = os.path.join(root, "resnet")
+    arts, export_s = {}, {}
+    for q in ("none", "int8"):
+        arts[q] = os.path.join(root, f"resnet_artifact_{q}")
+        t0 = time.perf_counter()
+        m = export_artifact(td, arts[q], quantize=q)
+        export_s[q] = time.perf_counter() - t0
+        if m["network"] != "ResNet18" or m["param_count"] != 11173962:
+            fail(f"ResNet18 export ({q}): {m['network']}, "
+                 f"{m['param_count']} parameters")
+        step = m["source"]["step"]
+    # the HTTP servers start while the engines are checked (untimed)
+    servers = [start_server(repo, arts["none"], root, "resnet_serve"),
+               start_server(repo, arts["none"], root, "resnet_shed",
+                            "--max-queue", "1")]
+    try:
+        rng = np.random.RandomState(seed)
+        xs = [rng.rand(32, 32, 3).astype(np.float32) for _ in range(32)]
+        result = {"export_s": export_s, "step": step}
+        engines = {}
+        for q, art in arts.items():
+            engine = InferenceEngine(art)
+            warm_s = engine.warmup()
+            got, stats = engine.infer(xs)
+            cpu = InferenceEngine(art, batch_buckets=(32,), device="cpu")
+            want, _ = cpu.infer(xs)
+            del cpu
+            got, want = np.stack(got), np.stack(want)
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            top1 = bool((got.argmax(1) == want.argmax(1)).all())
+            if not rel <= SERVE_RTOL or not top1 or stats["nonfinite"]:
+                fail(f"ResNet18 ({q}) on the card vs the CPU: relative err "
+                     f"{rel} (tol {SERVE_RTOL}), top-1 equal {top1}, "
+                     f"nonfinite {stats['nonfinite']}")
+            result[q] = {"warmup_s": warm_s, "rel_err": rel,
+                         "max_abs_logit": float(np.abs(want).max()),
+                         "bytes": engine.manifest["bytes"]}
+            engines[q] = engine
+        urls = [server_url(srv) for srv in servers]  # both warm: idle
+        for q in ("none", "int8", "int8", "none"):  # in turns
+            result[q].setdefault("buckets", []).append(bucket_times(
+                engines[q], xs, DEFAULT_BATCH_BUCKETS))
+        for q, engine in engines.items():
+            result[q]["retraces"] = engine.retraces()
+            if engine.retraces() != 0:
+                fail(f"ResNet18 ({q}) engine: retraces() = "
+                     f"{engine.retraces()} after warmup")
+        engine = engines["none"]
+        result["profile"] = profile_infer(engine, xs)
+
+        # HTTP: 8 concurrent clients of 1-4 rows against the in-process
+        # engine's top-1 (and logits, at the card-vs-card tolerance)
+        url = urls[0]
+        start, bodies = 0, []
+        for n in CLIENT_ROWS:
+            bodies.append(xs[start:start + n])
+            start += n
+        replies = [None] * len(bodies)
+
+        def client(i):
+            replies[i] = post(f"{url}/v1/infer", {
+                "inputs": [x.tolist() for x in bodies[i]],
+                "timeout_s": 30.0})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        http_s = time.perf_counter() - t0
+        http_err = 0.0
+        for i, r in enumerate(replies):
+            if r is None or r[0] != 200:
+                fail(f"ResNet18 HTTP client {i}: {r and r[:2]}")
+            mine, _ = engine.infer(bodies[i])
+            if r[1]["top1"] != [int(np.argmax(o)) for o in mine]:
+                fail(f"ResNet18 HTTP client {i}: top1 {r[1]['top1']} vs the "
+                     f"in-process engine's")
+            http_err = max(http_err, float(np.abs(
+                np.asarray(r[1]["outputs"]) - np.stack(mine)).max()))
+        if http_err > SERVE_RTOL * result["none"]["max_abs_logit"]:
+            fail(f"ResNet18 HTTP logits vs the in-process engine: max abs "
+                 f"err {http_err}")
+        # a scalar image row is refused at admission; the server serves on
+        bad = post(f"{url}/v1/infer", {"inputs": [xs[0].tolist(), 0.5]})
+        good = post(f"{url}/v1/infer", {"inputs": [xs[0].tolist()]})
+        mine, _ = engine.infer(xs[:1])
+        if bad[0] != 400 or good[0] != 200 \
+                or good[1]["top1"] != [int(np.argmax(mine[0]))]:
+            fail(f"ResNet18 HTTP: a scalar image row gave {bad[0]} "
+                 f"(expected 400), the next good row {good[0]} "
+                 f"{good[1].get('top1')}")
+        shed = post(f"{urls[1]}/v1/infer", {
+            "inputs": [x.tolist() for x in xs[:8]], "timeout_s": 30.0})
+        if shed[0] != 429 or int(shed[2].get("Retry-After", 0)) < 1:
+            fail(f"ResNet18 --max-queue 1: 8 rows gave {shed[0]} "
+                 f"{shed[1]} (expected 429 with Retry-After)")
+        drain_s = [drain_server(s) for s in servers]
+        result["http"] = {"clients": len(bodies), "rows": sum(CLIENT_ROWS),
+                          "wall_s": http_s, "max_abs_err": http_err,
+                          "latency_ms": [r[1]["latency_ms"] for r in replies],
+                          "bad_row": bad[0], "after_bad_row": good[0],
+                          "shed": {"status": shed[0],
+                                   "retry_after": shed[2].get("Retry-After")},
+                          "drain_s": drain_s}
+        del engines, engine
+        torch.cuda.empty_cache()
+        # `serve bench` as a user runs it: a fresh process
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch",
+             "serve", "bench", "--artifact", arts["none"], "--offered",
+             "500,1000,2000", "--duration", "2", "--out",
+             os.path.join(root, "resnet_bench_cli"), "--json"],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"serve bench exited {proc.returncode}: "
+                 f"{proc.stderr[-4000:]}")
+        result["bench_cli"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        result["bench_cli"]["first_infer_ms"] = first_batches(
+            os.path.join(root, "resnet_bench_cli", "serving.jsonl"))
+        # the same sweep in this process, whose heap holds phases 1-7's
+        # objects, counting Python's garbage collections
+        pauses = []  # (generation, ms) of each garbage collection
+
+        def on_gc(phase, info):
+            if phase == "start":
+                on_gc.t0 = time.perf_counter()
+            else:
+                pauses.append((info["generation"],
+                               (time.perf_counter() - on_gc.t0) * 1e3))
+
+        gc.callbacks.append(on_gc)
+        try:
+            result["bench"] = loadgen.sweep(
+                arts["none"], offered=(500.0, 1000.0, 2000.0),
+                duration_s=2.0, out_dir=os.path.join(root, "resnet_bench"),
+                log=lambda msg: None)
+        finally:
+            gc.callbacks.remove(on_gc)
+        result["bench_gc"] = {
+            "collections": len(pauses),
+            "generation_2": sum(g == 2 for g, _ in pauses),
+            "max_ms": max((ms for _, ms in pauses), default=0.0),
+            "total_ms": sum(ms for _, ms in pauses)}
+    finally:
+        for s in servers:
+            kill_server(s)
+    return result
+
+
+def bert_serving(kernels, reference, F, seed, root):
+    """BertBase: phase 7's checkpoint exported and served with batch
+    buckets 1-8 and length buckets up to 512: exactly 26 LayerNorm
+    forward launches a batch and no other kernel, over the engine and one
+    short HTTP request; the logits against the plain-LayerNorm model; the
+    LayerNorm forward kernel at the serving shapes."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        export_artifact,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.batcher import Batcher
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.server import ServingServer
+
+    art = os.path.join(root, "bert_artifact")
+    t0 = time.perf_counter()
+    m = export_artifact(os.path.join(root, "bert"), art)
+    export_s = time.perf_counter() - t0
+    engine = InferenceEngine(art, batch_buckets=BERT_BUCKETS)
+    warm_s = engine.warmup()
+    cfg = engine.model.config
+    per_batch = 2 * cfg.num_layers + 2
+    rng = np.random.RandomState(seed)
+
+    def rows(n, length):
+        return [rng.randint(1, cfg.vocab_size, size=length).astype(np.int32)
+                for _ in range(n)]
+
+    # the dtypes each LayerNorm sees (an uncounted batch)
+    seen = set()
+    hooks = [mod.register_forward_hook(
+        lambda mod, inp, out: seen.add((str(inp[0].dtype), str(out.dtype))))
+        for mod in engine.model.modules()
+        if type(mod).__name__ == "LayerNorm"]
+    engine.infer(rows(1, 7))
+    for h in hooks:
+        h.remove()
+
+    batcher = Batcher(engine, default_timeout_s=60.0)
+    server = ServingServer(engine, batcher, port=0)
+    server.start()
+    shapes = ((1, 5), (3, 100), (8, 512), (2, 16))
+    try:
+        kernels.reset_launch_counts()
+        batches0 = engine.infer_batches
+        infer = [engine.infer(rows(n, length))[1] for n, length in shapes]
+        refused = post(f"http://127.0.0.1:{server.port}/v1/infer",
+                       {"inputs": [[1, cfg.vocab_size]]})
+        reply = post(f"http://127.0.0.1:{server.port}/v1/infer",
+                     {"inputs": [r.tolist() for r in rows(1, 12)],
+                      "timeout_s": 60.0})
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        batches = engine.infer_batches - batches0
+    finally:
+        server.close()
+        batcher.close()
+    expect_launches(kernels, launches, {"layer_norm": per_batch}, batches,
+                    "BertBase serving")
+    if refused[0] != 400:
+        fail(f"BertBase over HTTP: an id of {cfg.vocab_size} gave "
+             f"{refused[0]} {refused[1]} (expected 400)")
+    if reply[0] != 200 or np.shape(reply[1]["outputs"][0]) != \
+            (16, cfg.vocab_size) or any(st["nonfinite"] for st in infer):
+        fail(f"BertBase over HTTP: {reply[0]} "
+             f"{np.shape(reply[1].get('outputs'))}; nonfinite "
+             f"{[st['nonfinite'] for st in infer]}")
+
+    # against the same weights with the plain LayerNorm on the card, in
+    # bf16 and in f32
+    xs = rows(2, 128)
+    got = np.stack(engine.infer(xs)[0])
+    tokens = torch.from_numpy(np.stack(xs)).cuda()
+    plain = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model("BertBase", use_kernels=False,
+                            **{**m["model_kw"], "dtype": dtype})
+        model.load_state_dict(engine.model.state_dict())
+        with torch.inference_mode():
+            plain[dtype] = model.cuda().eval()(tokens).float().cpu().numpy()
+        del model
+        torch.cuda.empty_cache()
+    errs = {"kernels_vs_plain": np.abs(got - plain["bfloat16"]).max(),
+            "kernels_vs_f32": np.abs(got - plain["float32"]).max(),
+            "plain_vs_f32": np.abs(plain["bfloat16"]
+                                   - plain["float32"]).max()}
+    errs = {k: float(v) for k, v in errs.items()}
+    bound = BERT_SERVE_NOISE_FACTOR * errs["plain_vs_f32"] + BERT_SERVE_ABS
+    if not errs["kernels_vs_f32"] <= bound:
+        fail(f"BertBase served logits: {errs} (the kernels' model may be "
+             f"at most {bound} from the f32 plain model)")
+    times = {}
+    for b in (1, 8):
+        stats = [engine.infer(rows(b, 512))[1] for _ in range(SERVE_TIMED)]
+        times[f"{b}x512"] = {"infer_ms": median([s["infer_ms"]
+                                                 for s in stats]),
+                             "flops": stats[0]["flops"]}
+    prof = {k: profile_infer(engine, rows(b, 512))
+            for k, b in (("1x512", 1), ("8x512", 8))}
+    if engine.retraces() != 0:
+        fail(f"BertBase engine: retraces() = {engine.retraces()}")
+
+    # the LayerNorm forward kernel at the serving shapes: bf16 in, f32 out
+    gen = torch.Generator().manual_seed(seed)
+    D = cfg.d_model
+    g = torch.randn(D, generator=gen).cuda()
+    b = torch.randn(D, generator=gen).cuda()
+    ln = []
+    for n in LN_SERVE_ROWS:
+        x = torch.randn((n, D), generator=gen).cuda().to(torch.bfloat16)
+        xf = x.float()
+        err = (kernels.layer_norm(x, g, b, 1e-6, torch.float32)
+               - reference.layer_norm(x, g, b, 1e-6, torch.float32)
+               ).abs().max().item()
+        if not err <= TOL["float32"]:
+            fail(f"layer_norm at the serving shape ({n}, {D}) bf16 -> f32: "
+                 f"max abs err {err} > {TOL['float32']}")
+        nbytes, flops = ln_cost(n, D, 2, 4)
+        bms, by = bound_ms(nbytes, flops)
+        ln.append({
+            "shape": f"N={n} D={D} bfloat16 -> float32", "max_abs_err": err,
+            "ms": time_ms(lambda: kernels.layer_norm(x, g, b, 1e-6,
+                                                     torch.float32)),
+            "plain_ms": time_ms(lambda: reference.layer_norm(
+                x, g, b, 1e-6, torch.float32)),
+            "library_ms": time_ms(lambda: F.layer_norm(xf, (D,), g, b,
+                                                       1e-6)),
+            "bound_ms": bms, "bound_by": by})
+    del engine
+    torch.cuda.empty_cache()
+    return {"export_s": export_s, "bytes": m["bytes"],
+            "step": m["source"]["step"],
+            "params": m["param_count"], "warmup_s": warm_s,
+            "shapes": len(BERT_BUCKETS) * 10, "ln_dtypes": sorted(seen),
+            "launches": launches, "batches": batches,
+            "per_batch": per_batch, "logit_errs": errs,
+            "vocab": cfg.vocab_size, "refused": refused[0],
+            "logit_bound": bound,
+            "http_latency_ms": reply[1]["latency_ms"], "times": times,
+            "profile": prof, "ln": ln}
+
+
+def serving_phase(kernels, reference, F, seed, smi, repo, root):
+    resnet = resnet_serving(seed, repo, root)
+    for q in ("none", "int8"):
+        r = resnet[q]
+        log(f"phase 8 ResNet18 artifact ({q}, step "
+            f"{resnet['step']}, {r['bytes']} bytes, exported "
+            f"in {resnet['export_s'][q]:.3f} s): engine warmed (buckets "
+            f"1-32) in {r['warmup_s']:.3f} s; retraces {r['retraces']}; "
+            f"logits vs the CPU relative err {r['rel_err']:.3e} (tol "
+            f"{SERVE_RTOL}), top-1 equal ({smi})")
+        for i, run in enumerate(r["buckets"]):
+            log(f"phase 8 ResNet18 ({q}, timing {i + 1} of 2, in turns "
+                f"none, int8, int8, none) infer_ms median of {SERVE_TIMED} "
+                f"by bucket: " + "; ".join(
+                    f"{b}: {t['infer_ms']:.3f} ms (pad {t['pad_ms']:.3f}, "
+                    f"{t['achieved_tflop_per_s']:.2f} TFLOP/s of "
+                    f"{t['flops'] / 1e9:.3f} GFLOP)"
+                    for b, t in run.items()) + f" ({smi})")
+    p = resnet["profile"]
+    log(f"phase 8 ResNet18 bucket 32 profile: wall {p['wall_ms']:.3f} ms, "
+        f"device {p['device_ms']:.3f} ms a batch, busy "
+        f"{p['device_busy_share']:.4f}; top " + "; ".join(
+            f"{t['name'][:60]} {t['device_ms']:.3f} ms" for t in p["top"][:5])
+        + f" ({smi})")
+    h = resnet["http"]
+    log(f"phase 8 ResNet18 serve run: {h['clients']} concurrent clients, "
+        f"{h['rows']} rows -> 200, top-1 equal to the in-process engine, "
+        f"logits max abs err {h['max_abs_err']:.3e}, in {h['wall_s']:.3f} "
+        f"s; a scalar image row: {h['bad_row']}, the next good row "
+        f"{h['after_bad_row']}; --max-queue 1: 429, Retry-After {h['shed']['retry_after']}; "
+        f"SIGTERM drained and exited 0 in "
+        f"{', '.join(f'{x:.3f}' for x in h['drain_s'])} s ({smi})")
+    for key, where in (("bench_cli", "serve bench (a fresh process)"),
+                       ("bench", "the same sweep in this process")):
+        bench = resnet[key]
+        for r in bench["sweep"]:
+            log(f"phase 8 ResNet18 {where}: offered {r['offered_rps']:g} "
+                f"req/s -> sustained {r['sustained_rps']} req/s, p50 "
+                f"{r['latency_ms']['p50']} ms, p95 "
+                f"{r['latency_ms']['p95']} ms, p99 "
+                f"{r['latency_ms']['p99']} ms, dropped {r['dropped']}, shed "
+                f"{r['shed']}, achieved {r['achieved_gflops_per_s']} "
+                f"GFLOP/s; spans p50/p99 {r['spans']} ({smi})")
+        log(f"phase 8 ResNet18 {where}: retraces "
+            f"{bench['retraces_after_warmup']}, warmup {bench['warmup_s']} "
+            "s")
+    first = resnet["bench_cli"]["first_infer_ms"]
+    ms = [t for _, t in first]
+    log(f"phase 8 ResNet18 serve bench (a fresh process): infer_ms of its "
+        f"first {len(first)} batches: max {max(ms)} ms, median "
+        f"{median(ms)} ms; the first of each bucket "
+        f"{dict(reversed(first))} ({smi})")
+    g = resnet["bench_gc"]
+    log(f"phase 8 ResNet18 sweep in this process: Python's garbage "
+        f"collections {g['collections']} ({g['generation_2']} of "
+        f"generation 2), longest {g['max_ms']:.3f} ms, "
+        f"{g['total_ms']:.3f} ms in all")
+    bert = bert_serving(kernels, reference, F, seed, root)
+    log(f"phase 8 BertBase artifact (step {bert['step']}, "
+        f"{bert['params']} params, "
+        f"{bert['bytes']} bytes, exported in {bert['export_s']:.3f} s): "
+        f"engine warmed ({bert['shapes']} shapes: buckets 1-8 x lengths "
+        f"1-512) in {bert['warmup_s']:.3f} s; LayerNorm (in, out) dtypes "
+        f"{bert['ln_dtypes']}; launches over {bert['batches']} batches "
+        f"(4 engine batches, 1 HTTP request) {bert['launches']} (= "
+        f"{bert['batches']} x {bert['per_batch']} layer_norm); an id of "
+        f"{bert['vocab']}: {bert['refused']}; logits max "
+        f"abs err (2 x 128): kernels vs plain LayerNorm, bf16 "
+        f"{bert['logit_errs']['kernels_vs_plain']:.3e}; against the plain "
+        f"model in f32: kernels {bert['logit_errs']['kernels_vs_f32']:.3e}, "
+        f"plain bf16 {bert['logit_errs']['plain_vs_f32']:.3e} (bound "
+        f"{bert['logit_bound']:.3e}); HTTP latency "
+        f"{bert['http_latency_ms']} ms; "
+        f"infer_ms median of {SERVE_TIMED}: " + "; ".join(
+            f"{k}: {t['infer_ms']:.3f} ms, {t['flops'] / 1e9:.1f} GFLOP"
+            for k, t in bert["times"].items()) + f" ({smi})")
+    for shape, p in bert["profile"].items():
+        log(f"phase 8 BertBase {shape} profile: wall {p['wall_ms']:.3f} "
+            f"ms, device {p['device_ms']:.3f} ms a batch, busy "
+            f"{p['device_busy_share']:.4f}; top " + "; ".join(
+                f"{t['name'][:60]} {t['device_ms']:.3f} ms"
+                for t in p["top"][:5]) + f" ({smi})")
+    for e in bert["ln"]:
+        log(f"phase 8 kernel layer_norm at a serving shape ({e['shape']}): "
+            f"{e['ms']:.6f} ms; plain {e['plain_ms']:.6f} ms; library "
+            f"{e['library_ms']:.6f} ms (F.layer_norm, f32 in); bound "
+            f"{e['bound_ms']:.6f} ms ({e['bound_by']}); max abs err vs plain "
+            f"{e['max_abs_err']:.3e} ({smi})")
+    return {"resnet": resnet, "bert": bert}
+
+
+def first_batches(stream, n=FIRST_BATCHES):
+    """``(bucket, infer_ms)`` of the first ``n`` batches in a serving
+    stream. The
+    scheduler thread writes a batch's records one after another, one per
+    served request, so a batch is ``batch`` records long."""
+    steps = [r for r in read_stream(stream) if r.get("kind") == "step"]
+    out, i = [], 0
+    while i < len(steps) and len(out) < n:
+        out.append((steps[i]["bucket"], steps[i]["infer_ms"]))
+        i += steps[i]["batch"]
+    return out
 
 
 # -- --step-times: this checkout's training steps, nothing checked ---------
@@ -2012,13 +2595,77 @@ def step_times(which, seed):
     return out
 
 
+# -- --serve-bench: this checkout's serve bench, nothing checked -----------
+
+
+def serve_bench_runs(repo, seed, runs):
+    """``serve bench`` of the checkout beside this script, ``runs`` times,
+    each in a fresh process as phase 8 runs it (500, 1000 and 2000 req/s
+    for 2 s each), on a random-init ResNet-18 artifact exported through
+    that checkout: each run's sustained req/s and p99 by offered rate,
+    warmup seconds, and the bucket and ``infer_ms`` of its first
+    :data:`FIRST_BATCHES` batches. To compare two commits, copy this
+    script into a checkout of each and run them in turn in one call
+    (parent, change, change, parent)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        export_artifact,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        create_train_state,
+    )
+
+    out = []
+    with tempfile.TemporaryDirectory(prefix="chip_bench_") as d:
+        model = build_model("ResNet18", 10).init_weights(
+            torch.Generator().manual_seed(seed))
+        state = create_train_state(
+            model, lambda p: build_optimizer("sgd", p, 0.1), "cpu",
+            seed=seed)
+        ckpt.save_checkpoint(os.path.join(d, "td"), state, step=1)
+        art = os.path.join(d, "art")
+        export_artifact(os.path.join(d, "td"), art, network="ResNet18",
+                        num_classes=10)
+        for i in range(runs):
+            bench = os.path.join(d, f"bench{i}")
+            proc = subprocess.run(
+                [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch",
+                 "serve", "bench", "--artifact", art, "--offered",
+                 "500,1000,2000", "--duration", "2", "--out", bench,
+                 "--json"],
+                cwd=repo, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"serve bench exited {proc.returncode}: "
+                     f"{proc.stderr[-4000:]}")
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            out.append({
+                "warmup_s": rec["warmup_s"],
+                "retraces": rec["retraces_after_warmup"],
+                "sweep": [{"offered_rps": r["offered_rps"],
+                           "sustained_rps": r["sustained_rps"],
+                           "p99_ms": r["latency_ms"]["p99"]}
+                          for r in rec["sweep"]],
+                "first_infer_ms": first_batches(
+                    os.path.join(bench, "serving.jsonl"))})
+    return out
+
+
 def post(url, doc, timeout=120.0):
+    """(status, JSON body, headers) of a POST; an HTTP error status is a
+    result, not an exception."""
     req = urllib.request.Request(
         url, data=json.dumps(doc).encode(),
         headers={"Content-Type": "application/json"}, method="POST",
     )
-    with urllib.request.urlopen(req, timeout=timeout) as r:
-        return r.status, json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
 
 
 def main() -> int:
@@ -2032,6 +2679,10 @@ def main() -> int:
                     help="only time the training steps of a comma list "
                          f"of {', '.join(STEP_TIMES)} and print them as "
                          "one JSON line (nothing checked)")
+    ap.add_argument("--serve-bench", type=int, default=0, metavar="RUNS",
+                    help="only run serve bench RUNS times on a random-init "
+                         "ResNet-18 artifact and print the runs as one JSON "
+                         "line (nothing checked)")
     args = ap.parse_args()
     which = args.step_times.split(",") if args.step_times else []
     if not set(which) <= set(STEP_TIMES):
@@ -2078,6 +2729,10 @@ def main() -> int:
     report["card"] = smi
     if which:
         print(json.dumps(step_times(which, args.seed)), flush=True)
+        return 0
+    if args.serve_bench:
+        print(json.dumps(serve_bench_runs(repo, args.seed, args.serve_bench)),
+              flush=True)
         return 0
 
     # -- 2. build ---------------------------------------------------------
@@ -2202,7 +2857,7 @@ def main() -> int:
     engine = GenerativeEngine(art)
     warm_s = engine.warmup()
     scheduler = GenerateScheduler(engine, default_timeout_s=120.0)
-    server = ServingServer(scheduler, port=0)
+    server = ServingServer(engine, None, port=0, generator=scheduler)
     server.start()
     url = f"http://127.0.0.1:{server.port}/v1/generate"
     rng = np.random.RandomState(args.seed)
@@ -2528,13 +3183,25 @@ def main() -> int:
     })
     report["kernels"] = entries
 
-    # -- 7. checkpoints, resume, the evaluator, SIGTERM -------------------
-    report["checkpoints"] = checkpoint_phase(kernels, args.seed, smi, repo)
+    with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as root:
+        # -- 7. checkpoints, resume, the evaluator, SIGTERM ---------------
+        report["checkpoints"] = checkpoint_phase(kernels, args.seed, smi,
+                                                 repo, root)
+        # -- 8. single-pass serving of phase 7's checkpoints --------------
+        serving = serving_phase(kernels, reference, F, args.seed, smi, repo,
+                                root)
+    report["serving"] = serving
+    ln_entry = entries[1]
+    ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
+    ln_entry["max_abs_err"] = max(
+        [ln_entry["max_abs_err"]]
+        + [e["max_abs_err"] for e in serving["bert"]["ln"]])
+    ln_entry["serving_shapes"] = serving["bert"]["ln"]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2, default=str)
 
-    # -- 8. result lines --------------------------------------------------
+    # -- 9. result lines --------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -47,18 +47,39 @@ the trainer's, and so must the model flags the port adds (``--attn-impl``,
 ``--fused-ln``, ``--dtype``). It prints one JSON line at the end: each
 step's metrics and restore/eval times, and the kernel launch counts.
 
-    python -m pytorch_distributed_nn_tpu_torch serve run --artifact DIR \
-        [--host 127.0.0.1] [--port 8000] [--device cuda] \
-        [--batch-buckets 1,2,4,8] [--timeout 30] [--max-queue N] \
-        [--serve-dir DIR] [--port-file PATH]
+    python -m pytorch_distributed_nn_tpu_torch serve export --train-dir D \
+        --out A [--step N] [--quantize int8] [--network NAME]
 
-serves a generative (causal decoder) artifact over ``POST /v1/generate``
-as the JAX package's ``serve run`` does, with decode attention and
-LayerNorm on the hand-written kernels. It runs on the card unless
-``--device cpu`` is given, and fails without one. Each served request
-writes one record to ``<serve-dir>/serving.jsonl`` (default
-``<artifact>/serve``). SIGTERM drains: admissions stop, in-flight
-requests finish, then the process exits.
+freezes the newest checkpoint of ``D`` that verifies (or step ``N``) into
+the serving artifact ``A``, in the JAX package's format (its
+``params.msgpack`` byte for byte), and records the step as published so
+``--keep-last`` never deletes it.
+
+    python -m pytorch_distributed_nn_tpu_torch serve run --artifact A \
+        [--host 127.0.0.1] [--port 8000] [--buckets 1,2,4,8,16,32] \
+        [--batch-window-ms 2] [--timeout 2] [--max-queue 1024] \
+        [--serve-dir DIR] [--port-file PATH] [--device cpu]
+
+serves a classifier or masked-LM artifact over ``POST /v1/infer`` (the
+bucket-padded engine and the continuous batcher), or a causal decoder
+over ``POST /v1/generate`` (``--batch-buckets`` or ``--buckets``: its
+decode batch buckets), as the JAX package's ``serve run`` does. Each
+served request writes one record to ``<serve-dir>/serving.jsonl``
+(default ``<artifact>/serve``). SIGTERM drains: admissions stop,
+in-flight requests finish, then the process exits 0.
+
+    python -m pytorch_distributed_nn_tpu_torch serve bench --artifact A \
+        [--offered 500,1000,2000] [--duration 2] [--json] [--device cpu]
+    python -m pytorch_distributed_nn_tpu_torch serve smoke [--device cpu]
+
+``bench`` is the open-loop load sweep against the engine (no HTTP):
+sustained req/s, latency percentiles, achieved FLOP/s, and a failure if
+anything was built after warmup; ``smoke`` is the few-second serving
+gate. The serving commands run on the card unless ``--device cpu`` is
+given, and fail without one. Their flags that belong to later ROADMAP
+items (``--registry``, ``--reload-poll``, ``--canary``,
+``--admin-token``, ``--slo``, ``--flightrec``, ``--faults``, ``serve
+frontend``) raise, naming the item.
 """
 
 from __future__ import annotations
@@ -72,68 +93,230 @@ import threading
 from typing import Optional, Sequence
 
 
+_ITEM6 = "ROADMAP Queue 1 item 6 (router, frontend, registry, SLOs)"
+_ITEM4 = "ROADMAP Queue 1 item 4 (faults and the flight recorder)"
+
+#: ``serve run`` flags of later items: flag -> the item that ports it
+_SERVE_LATER = {"registry": _ITEM6, "reload_poll": _ITEM6,
+                "canary": _ITEM6, "admin_token": _ITEM6, "slo": _ITEM6,
+                "flightrec": _ITEM6, "faults": _ITEM4}
+
+
+def _buckets(text: Optional[str]):
+    return tuple(int(b) for b in text.split(",")) if text else None
+
+
+def _serve_loop(server, port_file: Optional[str] = None) -> None:
+    """Run ``server`` until SIGTERM or SIGINT. SIGTERM drains: /readyz
+    flips 503, admissions stop, in-flight requests finish (30 s at most),
+    then the listener closes. With ``port_file`` the bound port is
+    written there first."""
+    if port_file:
+        with open(port_file + ".tmp", "w") as f:
+            f.write(str(server.port))
+        os.replace(port_file + ".tmp", port_file)
+    stop, drain = threading.Event(), threading.Event()
+
+    def _on_term(signum, frame):
+        drain.set()
+        stop.set()
+
+    prev_term = signal.signal(signal.SIGTERM, _on_term)
+    prev_int = signal.signal(signal.SIGINT, lambda s, f: stop.set())
+    server.start()
+    try:
+        while not stop.wait(0.2):
+            pass
+    finally:
+        signal.signal(signal.SIGTERM, prev_term)
+        signal.signal(signal.SIGINT, prev_int)
+    if drain.is_set():
+        print("SIGTERM: draining — admissions stopped, finishing in-flight "
+              "requests", file=sys.stderr)
+        clean = server.drain_and_close(timeout=30.0)
+        print(f"drain {'complete' if clean else 'TIMED OUT'}; exiting",
+              file=sys.stderr)
+    else:
+        server.close()
+
+
 def _serve_run(args) -> int:
     from pytorch_distributed_nn_tpu_torch.models import is_generative_model
-    from pytorch_distributed_nn_tpu_torch.observability import core as obs
     from pytorch_distributed_nn_tpu_torch.serving.artifact import (
         load_manifest,
     )
-    from pytorch_distributed_nn_tpu_torch.serving.generate import (
-        GenerateScheduler,
-        GenerativeEngine,
+    from pytorch_distributed_nn_tpu_torch.serving.loadgen import (
+        serving_telemetry,
     )
     from pytorch_distributed_nn_tpu_torch.serving.server import ServingServer
 
-    network = load_manifest(args.artifact).get("network", "")
-    if not is_generative_model(network):
-        print(f"serve run: {network!r} is not a causal decoder; the port "
-              "serves generative artifacts only", file=sys.stderr)
-        return 2
-    kw = {}
-    if args.batch_buckets:
-        kw["batch_buckets"] = tuple(
-            int(b) for b in args.batch_buckets.split(",")
-        )
-    engine = GenerativeEngine(args.artifact, device=args.device, **kw)
-    engine.warmup()
+    later = [f for f in _SERVE_LATER if getattr(args, f) is not None]
+    if later:
+        raise NotImplementedError(
+            f"serve run --{later[0].replace('_', '-')} is not ported yet: "
+            f"{_SERVE_LATER[later[0]]}")
+    max_queue = args.max_queue if args.max_queue > 0 else None
     serve_dir = args.serve_dir or os.path.join(args.artifact, "serve")
-    telemetry = obs.Telemetry.for_run(
-        os.path.join(serve_dir, "serving.jsonl"),
-        obs.run_manifest(
-            config={"mode": "serving", "network": network,
-                    "artifact": args.artifact,
-                    "batch_buckets": list(engine.batch_buckets),
-                    "generative": True, "device": str(engine.device)},
-            param_count=engine.manifest.get("param_count"),
-            artifact_identity=engine.identity,
-        ),
-    )
-    scheduler = GenerateScheduler(engine, telemetry=telemetry,
+    os.makedirs(serve_dir, exist_ok=True)
+    buckets = _buckets(args.buckets or args.batch_buckets)
+    kw = {"batch_buckets": buckets} if buckets else {}
+    if is_generative_model(load_manifest(args.artifact).get("network", "")):
+        from pytorch_distributed_nn_tpu_torch.serving.generate import (
+            GenerateScheduler,
+            GenerativeEngine,
+        )
+
+        engine = GenerativeEngine(args.artifact, device=args.device, **kw)
+        engine.warmup()
+        telemetry = serving_telemetry(serve_dir, engine,
+                                      extra={"generative": True})
+        sched = GenerateScheduler(engine, telemetry=telemetry,
                                   default_timeout_s=args.timeout,
-                                  max_queue=args.max_queue)
-    server = ServingServer(scheduler, host=args.host, port=args.port)
-    if args.port_file:
-        with open(args.port_file, "w") as f:
-            f.write(str(server.port))
+                                  max_queue=max_queue)
+        server = ServingServer(engine, None, host=args.host, port=args.port,
+                               generator=sched)
+        what = "GENERATIVE "
+    else:
+        from pytorch_distributed_nn_tpu_torch.serving.batcher import Batcher
+        from pytorch_distributed_nn_tpu_torch.serving.engine import (
+            InferenceEngine,
+        )
 
-    def _drain(signum, frame):
-        server.begin_drain()
-        threading.Thread(target=lambda: (scheduler.drain(),
-                                         server.close()),
-                         daemon=True).start()
-
-    signal.signal(signal.SIGTERM, _drain)
-    print(f"serving GENERATIVE {args.artifact} on "
-          f"http://{server.host}:{server.port} ({engine.device}; "
-          f"stream: {serve_dir})", file=sys.stderr)
+        engine = InferenceEngine(args.artifact, device=args.device, **kw)
+        engine.warmup()
+        telemetry = serving_telemetry(serve_dir, engine)
+        sched = Batcher(engine, telemetry=telemetry,
+                        batch_window_s=args.batch_window_ms / 1000.0,
+                        default_timeout_s=args.timeout, max_queue=max_queue)
+        server = ServingServer(engine, sched, host=args.host,
+                               port=args.port)
+        what = ""
+    print(f"serving {what}{args.artifact} on "
+          f"http://{server.host}:{server.port} ({engine.device}; stream: "
+          f"{serve_dir})", file=sys.stderr)
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        server.close()
+        _serve_loop(server, port_file=args.port_file)
     finally:
-        scheduler.close()
+        sched.close()
         telemetry.close()
     return 0
+
+
+def _serve(args) -> int:
+    if args.serve_cmd == "frontend":
+        raise NotImplementedError(
+            f"serve frontend is not ported yet: {_ITEM6}")
+    if args.serve_cmd == "smoke":
+        from pytorch_distributed_nn_tpu_torch.serving.loadgen import smoke
+
+        return smoke(keep_dir=args.keep, device=args.device)
+    if args.serve_cmd == "export":
+        from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+            export_artifact,
+        )
+
+        m = export_artifact(args.train_dir, args.out, step=args.step,
+                            quantize=args.quantize, network=args.network,
+                            num_classes=args.num_classes)
+        print(f"exported step {m['source']['step']} of {args.train_dir} -> "
+              f"{args.out} ({m['quantize']}, {m['param_count']} params, "
+              f"{m['bytes'] / 1e3:.1f} KB)")
+        return 0
+    if args.serve_cmd == "bench":
+        import json
+
+        from pytorch_distributed_nn_tpu_torch.serving.loadgen import sweep
+
+        rec = sweep(
+            args.artifact,
+            offered=tuple(float(r) for r in args.offered.split(",")),
+            duration_s=args.duration,
+            out_dir=args.out or os.path.join(args.artifact, "bench"),
+            batch_buckets=_buckets(args.buckets),
+            batch_window_s=args.batch_window_ms / 1000.0,
+            timeout_s=args.timeout,
+            max_queue=args.max_queue if args.max_queue > 0 else None,
+            device=args.device,
+            log=lambda msg: print(msg, file=sys.stderr))
+        if args.json:
+            print(json.dumps(rec))
+        else:
+            print(f"retraces after warmup: {rec['retraces_after_warmup']} "
+                  f"(stream: {rec['stream']})")
+        return 0
+    return _serve_run(args)
+
+
+def _add_serve_flags(serve: argparse.ArgumentParser) -> None:
+    """``serve export | run | bench | smoke | frontend`` with the JAX
+    package's flags and defaults, and the port's ``--device``."""
+    ssub = serve.add_subparsers(dest="serve_cmd", required=True)
+
+    def device(sp):
+        sp.add_argument("--device", default=None,
+                        help="torch device (default: the card; 'cpu' runs "
+                             "the kernels' plain versions)")
+
+    pe = ssub.add_parser("export", help="freeze a checkpoint into an "
+                                        "inference artifact")
+    pe.add_argument("--train-dir", required=True)
+    pe.add_argument("--out", required=True, metavar="DIR")
+    pe.add_argument("--step", type=int, default=None,
+                    help="checkpoint step to freeze (default: the newest "
+                         "step that verifies)")
+    pe.add_argument("--quantize", choices=["none", "int8"], default="none")
+    pe.add_argument("--network", default=None,
+                    help="model architecture (default: sniffed from the "
+                         "run's telemetry manifest)")
+    pe.add_argument("--num-classes", type=int, default=None)
+
+    def engine_flags(sp):
+        sp.add_argument("--artifact", required=True, metavar="DIR")
+        sp.add_argument("--buckets", default=None, metavar="B1,B2,...",
+                        help="batch buckets requests are padded up to "
+                             "(default 1,2,4,8,16,32; a decoder's: its "
+                             "decode batch buckets), all run at startup")
+        sp.add_argument("--batch-window-ms", type=float, default=2.0)
+        sp.add_argument("--timeout", type=float, default=2.0,
+                        help="default request deadline, seconds")
+        sp.add_argument("--max-queue", type=int, default=1024,
+                        help="admission bound (429 past it); 0 = unbounded")
+        device(sp)
+
+    run = ssub.add_parser("run", help="serve an artifact over HTTP")
+    engine_flags(run)
+    run.add_argument("--host", default="127.0.0.1")
+    run.add_argument("--port", type=int, default=8000)
+    run.add_argument("--batch-buckets", default=None,
+                     help="a decoder's decode batch buckets (--buckets)")
+    run.add_argument("--serve-dir", default=None, metavar="DIR",
+                     help="serving.jsonl goes here (default "
+                          "<artifact>/serve)")
+    run.add_argument("--port-file", default=None, metavar="FILE",
+                     help="write the bound port here (use with --port 0)")
+    for flag in _SERVE_LATER:
+        run.add_argument("--" + flag.replace("_", "-"), default=None,
+                         help=f"not ported yet: {_SERVE_LATER[flag]}")
+
+    pb = ssub.add_parser("bench", help="open-loop load sweep against an "
+                                       "artifact (no HTTP)")
+    engine_flags(pb)
+    pb.add_argument("--offered", default="500,1000,2000",
+                    metavar="R1,R2,...")
+    pb.add_argument("--duration", type=float, default=2.0,
+                    help="seconds per offered rate")
+    pb.add_argument("--out", default=None, metavar="DIR",
+                    help="serving.jsonl goes here (default "
+                         "<artifact>/bench)")
+    pb.add_argument("--json", action="store_true",
+                    help="print the result record as JSON on stdout")
+
+    psm = ssub.add_parser("smoke", help="the few-second serving gate")
+    psm.add_argument("--keep", default=None, metavar="DIR",
+                     help="run under this dir and keep what it writes")
+    device(psm)
+
+    ssub.add_parser("frontend", help=f"not ported yet: {_ITEM6}")
 
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
@@ -401,23 +584,7 @@ def build_parser() -> argparse.ArgumentParser:
                        "with no sync"))
     _add_evaluator_flags(sub.add_parser(
         "evaluator", help="poll a train_dir's checkpoints and score each"))
-    serve = sub.add_parser("serve", help="serving commands")
-    ssub = serve.add_subparsers(dest="serve_cmd", required=True)
-    run = ssub.add_parser("run", help="serve a generative artifact")
-    run.add_argument("--artifact", required=True)
-    run.add_argument("--host", default="127.0.0.1")
-    run.add_argument("--port", type=int, default=8000)
-    run.add_argument("--device", default=None,
-                     help="torch device (default: the card; 'cpu' runs "
-                          "the kernels' plain versions)")
-    run.add_argument("--batch-buckets", default=None,
-                     help="comma-separated decode batch buckets")
-    run.add_argument("--timeout", type=float, default=30.0,
-                     help="default per-request deadline, seconds")
-    run.add_argument("--max-queue", type=int, default=None)
-    run.add_argument("--serve-dir", default=None)
-    run.add_argument("--port-file", default=None,
-                     help="write the bound port here (use with --port 0)")
+    _add_serve_flags(sub.add_parser("serve", help="serving commands"))
     return p
 
 
@@ -427,4 +594,4 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _train(args)
     if args.cmd == "evaluator":
         return _evaluator(args)
-    return _serve_run(args)
+    return _serve(args)

@@ -27,6 +27,8 @@ from typing import Dict, Optional, Tuple
 SCHEMA_VERSION = 2
 #: a run's stream inside its train_dir (rank 0's; the JAX package's name)
 STREAM_BASENAME = "telemetry.jsonl"
+#: a serving run's stream inside its serve dir
+SERVING_BASENAME = "serving.jsonl"
 
 #: latency-histogram bounds, seconds (the JAX package's DEFAULT_BUCKETS)
 DEFAULT_BUCKETS: Tuple[float, ...] = (

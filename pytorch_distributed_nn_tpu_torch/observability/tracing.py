@@ -8,8 +8,9 @@ trace contexts.
   ``X-Trace-Context`` header (a W3C-traceparent-shaped value) or minted
   as a root, whose ``fields()`` stamp the request's stream record so
   the JAX package's ``obs trace`` joins it to its caller's spans;
-- the generative scheduler stamps each record with a ``spans``
-  breakdown in the order of :data:`GENERATE_SPANS`.
+- the batcher and the generative scheduler stamp each record with a
+  ``spans`` breakdown in the order of :data:`SPANS` and
+  :data:`GENERATE_SPANS`.
 
 The part of the JAX package's module of the same name that the port's
 server and scheduler use, kept as the port's own copy; the stream
@@ -22,6 +23,10 @@ from __future__ import annotations
 import re
 import uuid
 from typing import Optional
+
+#: the single-pass request's span catalogue, in lifecycle order
+#: (serving/batcher.py): the spans tile the request's latency
+SPANS = ("admit", "queue", "batch_form", "pad", "infer", "respond")
 
 #: the generative request's span catalogue, in lifecycle order
 #: (serving/generate/scheduler.py): prefill covers prompt forward +

@@ -1,8 +1,9 @@
 """Gradient compression fused around the collective, over
 ``torch.distributed``: the port of ``psum_mean``, ``_int8_quantize_leaf``
 and ``int8_psum_mean`` of ``pytorch_distributed_nn_tpu/ops/compression.py``,
-plus the host-side int8 weight codec's inverse the artifact reader needs
-(``dequantize_int8_host``).
+plus the host-side int8 weight codec of serving artifacts
+(``quantize_int8_host`` for the exporter, ``dequantize_int8_host`` for the
+reader).
 
 ``int8``: stochastic-rounded int8 quantization with a scale shared across
 ranks (one ``all_reduce(MAX)`` of the vector of every leaf's amax, the JAX
@@ -26,7 +27,7 @@ single-contributor mode: the same codec arithmetic with no collective.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,6 +168,19 @@ def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
         avg = dequant / count if count is not None else dequant * recip
         out.append(avg.to(g.dtype))
     return out
+
+
+def quantize_int8_host(arr) -> Tuple[np.ndarray, np.float32]:
+    """Symmetric per-tensor int8 of frozen weights: ``(q, scale)`` with
+    ``q = rint(arr / scale)`` clipped to +-127 and ``scale = max|arr| /
+    127`` (1 for an all-zero leaf). Round-to-nearest in numpy, the JAX
+    package's function: a true division here (XLA is not involved), so
+    the bytes equal its."""
+    a = np.asarray(arr, np.float32)
+    amax = float(np.max(np.abs(a))) if a.size else 0.0
+    scale = np.float32(amax / 127.0 if amax > 0 else 1.0)
+    q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+    return q, scale
 
 
 def dequantize_int8_host(q: np.ndarray, scale, dtype=np.float32) -> np.ndarray:

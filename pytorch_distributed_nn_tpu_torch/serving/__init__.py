@@ -1,2 +1,3 @@
-"""Serving tier of the port: artifacts, the generative engine and
-scheduler, and the generate-only HTTP server."""
+"""Serving tier of the port: artifacts (export and load), the single-pass
+engine, batcher and load generator, the generative engine and scheduler,
+and the HTTP server (``/v1/infer`` and ``/v1/generate``)."""

@@ -732,3 +732,101 @@ def test_cuda_async_checkpoints_reuse_the_pinned_host_tensors(card,
         assert chip_smoke.first_difference(ckpt.load_raw(handle.path),
                                            tree) is None
     assert chip_smoke.first_difference(want[0], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_a_resnet20_artifact_as_on_the_cpu(card,
+                                                              tmp_path):
+    """A ResNet-20 artifact (a port checkpoint through the port's
+    exporter) served by the single-pass engine on the card: its logits
+    equal the same engine's on the CPU at 1e-4 (cuDNN's f32 convolutions
+    without TF32 against the CPU's, summed in other orders), top-1
+    equal, and nothing built after warmup across mixed batch sizes."""
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        export_artifact,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        create_train_state,
+    )
+
+    model = build_model("ResNet20").init_weights(
+        torch.Generator().manual_seed(0))
+    state = create_train_state(
+        model, lambda p: build_optimizer("sgd", p, 0.1), "cpu")
+    ckpt.save_checkpoint(str(tmp_path / "td"), state, step=1)
+    art = str(tmp_path / "art")
+    export_artifact(str(tmp_path / "td"), art, network="ResNet20")
+    gpu = InferenceEngine(art, batch_buckets=(1, 2, 4, 8), device=card)
+    cpu = InferenceEngine(art, batch_buckets=(1, 2, 4, 8), device="cpu")
+    gpu.warmup()
+    rng = np.random.RandomState(0)
+    for n in (3, 8, 1, 5):
+        xs = [rng.rand(32, 32, 3).astype(np.float32) for _ in range(n)]
+        got, stats = gpu.infer(xs)
+        want, _ = cpu.infer(xs)
+        assert stats["nonfinite"] == 0 and stats["flops"] > 0
+        np.testing.assert_allclose(np.stack(got), np.stack(want), rtol=0,
+                                   atol=1e-4)
+        assert [int(np.argmax(g)) for g in got] == \
+            [int(np.argmax(w)) for w in want]
+    assert gpu.retraces() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_engine_holds_tf32_off_in_its_forwards_only(card, tmp_path):
+    """The engine's forwards on the card run without TF32 and leave the
+    process's switches as they found them; a token row with an id
+    outside the vocabulary is refused on the host (on the card it would
+    be a device-side assert), and the engine serves on."""
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        export_artifact,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        create_train_state,
+    )
+
+    kw = {"dtype": "float32"}
+    model = build_model("BertTiny", 0, **kw).init_weights(
+        torch.Generator().manual_seed(0))
+    state = create_train_state(
+        model, lambda p: build_optimizer("sgd", p, 0.1), "cpu")
+    ckpt.save_checkpoint(str(tmp_path / "td"), state, step=1)
+    art = str(tmp_path / "art")
+    export_artifact(str(tmp_path / "td"), art, network="BertTiny",
+                    num_classes=0, model_kw=kw)
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    try:
+        matmul.allow_tf32, cudnn.allow_tf32 = True, True
+        engine = InferenceEngine(art, batch_buckets=(1, 2),
+                                 seq_buckets=(8, 128), device=card)
+        seen = []
+        engine.model.register_forward_hook(lambda *_: seen.append(
+            (matmul.allow_tf32, cudnn.allow_tf32)))
+        engine.warmup()
+        engine.warm_thread()
+        rows = [np.arange(1, 6, dtype=np.int32)] * 2
+        out, stats = engine.infer(rows)
+        assert (matmul.allow_tf32, cudnn.allow_tf32) == (True, True)
+        assert seen and set(seen) == {(False, False)}
+        with pytest.raises(ValueError, match="token ids"):
+            engine.infer([np.array([1, engine.vocab_size], np.int32)])
+        again, _ = engine.infer(rows)
+        torch.cuda.synchronize()
+        assert stats["nonfinite"] == 0
+        np.testing.assert_array_equal(np.stack(again), np.stack(out))
+        assert engine.retraces() == 0
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

@@ -352,7 +352,7 @@ def test_http_generate_round_trip(engine, tmp_path):
     stream = str(tmp_path / "serving.jsonl")
     telemetry = Telemetry.for_run(stream)
     sched = GenerateScheduler(engine, telemetry=telemetry)
-    server = ServingServer(sched, port=0)
+    server = ServingServer(engine, None, port=0, generator=sched)
     server.start()
     base = f"http://{server.host}:{server.port}"
     trace_id, caller_span = "ab" * 16, "cd" * 8
