@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of `fused_layer_norm`
 // (pytorch_distributed_nn_tpu/ops/pallas_kernels.py):
-//   - ln_fwd_kernel <- `_ln_fwd_kernel` / `_ln_fwd_call`. Same function: f32
+//   - ln_fwd_vec_kernel / ln_fwd_kernel <- `_ln_fwd_kernel` /
+//     `_ln_fwd_call`. Same function: f32
 //     two-pass statistics (mu = mean(x), var = mean((x - mu)^2)),
 //     rs = rsqrt(var + eps), y = (x - mu) * rs * gamma + beta written
 //     directly in the output type, and, when the caller passes them (the
@@ -24,8 +25,29 @@
 // launch costs more than the work; at BertBase training (N = 8192,
 // D = 768, x bf16, dy f32, dx bf16) the backward moves 50.4 MB, 15 us.
 //
-// Forward: one warp per row, lanes striding across it; the passes re-read
-// the row from L1, which holds it.
+// Forward, the vectorised path (ln_fwd_vec_kernel: the same widths and
+// the same 16-byte rule as the backward's, on x, y, gamma and beta). A
+// row costs one memory round trip:
+//   - a row lives in registers. A group of LANES lanes takes a row; each
+//     lane owns quads of 4 columns, the group's quads side by side, so
+//     every load and store instruction covers one contiguous span of the
+//     row: 16-byte vectors of f32 (x, y, gamma, beta), 8-byte of bf16.
+//     (A lane owning 8 columns could load bf16 x 16 bytes at a time, but
+//     its f32 y would then leave as two 16-byte stores 32 bytes apart
+//     across the lanes, and with y the larger half of the traffic that
+//     layout ran slower than the general kernel at (4096, 768).) All of
+//     the row's loads, and the lane's gamma and beta with its first row,
+//     are issued before the first reduction; the mean, then sum
+//     (x - mu)^2, come from registers (two-pass, no second read);
+//   - gamma and beta stay in registers across every row the lane takes;
+//   - the grid is at most the card's resident capacity, each warp
+//     striding over row groups, so a large N keeps the SMs' registers
+//     full of rows in flight (D = 768: 16 warps an SM, one row each). At
+//     N = 1 that is one block and one row group: a launch, one round
+//     trip, ten shuffles, the stores.
+// Other widths, or misaligned rows, take ln_fwd_kernel: one warp per row,
+// lanes striding across it, three passes (the second and third re-read
+// the row from L1, which holds it).
 //
 // Backward, the vectorised path (ln_bwd_vec_kernel: D in 64, 128 and
 // 768, the widths of the port's models, and x, dy, dx on 16-byte
@@ -54,7 +76,9 @@
 // ptxas -v (sm_90a, CUDA 12.8, H100 build): ln_bwd_vec_kernel takes 64
 // registers at D = 64 and 128 and 137-141 at 768 over the four type
 // pairs, with no spills (at a cap of 128, D = 768 spilled up to 52
-// bytes). chip_smoke.py phase 2 prints them and fails on a spill.
+// bytes); ln_fwd_vec_kernel 47-48 at 64 and 128 and 92-96 at 768 (capped
+// for three blocks an SM, D = 768 spilled). chip_smoke.py phase 2 prints
+// them and fails on a spill or a missing instantiation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -356,6 +380,134 @@ ln_bwd_vec_kernel(const TX* __restrict__ x, const TDY* __restrict__ dy,
   }
 }
 
+// -- forward, vectorised path: the row in registers -------------------------
+
+// 4 consecutive elements as one lane loads or stores them: 16 bytes of
+// f32, 8 of bf16
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  float4 a;
+};
+template <>
+struct Vec4<__nv_bfloat16> {
+  uint2 a;
+};
+
+__device__ __forceinline__ void load4(const float* p, Vec4<float>& v) {
+  v.a = *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      Vec4<__nv_bfloat16>& v) {
+  v.a = *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ void unpack4(const Vec4<float>& v, float (&f)[4]) {
+  f[0] = v.a.x; f[1] = v.a.y; f[2] = v.a.z; f[3] = v.a.w;
+}
+__device__ __forceinline__ void unpack4(const Vec4<__nv_bfloat16>& v,
+                                        float (&f)[4]) {
+  f[0] = __uint_as_float(v.a.x << 16);
+  f[1] = __uint_as_float(v.a.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.a.y << 16);
+  f[3] = __uint_as_float(v.a.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// LANES lanes take a row, each lane QUADS quads of 4 columns: lane l of
+// the group owns columns (q * LANES + l) * 4 .. + 3, so each quad's loads
+// and stores are consecutive vectors across the group. THREADS a block,
+// at least MINB blocks an SM (which caps the registers a thread).
+template <typename TIn, typename TOut, int LANES, int QUADS, int THREADS,
+          int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+ln_fwd_vec_kernel(const TIn* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, TOut* __restrict__ y,
+                  float* __restrict__ mu_out, float* __restrict__ rs_out,
+                  long long N, float eps) {
+  constexpr int D = LANES * QUADS * 4;
+  constexpr int kPerWarp = 32 / LANES;  // rows a warp takes at once
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane % LANES;
+  // warp w of block b starts at row group b * warps + w and strides over
+  // the grid's; the loop runs warp-uniformly (the shuffles need every
+  // lane), and a row past N loads nothing and stores nothing
+  long long base =
+      (static_cast<long long>(blockIdx.x) * (THREADS / 32) + warp) * kPerWarp;
+  if (base >= N) return;
+  const long long step =
+      static_cast<long long>(gridDim.x) * (THREADS / 32) * kPerWarp;
+  // the lane's gamma and beta, loaded with its first row and kept
+  Vec4<float> gv[QUADS], bv[QUADS];
+#pragma unroll
+  for (int q = 0; q < QUADS; ++q) {
+    load4(gamma + (q * LANES + gl) * 4, gv[q]);
+    load4(beta + (q * LANES + gl) * 4, bv[q]);
+  }
+  const float inv_d = 1.f / static_cast<float>(D);
+  for (; base < N; base += step) {
+    const long long row = base + lane / LANES;
+    const bool valid = row < N;
+    Vec4<TIn> xv[QUADS];
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      if (valid) load4(x + row * D + (q * LANES + gl) * 4, xv[q]);
+      else xv[q].a = {};
+    }
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      float xf[4];
+      unpack4(xv[q], xf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s += xf[j];
+    }
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mu = s * inv_d;
+    float ss = 0.f;
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      float xf[4];
+      unpack4(xv[q], xf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float d = xf[j] - mu;
+        ss += d * d;
+      }
+    }
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (!valid) continue;
+    const float rs = rsqrtf(ss * inv_d + eps);
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      float xf[4], g[4], b[4], out[4];
+      unpack4(xv[q], xf);
+      unpack4(gv[q], g);
+      unpack4(bv[q], b);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j] = (xf[j] - mu) * rs * g[j] + b[j];
+      store4(y + row * D + (q * LANES + gl) * 4, out);
+    }
+    if (gl == 0 && mu_out != nullptr) {
+      mu_out[row] = mu;
+      rs_out[row] = rs;
+    }
+  }
+}
+
 // -- backward: the partial rows' sum ----------------------------------------
 
 constexpr int kSumCols = 32;
@@ -462,55 +614,108 @@ cudaError_t launch_general(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename TX, typename TDY, int LANES, int CHUNKS, int THREADS,
-          int MINB>
+// Blocks of `kernel` at `threads` a block that the card holds at once,
+// into *resident.
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int* resident) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+  if (err == cudaSuccess) *resident = sms * (per_sm > 0 ? per_sm : 1);
+  return err;
+}
+
+// The widths the vectorised kernels are built for, the port's models'
+// (GptTiny 64, GptMini and BertTiny 128, BertBase 768), and each one's
+// shapes: LANES lanes a row, each with CHUNKS 8-column chunks in the
+// backward and as many columns, 2 * CHUNKS quads, in the forward (D =
+// LANES * CHUNKS * 8); the backward's blocks of BWD_THREADS (two an SM)
+// and the forward's of FWD_THREADS (FWD_MINB an SM). The backward needs
+// 64 registers a thread at 64 and 128, so 8 warps a block; at 768 about
+// 140 (at 128 it spilled), so 6 warps (12 an SM, 170 registers allowed).
+// The forward holds a row, gamma and beta: about 96 registers at 768,
+// under the 128 that two blocks of 8 warps an SM allow; under 64 at 64
+// and 128, four blocks or more.
+template <int LANES, int CHUNKS, int BWD_THREADS, int FWD_THREADS,
+          int FWD_MINB>
+struct Width {
+  static constexpr int kLanes = LANES, kChunks = CHUNKS;
+  static constexpr int kBwdThreads = BWD_THREADS;
+  static constexpr int kFwdThreads = FWD_THREADS, kFwdMinBlocks = FWD_MINB;
+};
+
+// f(Width<...>{}) for D among the widths; -1 for any other D, which takes
+// the general kernels.
+template <typename F>
+int by_width(int D, F f) {
+  switch (D) {
+    case 64: return f(Width<8, 1, 256, 256, 4>{});
+    case 128: return f(Width<16, 1, 256, 256, 4>{});
+    case 768: return f(Width<32, 3, 192, 256, 2>{});
+    default: return -1;
+  }
+}
+
+template <typename TX, typename TDY, typename W>
 struct VecBwd {
-  static constexpr int kGroups = THREADS / LANES;
+  static constexpr int kThreads = W::kBwdThreads;
+  static constexpr int kGroups = kThreads / W::kLanes;
+
+  static auto kernel() {
+    return ln_bwd_vec_kernel<TX, TDY, W::kLanes, W::kChunks, kThreads, 2>;
+  }
 
   // the partial rows (= blocks) at N rows: the card's resident capacity,
-  // or fewer when N is small
+  // or fewer when N is small; -1 if the card cannot be queried
   static int blocks(long long N) {
     static int resident = 0;
-    if (resident == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      if (cudaGetDevice(&dev) != cudaSuccess ||
-          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-              cudaSuccess ||
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm,
-              ln_bwd_vec_kernel<TX, TDY, LANES, CHUNKS, THREADS, MINB>,
-              THREADS, 0) != cudaSuccess)
-        return -1;
-      resident = sms * (per_sm > 0 ? per_sm : 1);
-    }
+    if (resident == 0 &&
+        resident_blocks(kernel(), kThreads, &resident) != cudaSuccess)
+      return -1;
     const long long need = (N + kGroups - 1) / kGroups;
     return static_cast<int>(need < resident ? need : resident);
   }
 
   static cudaError_t launch(const BwdArgs& a, int P) {
-    ln_bwd_vec_kernel<TX, TDY, LANES, CHUNKS, THREADS, MINB>
-        <<<P, THREADS, 0, a.stream>>>(
+    const auto k = kernel();
+    k<<<P, kThreads, 0, a.stream>>>(
         static_cast<const TX*>(a.x), static_cast<const TDY*>(a.dy), a.mu,
         a.rs, a.gamma, static_cast<TX*>(a.dx), a.part, a.N);
     return cudaGetLastError();
   }
 };
 
-// f(VecBwd<...>{}) for the widths the vectorised path is built for (the
-// port's models': GptTiny 64, GptMini and BertTiny 128, BertBase 768); -1
-// for any other D, which takes the general kernel. At 64 and 128 a thread
-// needs 64 registers, so 8 warps a block and 2 blocks an SM; D = 768
-// needs about 140 (at 128 it spills), so 6 warps and 2 blocks (12 warps
-// an SM, 170 registers allowed).
-template <typename TX, typename TDY, typename F>
-int by_width(int D, F f) {
-  switch (D) {
-    case 64: return f(VecBwd<TX, TDY, 8, 1, 256, 2>{});
-    case 128: return f(VecBwd<TX, TDY, 16, 1, 256, 2>{});
-    case 768: return f(VecBwd<TX, TDY, 32, 3, 192, 2>{});
-    default: return -1;
+template <typename TIn, typename TOut, typename W>
+struct VecFwd {
+  static constexpr int kThreads = W::kFwdThreads;
+  static constexpr int kBlockRows = kThreads / W::kLanes;
+
+  static auto kernel() {
+    return ln_fwd_vec_kernel<TIn, TOut, W::kLanes, 2 * W::kChunks, kThreads,
+                             W::kFwdMinBlocks>;
   }
-}
+
+  // a grid of the card's resident capacity, or of as many blocks as N
+  // rows fill (one at N = 1)
+  static cudaError_t launch(const FwdArgs& a) {
+    static int resident = 0;
+    if (resident == 0) {
+      const cudaError_t err = resident_blocks(kernel(), kThreads, &resident);
+      if (err != cudaSuccess) return err;
+    }
+    const long long need = (a.N + kBlockRows - 1) / kBlockRows;
+    const auto k = kernel();
+    k<<<static_cast<unsigned>(need < resident ? need : resident), kThreads,
+        0, a.stream>>>(
+        static_cast<const TIn*>(a.x), a.gamma, a.beta,
+        static_cast<TOut*>(a.y), a.mu, a.rs, a.N, a.eps);
+    return cudaGetLastError();
+  }
+};
 
 // partial rows of the backward at (N, D) on the chosen path, -1 if the
 // vectorised path has no kernel for D (or the card cannot be queried)
@@ -519,7 +724,9 @@ int partial_rows(int x_dtype, int dy_dtype, long long N, int D, int vec) {
   return by_types(x_dtype, dy_dtype, -1, [&](auto tx, auto tdy) {
     using TX = typename decltype(tx)::type;
     using TDY = typename decltype(tdy)::type;
-    return by_width<TX, TDY>(D, [&](auto k) { return k.blocks(N); });
+    return by_width(D, [&](auto w) {
+      return VecBwd<TX, TDY, decltype(w)>::blocks(N);
+    });
   });
 }
 
@@ -537,22 +744,32 @@ extern "C" {
 
 // x (N, D) and y (N, D) are row-major contiguous; gamma and beta are (D,)
 // float32; mu and rs are (N,) float32 outputs, or both null (the serving
-// path needs neither). Types: 0 = float32, 1 = bfloat16. Returns the
+// path needs neither). Types: 0 = float32, 1 = bfloat16. vec = 1 takes
+// the vectorised kernel: D one of its widths and x, gamma, beta and y
+// 16-byte aligned, else cudaErrorInvalidValue /
+// cudaErrorMisalignedAddress; vec = 0 the general one. Returns the
 // launch's cudaError_t (0 on success).
-int pdtn_layer_norm_fwd(int in_dtype, int out_dtype, const void* x,
+int pdtn_layer_norm_fwd(int in_dtype, int out_dtype, int vec, const void* x,
                         const float* gamma, const float* beta, void* y,
                         float* mu, float* rs, long long N, int D, float eps,
                         void* stream) {
   if (bad_shape(N, D) || (mu == nullptr) != (rs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && !(aligned16(x) && aligned16(gamma) && aligned16(beta) &&
+               aligned16(y)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const FwdArgs a{x, gamma, beta, y, mu, rs, N, D, eps,
                   static_cast<cudaStream_t>(stream)};
   return by_types(in_dtype, out_dtype, cudaErrorInvalidValue,
                   [&](auto ti, auto to) {
-                    return static_cast<int>(
-                        launch_fwd<typename decltype(ti)::type,
-                                   typename decltype(to)::type>(a));
-                  });
+    using TIn = typename decltype(ti)::type;
+    using TOut = typename decltype(to)::type;
+    if (!vec) return static_cast<int>(launch_fwd<TIn, TOut>(a));
+    const int err = by_width(D, [&](auto w) {
+      return static_cast<int>(VecFwd<TIn, TOut, decltype(w)>::launch(a));
+    });
+    return err == -1 ? static_cast<int>(cudaErrorInvalidValue) : err;
+  });
 }
 
 // Partial rows P of the backward at (N, D): the size of its scratch
@@ -587,8 +804,8 @@ int pdtn_layer_norm_bwd(int x_dtype, int dy_dtype, int vec, const void* x,
     using TX = typename decltype(tx)::type;
     using TDY = typename decltype(tdy)::type;
     if (!vec) return static_cast<int>(launch_general<TX, TDY>(a));
-    return by_width<TX, TDY>(D, [&](auto k) {
-      return static_cast<int>(k.launch(a, P));
+    return by_width(D, [&](auto w) {
+      return static_cast<int>(VecBwd<TX, TDY, decltype(w)>::launch(a, P));
     });
   });
   if (err != cudaSuccess) return err;

@@ -73,11 +73,11 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: models (GptTiny 16, GptMini and BertTiny 32, BertBase 64)
 FLASH_HEAD_DIMS = (16, 32, 64)
 
-#: widths the vectorised LayerNorm backward is instantiated for
-#: (``by_width`` in csrc/layer_norm.cu): the port's models' (GptTiny 64,
-#: GptMini and BertTiny 128, BertBase 768); the general kernel takes any
-#: other width
-LN_BWD_WIDTHS = (64, 128, 768)
+#: widths the vectorised LayerNorm kernels, forward and backward, are
+#: instantiated for (``by_width`` in csrc/layer_norm.cu): the port's
+#: models' (GptTiny 64, GptMini and BertTiny 128, BertBase 768); the
+#: general kernels take any other width
+LN_WIDTHS = (64, 128, 768)
 
 #: leaves one grouped quantize launch covers (``kGroupLeaves`` in
 #: csrc/int8_quant.cu: the descriptor table is the kernel's parameter)
@@ -107,8 +107,8 @@ _SIGNATURES = {
                                   *[_LL] * 8, _F, *[_I] * 6, _P],
     },
     "layer_norm": {
-        "pdtn_layer_norm_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _F,
-                                _P],
+        "pdtn_layer_norm_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _I,
+                                _F, _P],
         "pdtn_layer_norm_bwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P, _LL, _I, _P],
         "pdtn_layer_norm_bwd_partial_rows": [_I, _I, _LL, _I, _I],
@@ -191,7 +191,10 @@ def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card as a raw handle (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a ``Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # -- decode attention ----------------------------------------------------
@@ -312,11 +315,37 @@ def _ln_params(x, gamma, beta=None):
     return D, (x.numel() // D if D else 0)
 
 
+def _ln_vec(D: int, *ptrs: int) -> bool:
+    """D among :data:`LN_WIDTHS` and every pointer on a 16-byte boundary."""
+    low = 0
+    for p in ptrs:
+        low |= p
+    return D in LN_WIDTHS and low % 16 == 0
+
+
+def layer_norm_fwd_vectorised(x: torch.Tensor, y: torch.Tensor,
+                              gamma: torch.Tensor, beta: torch.Tensor) -> bool:
+    """Which forward kernel takes these contiguous operands: the
+    vectorised one (rows in registers; vector loads and stores, 16 bytes
+    a lane for f32, 8 for bf16) when D is one of :data:`LN_WIDTHS` and x,
+    y, gamma and beta start on 16-byte boundaries (every row then does: D
+    * elem is a multiple of 16), else the general one (scalar loads, any
+    D). A dispatch on shape and alignment; both compute the same
+    function."""
+    return _ln_vec(x.shape[-1], x.data_ptr(), y.data_ptr(), gamma.data_ptr(),
+                   beta.data_ptr())
+
+
+_LN_FWD = None  # the bound C entry, looked up at the first launch
+
+
 def _ln_forward(x, gamma, beta, eps, out_dtype, with_stats: bool):
+    global _LN_FWD
     out_dtype = x.dtype if out_dtype is None else out_dtype
     D, N = _ln_params(x, gamma, beta)
     in_code = _dtype_code(x, "layer_norm input")
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    out = torch.empty_like(x, dtype=out_dtype,
+                           memory_format=torch.contiguous_format)
     out_code = _dtype_code(out, "layer_norm output")
     mu = rs = None
     if with_stats:
@@ -324,22 +353,29 @@ def _ln_forward(x, gamma, beta, eps, out_dtype, with_stats: bool):
         rs = torch.empty_like(mu)
     if N == 0:
         return out, mu, rs
-    x2 = x.contiguous()
-    gamma, beta = gamma.contiguous(), beta.contiguous()
-    lib = _lib("layer_norm")
-    rc = lib.pdtn_layer_norm_fwd(
-        in_code, out_code, x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), mu.data_ptr() if with_stats else None,
-        rs.data_ptr() if with_stats else None, N, D, float(eps), _stream(x),
-    )
-    _check(lib, "layer_norm", rc)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not gamma.is_contiguous():
+        gamma = gamma.contiguous()
+    if not beta.is_contiguous():
+        beta = beta.contiguous()
+    if _LN_FWD is None:
+        _LN_FWD = _lib("layer_norm").pdtn_layer_norm_fwd
+    px, pg, pb, py = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                      out.data_ptr())
+    rc = _LN_FWD(in_code, out_code, _ln_vec(D, px, pg, pb, py), px, pg, pb,
+                 py, mu.data_ptr() if with_stats else None,
+                 rs.data_ptr() if with_stats else None, N, D, float(eps),
+                 _stream(x))
+    _check(_BOUND["layer_norm"], "layer_norm", rc)
     return out, mu, rs
 
 
 def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-6, out_dtype=None):
     """(y, mu, rs): the forward kernel with the statistics the backward
-    needs (mu, rs f32 of x's leading shape)."""
+    needs (mu, rs f32 of x's leading shape). One count per call; the
+    kernel is chosen by :func:`layer_norm_fwd_vectorised`."""
     if _on_cpu(x, gamma, beta):
         return reference.layer_norm_fwd(x, gamma, beta, eps, out_dtype)
     return _ln_forward(x, gamma, beta, eps, out_dtype, with_stats=True)
@@ -349,12 +385,11 @@ def layer_norm_bwd_vectorised(x: torch.Tensor, dy: torch.Tensor,
                               dx: torch.Tensor) -> bool:
     """Which backward kernel takes these contiguous operands: the
     vectorised one (rows in registers, 16-byte loads) when D is one of
-    :data:`LN_BWD_WIDTHS` and x, dy and dx start on 16-byte boundaries
+    :data:`LN_WIDTHS` and x, dy and dx start on 16-byte boundaries
     (every row then does: D * elem is a multiple of 16), else the general
     one (scalar loads, any D). A dispatch on shape and alignment; both
     compute the same function."""
-    return x.shape[-1] in LN_BWD_WIDTHS and bool(
-        _aligned((x, 16), (dy, 16), (dx, 16)))
+    return _ln_vec(x.shape[-1], x.data_ptr(), dy.data_ptr(), dx.data_ptr())
 
 
 def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mu: torch.Tensor,

@@ -440,7 +440,7 @@ def test_cuda_layer_norm_backward_kernels_match_plain(card, x_dt, dy_dt, Dm):
         want = reference.layer_norm_bwd(x, g, mu, rs, dy)
         x_off = torch.empty(N * Dm + 1, dtype=x_dt, device=card)[1:]
         x_off = x_off.view(N, Dm).copy_(x)
-        for xin, vec in ((x, Dm in kernels.LN_BWD_WIDTHS), (x_off, False)):
+        for xin, vec in ((x, Dm in kernels.LN_WIDTHS), (x_off, False)):
             assert kernels.layer_norm_bwd_vectorised(
                 xin, dy, torch.empty_like(x)) == vec
             before = kernels.launch_counts()["layer_norm_bwd"]
@@ -454,6 +454,50 @@ def test_cuda_layer_norm_backward_kernels_match_plain(card, x_dt, dy_dt, Dm):
             assert _excess(got[0], want[0], *dx_tol) <= 0
             for a, w in zip(got[1:], want[1:]):
                 assert a.shape == (Dm,) and _excess(a, w, 1e-4, 1e-4) <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dm", [64, 128, 768])
+def test_cuda_layer_norm_forward_kernels_match_plain(card, in_dt, out_dt, Dm):
+    """Both forward kernels against the plain version, y, mu and rs: the
+    vectorised one at each width it is built for, the general one on a
+    copy of x one element off a 16-byte boundary; N = 1, 3 and 4097 (a
+    tail no block's rows divide) and, at 768, 8192; with the statistics
+    (training) and without (serving, the same y bit for bit); two
+    launches equal bit for bit; one count per call; the two kernels
+    within the tolerance of each other."""
+    gen = torch.Generator().manual_seed(Dm)
+    g = (torch.rand(Dm, generator=gen) + 0.5).to(card)
+    b = torch.randn(Dm, generator=gen).to(card)
+    y_tol = (1e-5, 0.0) if out_dt == torch.float32 else (2e-2, 1e-2)
+    for N in (1, 3, 4097) + ((8192,) if Dm == 768 else ()):
+        x = (torch.randn((N, Dm), generator=gen) * 3 + 1).to(card, in_dt)
+        x_off = torch.empty(N * Dm + 1, dtype=in_dt, device=card)[1:]
+        x_off = x_off.view(N, Dm).copy_(x)
+        want = reference.layer_norm_fwd(x, g, b, 1e-6, out_dt)
+        ys = []
+        for xin, vec in ((x, True), (x_off, False)):
+            y_probe = torch.empty((N, Dm), dtype=out_dt, device=card)
+            assert kernels.layer_norm_fwd_vectorised(xin, y_probe, g, b) == vec
+            before = kernels.launch_counts()["layer_norm"]
+            got = kernels.layer_norm_fwd(xin, g, b, 1e-6, out_dt)
+            again = kernels.layer_norm_fwd(xin, g, b, 1e-6, out_dt)
+            served = kernels.layer_norm(xin, g, b, 1e-6, out_dt)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["layer_norm"] == before + 3
+            for a, c in zip(got, again):
+                assert torch.equal(a, c)
+            assert torch.equal(served, got[0])
+            y, mu, rs = got
+            assert y.dtype == out_dt and y.shape == x.shape
+            assert mu.shape == rs.shape == (N,)
+            assert _excess(y, want[0], *y_tol) <= 0
+            assert _excess(mu, want[1], 1e-5, 0.0) <= 0
+            assert _excess(rs, want[2], 1e-5, 1e-5) <= 0
+            ys.append(y)
+        assert _excess(ys[0], ys[1], *y_tol) <= 0
 
 
 # -- the int8 gradient codec: kernel and plain version equal bit for bit

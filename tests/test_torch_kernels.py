@@ -173,7 +173,8 @@ def test_decode_attention_masks_dead_rows():
 
 
 @pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,Dm", [(16, 128), (300, 128), (7, 96), (33, 200)])
+@pytest.mark.parametrize("N,Dm", [(16, 128), (300, 128), (7, 96), (33, 200),
+                                  (1, 768), (41, 768), (1, 64)])
 def test_layer_norm_matches_pallas(N, Dm, in_dtype):
     rng = np.random.RandomState(N + Dm)
     x = (rng.randn(N, Dm) * 3 + 1).astype(np.float32)
@@ -257,7 +258,7 @@ def test_layer_norm_autograd_matches_jax_vjp(N, Dm, in_dtype):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("N,Dm", [(16, 128), (300, 768)])
+@pytest.mark.parametrize("N,Dm", [(16, 128), (300, 768), (1, 768), (1, 64)])
 def test_layer_norm_statistics_match_pallas(N, Dm):
     """mu and rs of the plain forward (the training path's forward kernel
     writes them too) against ``_ln_fwd_call``'s."""
@@ -288,6 +289,28 @@ def test_layer_norm_outside_autograd_is_the_serving_forward():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dm", [64, 128, 200, 768])
+def test_layer_norm_fwd_dispatch_by_width_and_alignment(Dm, dtype):
+    """The forward takes its vectorised kernel for the widths the
+    backward's is built for (one table) when x, y, gamma and beta start
+    on 16-byte boundaries, and its general kernel for any other width or
+    an operand that is not aligned, x one element off its boundary
+    included."""
+    x = torch.zeros((5, Dm), dtype=dtype)
+    y = torch.empty((5, Dm), dtype=torch.float32)
+    g, b = torch.ones(Dm), torch.zeros(Dm)
+    vec = Dm in kernels.LN_WIDTHS
+    assert kernels.layer_norm_fwd_vectorised(x, y, g, b) == vec
+    assert kernels.layer_norm_fwd_vectorised(x, y.to(dtype), g, b) == vec
+    shifted = torch.zeros(5 * Dm + 1, dtype=dtype)[1:].view(5, Dm)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert not kernels.layer_norm_fwd_vectorised(shifted, y, g, b)
+    g_off = torch.ones(Dm + 1)[1:]
+    assert not kernels.layer_norm_fwd_vectorised(x, y, g_off, b)
+    assert not kernels.layer_norm_fwd_vectorised(x, y, g, g_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dm", [64, 96, 128, 200, 768, 1024])
 def test_layer_norm_bwd_dispatch_by_width_and_alignment(Dm, dtype):
     """The backward takes its vectorised kernel for the widths it is built
@@ -297,12 +320,12 @@ def test_layer_norm_bwd_dispatch_by_width_and_alignment(Dm, dtype):
     dy = torch.zeros((5, Dm), dtype=torch.float32)
     dx = torch.empty_like(x)
     assert kernels.layer_norm_bwd_vectorised(x, dy, dx) == (
-        Dm in kernels.LN_BWD_WIDTHS)
+        Dm in kernels.LN_WIDTHS)
     flat = torch.zeros(5 * Dm + 1, dtype=dtype)
     shifted = flat[1:].view(5, Dm)  # one element off the boundary
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     assert not kernels.layer_norm_bwd_vectorised(shifted, dy, dx)
-    assert kernels.LN_BWD_WIDTHS == (64, 128, 768)
+    assert kernels.LN_WIDTHS == (64, 128, 768)
 
 
 @pytest.mark.parametrize("N,Dm", [(1, 64), (33, 128), (9, 768)])

@@ -226,8 +226,8 @@ def test_chip_smoke_profile_knows_every_kernel_of_the_sources():
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     names = chip_smoke.port_kernel_names()
-    for want in ("decode_attn_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
-                 "ln_bwd_vec_kernel", "ln_bwd_sum_kernel",
+    for want in ("decode_attn_kernel", "ln_fwd_kernel", "ln_fwd_vec_kernel",
+                 "ln_bwd_kernel", "ln_bwd_vec_kernel", "ln_bwd_sum_kernel",
                  "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                  "flash_dkv_tc_kernel", "quant_group_kernel",
                  "dequant_kernel"):
