@@ -9,12 +9,15 @@ and single-pass serving (``POST /v1/infer``) of their checkpoints.
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
     python3 chip_smoke.py --serve-bench 2
     python3 chip_smoke.py --ln-times
+    python3 chip_smoke.py --flash-times
 
 The second form only times the training steps of the checkout beside
 the script (``step_times``), the third only runs that checkout's
 ``serve bench`` in fresh processes on a random-init ResNet-18 artifact
-(``serve_bench_runs``), and the fourth only times its LayerNorm forward
-(``ln_times``), each for comparing two commits in one call.
+(``serve_bench_runs``), the fourth only times its LayerNorm forward
+(``ln_times``) and the fifth its flash kernels at BertBase's f32 and
+bf16 shapes (``flash_times``), each for comparing two commits in one
+call.
 
 Phases, each printed on its own line:
 
@@ -25,8 +28,8 @@ Phases, each printed on its own line:
    ``ptxas -v``'s registers, stack and spills of the flash kernels, the
    vectorised LayerNorm backward and forward, the grouped and the
    own-scale quantize and every decode attention instantiation, and fail
-   if a bf16 tensor-core flash kernel or any of the others spills or is
-   missing;
+   if a flash kernel (bf16 or f32, 9 each) or any of the others spills or
+   is missing;
 3. hold each kernel against its plain PyTorch version on the card, with
    TF32 off for the f32 comparisons: decode attention over every (batch
    bucket, cache bucket) pair of GptMini, on misaligned caches (its scalar
@@ -36,11 +39,12 @@ Phases, each printed on its own line:
    (each vectorised width, a width of the general kernel and misaligned
    rows; f32 and bf16 in, f32 and bf16 out; each case twice, bit for bit
    equal, on the kernel the wrapper says); flash attention forward
-   (out, lse), dq and dk/dv at BertBase shapes (B 1 and 16, L 128 and
+   (out, lse), dq and dk/dv at BertBase shapes (B 1, 2 and 16, L 128 and
    512, 12 heads of 64) and GptMini's
    (8 x 128, 4 heads of 32, causal), f32 and bf16, with and without a pad
    mask, causal and not, and ragged L (77, 200, 333) at head dims 16, 32
-   and 64; each flash kernel launched twice per case, bit for bit equal;
+   and 64 (200 also causal at 12 heads of 64); each flash kernel launched
+   twice per case, bit for bit equal;
    the bf16 dq and dk/dv held to a tighter tolerance than the forward;
    LayerNorm forward (y, mu, rs) and backward at
    (16*512, 768) and (1000, 128), f32 and bf16-in/f32-out, and the
@@ -70,9 +74,13 @@ Phases, each printed on its own line:
    finite, the last below the first, the loss on the fixed eval set lower
    after the steps than before them, and the exact launch counts per step
    (flash fwd, dq and dk/dv 12 each, LayerNorm fwd and bwd 26 each) and
-   per eval batch (12 and 26). Then two gradient checks: at the same
-   weights and batch, B = 2, f32 (the CUDA-core flash kernels) and bf16
-   (the tensor-core ones), every parameter's gradient of the kernel model
+   per eval batch (12 and 26). Then BertBase with the README's flash
+   flags at the CLI's default dtype (``--dtype float32 --attn-impl pallas
+   --optimizer adam``: the f32 flash kernels), B = 16, 5 steps: finite
+   losses and exactly 12 forward, 12 dq and 12 dk/dv launches a step
+   (and 26 LayerNorm forward and backward; 12 and 26 an eval batch). Then two gradient checks:
+   at the same weights and batch, B = 2, f32 (the 3xTF32 flash kernels)
+   and bf16, every parameter's gradient of the kernel model
    against the plain model on the card, relative to the size of the
    plain gradient (``leaf_grad_errors``); in bf16 the plain model runs
    the kernels' algorithm (``plain_flash_attention``), and the kernel
@@ -96,12 +104,15 @@ Phases, each printed on its own line:
    caches and heads enough to fill the card; the training kernels at
    BertBase's training shapes, bf16, with the achieved TFLOP/s of the
    flash kernels),
-   beside the least time the card could take, the flash kernels' f32
-   instantiations beside SDPA on the same f32 operands (forward, and the
-   autograd backward: dq, dk and dv in one call); the
+   beside the least time the card could take, the f32 flash kernels on
+   the same values beside their bound (three TF32 products a product;
+   the count at the CUDA cores' f32 rate printed too), their achieved
+   f32 TFLOP/s, their plain versions and SDPA on the same f32 operands
+   (forward, and the autograd backward: dq, dk and dv in one call); the
    serving decode step, tokens/s and TTFT; the BertBase training step
-   and tokens/s with ``--attn-impl pallas`` and, as a second line,
-   ``--attn-impl full``; the LayerNorm backward at BertBase's shape also
+   and tokens/s, bf16 and f32, each with ``--attn-impl pallas`` and, as
+   a second line, ``--attn-impl full``; ``mma.sync`` TF32's rate and the
+   error of a sum chained in its accumulator (``tools/mma_tf32.py``); the LayerNorm backward at BertBase's shape also
    on its general kernel (a misaligned copy); the LayerNorm forward at
    GptMini's serving shapes (N 1-128 x 128, f32 and bf16 in) and at
    BertBase's training shape, each beside its general kernel (a
@@ -111,7 +122,8 @@ Phases, each printed on its own line:
    launch, and grouped per leaf size; the other two at the largest leaf)
    and the ResNet-18 step with int8 sync and without.
    ``--out`` adds a per-shape sweep, a profile of decode steps and
-   ``torch.profiler`` breakdowns of 5 BertBase and 5 ResNet-18 steps,
+   ``torch.profiler`` breakdowns of 5 BertBase steps (bf16 and f32) and
+   5 ResNet-18 steps,
    with the device time per launch of each of the port's CUDA kernels
    (a wrapper's kernels apart: the LayerNorm backward's rows and its
    partial-row sum);
@@ -173,7 +185,8 @@ Phases, each printed on its own line:
    possible time), then the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
-burst, each model's training steps and eval pass, the resumed steps of
+burst, each model's training steps and eval pass (BertBase bf16 and
+f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8) and read just after; the
 evaluator subprocess counts its own.
 
@@ -198,10 +211,11 @@ import urllib.error
 import urllib.request
 
 #: NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth, the f32 rate
-#: outside the tensor cores and the bf16 tensor-core rate
+#: outside the tensor cores, and the bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-PEAK_FLOPS = {"float32": F32_FLOPS_PER_S, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": F32_FLOPS_PER_S, "bfloat16": 989e12,
+              "tf32": 494.7e12}
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LOGITS_TOL = 1e-4
@@ -257,6 +271,12 @@ N_TIMED = 200
 #: graph-replayed calls per timing at the training shapes (ms-scale calls)
 N_TIMED_TRAIN = 20
 TRAIN_STEPS = 10
+#: BertBase with the README's flash command's flags at the CLI's default
+#: dtype (``--dtype float32 --attn-impl pallas --optimizer adam``, no
+#: ``--fused-ln``, which picks nothing in the port: its one LayerNorm is
+#: the kernel): the f32 flash kernels' training path
+F32_FLAGS = {"dtype": "float32", "fused_ln": False}
+F32_TRAIN_STEPS = 5
 #: the int8 kernels' element counts in phase 3: around the 16384 dispatch
 #: threshold and the TPU kernel's 131072 chunk, up to ResNet-18's largest
 #: gradient leaf
@@ -451,7 +471,11 @@ def flash_costs(B, L, H, D, dtype, causal=False, mask=None):
     With bf16 operands the card's tensor cores multiply bf16 only, and the
     least work that keeps p and ds to 16 bits against exact bf16 dO and Q
     is two bf16 products each (hi and lo), so those count as 4 bf16
-    products (f32 operands: 2 products at the f32 rate)."""
+    products. An f32 product to f32 accuracy is three TF32 products on the
+    tensor cores (the split operands' lo hi + hi lo + hi hi), so with f32
+    operands every product counts three times at the TF32 rate;
+    :func:`cuda_core_bound_ms` gives the count at the f32 rate outside
+    them."""
     elem = 2 if dtype == "bfloat16" else 4
     n = B * L * H * D * elem
     rows = B * H * L * 4
@@ -462,16 +486,30 @@ def flash_costs(B, L, H, D, dtype, causal=False, mask=None):
         pairs = H * L * sum(keys)
     mask_b = 0 if mask is None else B * L * 4
     prod = 2 * pairs * D
+    if dtype == "float32":
+        return {
+            "flash_attention_fwd": (4 * n + rows + mask_b,
+                                    [(3 * 2 * prod, "tf32")]),
+            "flash_attention_dq": (5 * n + 2 * rows + mask_b,
+                                   [(3 * 3 * prod, "tf32")]),
+            "flash_attention_dkv": (6 * n + 2 * rows + mask_b,
+                                    [(3 * 4 * prod, "tf32")]),
+        }
     return {
-        "flash_attention_fwd": (4 * n + rows + mask_b,
-                                [(2 * prod, dtype)]),
+        "flash_attention_fwd": (4 * n + rows + mask_b, [(2 * prod, dtype)]),
         "flash_attention_dq": (5 * n + 2 * rows + mask_b,
                                [(3 * prod, dtype)]),
         "flash_attention_dkv": (6 * n + 2 * rows + mask_b,
-                                [(2 * prod, dtype), (4 * prod, dtype)]
-                                if dtype == "bfloat16" else
-                                [(2 * prod, dtype), (2 * prod, "float32")]),
+                                [(2 * prod, dtype), (4 * prod, dtype)]),
     }
+
+
+def cuda_core_bound_ms(cost):
+    """The bound of an f32 :func:`flash_costs` entry with its products
+    counted once each at the f32 rate outside the tensor cores (the count
+    for kernels on the CUDA cores): (ms, what bounds it)."""
+    nbytes, flops = cost
+    return bound_ms(nbytes, [(f / 3, "float32") for f, _ in flops])
 
 
 def ln_bwd_cost(N, D, x_elem, dy_elem):
@@ -603,6 +641,61 @@ def ln_times(kernels, reference, F, seed):
     return rows + ln_sweep(kernels, reference, F, 128, gen)
 
 
+def flash_times(kernels, reference, F, seed):
+    """``--flash-times``: the flash kernels of the checkout beside the
+    script at BertBase's training shapes (B 16, L 512, 12 heads of 64, no
+    mask), f32 and bf16, each forward, dq and dk/dv by CUDA-graph replay
+    beside its bound and achieved TFLOP/s, and SDPA's f32 forward and
+    autograd backward on the same f32 operands; only
+    ``flash_attention.cu`` is built, nothing checked but finite outputs."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.utils.native_build import (
+        build_kernels,
+    )
+
+    build_kernels(["flash_attention"])
+    gen = torch.Generator().manual_seed(seed)
+    B, L, H, D = 16, 512, 12, 64
+    n = N_TIMED_TRAIN
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((B, L, H, D), generator=gen)
+                       .to("cuda", dt) for _ in range(4))
+        out, lse = kernels.flash_attention_fwd(q, k, v)
+        delta = reference.flash_attention_delta(out, do)
+        args = (q, k, v, None, lse, delta, do)
+        name = str(dt).split(".")[1]
+        costs = flash_costs(B, L, H, D, name)
+        for kernel, run in (
+                ("flash_attention_fwd",
+                 lambda: kernels.flash_attention_fwd(q, k, v)[0]),
+                ("flash_attention_dq",
+                 lambda: kernels.flash_attention_dq(*args)),
+                ("flash_attention_dkv",
+                 lambda: kernels.flash_attention_dkv(*args)[0])):
+            ms = time_ms(run, n)
+            flops = sum(f for f, _ in costs[kernel][1])
+            bms, by = bound_ms(*costs[kernel])
+            rows.append({"kernel": kernel, "dtype": name, "ms": ms,
+                         "bound_ms": bms, "bound_by": by,
+                         "tflop_per_s": flops / (ms * 1e-3) / 1e12})
+        if dt == torch.float32:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            rows.append({"kernel": "sdpa_fwd", "dtype": name,
+                         "ms": time_ms(lambda: F.scaled_dot_product_attention(
+                             qt, kt, vt), n)})
+            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            o = F.scaled_dot_product_attention(*leaves)
+            dot = do.transpose(1, 2)
+            rows.append({"kernel": "sdpa_autograd_bwd", "dtype": name,
+                         "ms": time_ms(lambda: torch.autograd.grad(
+                             o, leaves, dot, retain_graph=True)[0], n,
+                             graph=False)})
+        del q, k, v, do, out, lse, delta, args
+    return rows
+
+
 def time_decode_off_path(kernels, reference, F, gen):
     """Phase 6 rows of decode attention off GptMini's path: the long
     caches of :data:`DECODE_LONG_S` at B = 2, H = 12, D = 64 (the split
@@ -696,6 +789,9 @@ def check_training_kernels(kernels, reference, gen):
     def record(name, what, exc_err, tol):
         over, err = exc_err
         errs[name] = max(errs[name], err)
+        if name.startswith("flash") and "float32 " in what:
+            f32 = name + " float32"
+            errs[f32] = max(errs.get(f32, 0.0), err)
         cases.append((name, what, err))
         if not over <= 0:
             fail(f"{name} {what}: max abs err {err} past tolerance {tol}")
@@ -710,7 +806,8 @@ def check_training_kernels(kernels, reference, gen):
     # training shape; ragged L with each head dim
     shapes += [(16, 512, 12, 64, True, 37), (8, 128, 4, 32, True, 0),
                (2, 200, 4, 16, False, 0), (2, 200, 4, 16, True, 13),
-               (2, 77, 3, 32, False, 5), (2, 333, 2, 64, True, 0)]
+               (2, 77, 3, 32, False, 5), (2, 333, 2, 64, True, 0),
+               (2, 512, 12, 64, False, 37), (2, 200, 12, 64, True, 0)]
     bwd_atol_needed = 0.0  # the least atol the bf16 backward needs at rtol
 
     def run_all(q, k, v, do, mask, causal, lse, delta):
@@ -854,18 +951,18 @@ def expect_launches(kernels, got, per, n, what):
         fail(f"{what}: launch counts {got}, expected {want}")
 
 
-def train_path(kernels, network, seed, steps, must_learn=True):
+def train_path(kernels, network, seed, steps, must_learn=True, **flags):
     """Train ``network`` through the Trainer for ``steps`` steps, then
     evaluate; launch counts read around each. With ``must_learn`` the
     last loss must be below the first and the fixed eval set's loss must
-    fall. Returns the facts."""
+    fall. ``flags`` override :func:`train_config`'s. Returns the facts."""
     import math
 
     import torch
 
     from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(train_config(network, steps, seed=seed))
+    trainer = Trainer(train_config(network, steps, seed=seed, **flags))
     cfg = trainer.model.config
     L = cfg.num_layers
     per_step = {"flash_attention_fwd": L, "flash_attention_dq": L,
@@ -965,8 +1062,8 @@ def plain_flash_attention(reference):
 
 
 def grad_check(kernels, reference, seed, dtype="float32"):
-    """Gradients of BertBase (``dtype``: f32 reaches the CUDA-core flash
-    kernels, bf16 the tensor-core ones; B = 2, L = 512) on the kernels
+    """Gradients of BertBase (``dtype``: f32 reaches the 3xTF32 flash
+    kernels, bf16 the bf16 ones; B = 2, L = 512) on the kernels
     against the plain model at the same weights and batch, per parameter
     (``leaf_grad_errors``): for f32 the plain model differentiates
     ``reference.flash_attention`` by autograd, for bf16 it runs
@@ -1023,14 +1120,15 @@ def grad_check(kernels, reference, seed, dtype="float32"):
     return errs, where, floor, failures
 
 
-def train_step_ms(network, attn_impl, steps, seed):
+def train_step_ms(network, attn_impl, steps, seed, **flags):
     """Median step ms of a fresh Trainer over ``steps`` steps (the first,
     warming cuBLAS and the allocator, left out)."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(train_config(network, steps, attn_impl, seed=seed))
+    trainer = Trainer(train_config(network, steps, attn_impl, seed=seed,
+                                   **flags))
     try:
         history = trainer.train()
     finally:
@@ -1133,18 +1231,21 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
             lambda: reference.flash_attention_dkv(q, k, v, None, lse, delta,
                                                   do)[0], sdpa_bwd),
     }
-    # the f32 instantiation (the CUDA-core kernels of the tests and the
-    # f32 gradient check) on the same values
+    # the f32 kernels (3xTF32: the f32 training path) on the same values
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     out32, lse32 = kernels.flash_attention_fwd(q32, k32, v32)
     delta32 = reference.flash_attention_delta(out32, do32)
     f32_args = (q32, k32, v32, None, lse32, delta32, do32)
     f32_calls = {
-        "flash_attention_fwd":
+        "flash_attention_fwd": (
             lambda: kernels.flash_attention_fwd(q32, k32, v32)[0],
-        "flash_attention_dq": lambda: kernels.flash_attention_dq(*f32_args),
-        "flash_attention_dkv":
+            lambda: reference.flash_attention_fwd(q32, k32, v32)[0]),
+        "flash_attention_dq": (
+            lambda: kernels.flash_attention_dq(*f32_args),
+            lambda: reference.flash_attention_dq(*f32_args)),
+        "flash_attention_dkv": (
             lambda: kernels.flash_attention_dkv(*f32_args)[0],
+            lambda: reference.flash_attention_dkv(*f32_args)[0]),
     }
     costs32 = flash_costs(B, L, H, D, "float32")
     # the library on the same f32 operands: SDPA's forward, and its
@@ -1162,8 +1263,10 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
         bms, by = bound_ms(*costs[name])
         ms = time_ms(run, n)
         flops = sum(f for f, _ in costs[name][1])
-        f32_ms = time_ms(f32_calls[name], n)
+        f32_ms = time_ms(f32_calls[name][0], n)
         f32_bms, f32_by = bound_ms(*costs32[name])
+        # f32 work: each product once (the TF32 count is three times it)
+        f32_flops = sum(f for f, _ in costs32[name][1]) / 3
         entries.append({
             "name": name, "route": "cuda",
             "source": kernels.KERNELS[name]["source"],
@@ -1174,6 +1277,10 @@ def time_training_kernels(kernels, reference, F, gen, launches, errs):
             "sdpa_fwd_bwd_ms": sdpa_both, "library_vs_kernels": lib_diff,
             "gflop": flops / 1e9, "tflop_per_s": flops / (ms * 1e-3) / 1e12,
             "f32_ms": f32_ms, "f32_bound_ms": f32_bms, "f32_bound_by": f32_by,
+            "f32_cuda_core_bound_ms": cuda_core_bound_ms(costs32[name])[0],
+            "f32_plain_ms": time_ms(f32_calls[name][1], n),
+            "f32_gflop": f32_flops / 1e9,
+            "f32_tflop_per_s": f32_flops / (f32_ms * 1e-3) / 1e12,
             "f32_library_ms": sdpa32_fwd if name == "flash_attention_fwd"
             else sdpa32_bwd,
             "shape": shape,
@@ -2575,12 +2682,13 @@ def first_batches(stream, n=FIRST_BATCHES):
 # -- --step-times: this checkout's training steps, nothing checked ---------
 
 STEP_TIMES_STEPS = 40
-STEP_TIMES = ("BertBase", "ResNet18", "ResNet18-saves")
+STEP_TIMES = ("BertBase", "BertBase-f32", "ResNet18", "ResNet18-saves")
 
 
 def step_times(which, seed):
     """Step ms of the training paths of the checkout beside this script,
-    as phases 5 and 7 train them: BertBase and ResNet18 over
+    as phases 5 and 7 train them: BertBase (bf16, and f32 with
+    :data:`F32_FLAGS`) and ResNet18 over
     STEP_TIMES_STEPS steps (the median of steps 3 on); ResNet18-saves 20
     steps at --eval-freq 10 --keep-last 1, async (``save_windows``; its
     ``checkpoint_write`` events, the writer's pack and compress calls, the
@@ -2623,6 +2731,9 @@ def step_times(which, seed):
         with tempfile.TemporaryDirectory(prefix="chip_steps_") as d:
             if name == "BertBase":
                 cfg = train_config("BertBase", STEP_TIMES_STEPS, seed=seed)
+            elif name == "BertBase-f32":
+                cfg = train_config("BertBase", STEP_TIMES_STEPS, seed=seed,
+                                   **F32_FLAGS)
             elif name == "ResNet18":
                 cfg = resnet_config("int8", STEP_TIMES_STEPS, seed)
             else:
@@ -2766,6 +2877,10 @@ def main() -> int:
                     help="only time the LayerNorm forward at BertBase's and "
                          "GptMini's shapes and print the rows as one JSON "
                          "line (nothing checked)")
+    ap.add_argument("--flash-times", action="store_true",
+                    help="only time the flash kernels at BertBase's f32 and "
+                         "bf16 training shapes and print the rows as one "
+                         "JSON line (nothing checked)")
     ap.add_argument("--serve-bench", type=int, default=0, metavar="RUNS",
                     help="only run serve bench RUNS times on a random-init "
                          "ResNet-18 artifact and print the runs as one JSON "
@@ -2825,6 +2940,10 @@ def main() -> int:
         print(json.dumps(ln_times(kernels, reference, F, args.seed)),
               flush=True)
         return 0
+    if args.flash_times:
+        print(json.dumps(flash_times(kernels, reference, F, args.seed)),
+              flush=True)
+        return 0
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2842,11 +2961,13 @@ def main() -> int:
         f"{k} {u.get('registers')} registers, {u.get('stack')} B stack, "
         f"{u.get('spill_stores')}/{u.get('spill_loads')} B spill "
         "stores/loads" for k, u in sorted(usage.items())))
-    tc = {k: u for k, u in usage.items() if "_tc_kernel<" in k}
-    if len(tc) != 9 or any(u.get("spill_stores", 1) or u.get("spill_loads", 1)
-                           for u in tc.values()):
-        fail(f"the tensor-core flash kernels (3 x D in {{16, 32, 64}}) "
-             f"must build without spills: {tc}")
+    for tag, what in (("_tc_kernel<", "bf16"), ("_3xtf32_kernel<", "f32")):
+        tc = {k: u for k, u in usage.items() if tag in k}
+        if len(tc) != 9 or any(u.get("spill_stores", 1)
+                               or u.get("spill_loads", 1)
+                               for u in tc.values()):
+            fail(f"the {what} tensor-core flash kernels (3 x D in "
+                 f"{{16, 32, 64}}) must build without spills: {tc}")
     redesigned = {k: u for lib in ("layer_norm", "int8_quant",
                                    "decode_attention")
                   for k, u in ptxas_usage(lib).items()
@@ -3063,6 +3184,18 @@ def main() -> int:
     train_profile = profile_train(bert["trainer"]) if args.out else None
     del bert["trainer"]
     torch.cuda.empty_cache()
+    bert32 = train_path(kernels, "BertBase", args.seed, F32_TRAIN_STEPS,
+                        must_learn=False, **F32_FLAGS)
+    train32_profile = profile_train(bert32["trainer"]) if args.out else None
+    del bert32["trainer"]
+    torch.cuda.empty_cache()
+    log(f"phase 5 train BertBase f32 (B=16, L=512, --dtype float32 "
+        f"--attn-impl pallas --optimizer adam: the 3xTF32 flash kernels): "
+        f"losses {[round(x, 4) for x in bert32['losses']]}; "
+        f"launches per run of {F32_TRAIN_STEPS} steps {bert32['launches']} "
+        f"(= {F32_TRAIN_STEPS} x {bert32['per_step']}); eval launches "
+        f"{bert32['eval_launches']}; step {bert32['step_ms']:.3f} ms, "
+        f"{bert32['tokens_per_s']:.1f} tokens/s")
     grad_checks = {}
     for dtype in ("float32", "bfloat16"):
         grad_errs, grad_where, floor, failures = grad_check(
@@ -3128,10 +3261,11 @@ def main() -> int:
     del resnet["trainer"]
     torch.cuda.empty_cache()
     path_launches = {name: serve_launches[name] + sum(
-        run[key][name] for run in (bert, gpt, resnet)
+        run[key][name] for run in (bert, bert32, gpt, resnet)
         for key in ("launches", "eval_launches")) for name in kernels.KERNELS}
     report["training"] = {
         "bert": {k: v for k, v in bert.items()},
+        "bert_f32": {**bert32, "profile": train32_profile},
         "gpt": {k: v for k, v in gpt.items() if k != "trainer"},
         "grad_check": grad_checks,
         "profile": train_profile,
@@ -3198,6 +3332,12 @@ def main() -> int:
     entries[1].update(train_ln)
     entries += train_entries
     full_ms = train_step_ms("BertBase", "full", 6, args.seed)
+    full32_ms = train_step_ms("BertBase", "full", 6, args.seed, **F32_FLAGS)
+    from pytorch_distributed_nn_tpu_torch.tools import mma_tf32
+
+    mma_rate = mma_tf32.mma_tf32_rate()
+    mma_sums = mma_tf32.mma_tf32_sums(seed=args.seed)
+    report["mma_tf32"] = {"rate": mma_rate, "sums": mma_sums}
     int8_entries, int8_sweep = time_int8_kernels(
         kernels, reference, gen, leaf_sizes, path_launches, errs)
     entries += int8_entries
@@ -3219,8 +3359,16 @@ def main() -> int:
             extra += (f"; {e['gflop']:.3f} GFLOP counted, achieved "
                       f"{e['tflop_per_s']:.1f} TFLOP/s")
         if "f32_ms" in e:
-            extra += (f"; f32 (CUDA cores) {e['f32_ms']:.6f} ms, bound "
-                      f"{e['f32_bound_ms']:.6f} ms ({e['f32_bound_by']}), "
+            extra += (f"; f32 (3xTF32) {e['f32_ms']:.6f} ms, "
+                      f"{e['f32_gflop']:.3f} f32 GFLOP, achieved "
+                      f"{e['f32_tflop_per_s']:.1f} f32 TFLOP/s "
+                      f"({3 * e['f32_tflop_per_s']:.1f} TF32), bound "
+                      f"{e['f32_bound_ms']:.6f} ms ({e['f32_bound_by']}: "
+                      f"three TF32 products at "
+                      f"{PEAK_FLOPS['tf32'] / 1e12:.1f} TFLOP/s; counted "
+                      f"once at the CUDA cores' f32 rate "
+                      f"{e['f32_cuda_core_bound_ms']:.6f} ms), plain "
+                      f"{e['f32_plain_ms']:.6f} ms, "
                       f"library (SDPA f32, "
                       + ("forward" if e["name"] == "flash_attention_fwd"
                          else "autograd backward: dq, dk, dv in one call")
@@ -3259,6 +3407,23 @@ def main() -> int:
         f"tokens/s")
     log(f"phase 6 training BertBase B=16 L=512 bf16: attn full "
         f"{full_ms:.3f} ms/step, {tokens / full_ms * 1e3:.1f} tokens/s")
+    log(f"phase 6 training BertBase B=16 L=512 f32 ({smi}): attn pallas "
+        f"{bert32['step_ms']:.3f} ms/step, {bert32['tokens_per_s']:.1f} "
+        f"tokens/s")
+    log(f"phase 6 training BertBase B=16 L=512 f32 ({smi}): attn full "
+        f"{full32_ms:.3f} ms/step, {tokens / full32_ms * 1e3:.1f} tokens/s")
+    log(f"phase 6 mma.sync m16n8k8 TF32, the f32 flash kernels' ceiling "
+        f"({smi}; tools/mma_tf32.py): " + "; ".join(
+            f"{r['chains']} accumulators a warp, {r['blocks_per_sm']} "
+            f"blocks of {r['threads']} threads an SM: "
+            f"{r['tflop_per_s']:.1f} TFLOP/s, {r['ns_per_mma_a_warp']:.3f} "
+            f"ns a product a warp" for r in mma_rate))
+    log(f"phase 6 sums of 16 x K by K x 8 products against f64 ({smi}; "
+        f"tools/mma_tf32.py): " + "; ".join(
+            f"K={r['K']} {r['sum']}: median |err|/|c| "
+            f"{r['median_rel_err']:.3e}, max |err|/sum|a||b| "
+            f"{r['max_err_over_size']:.3e}, mean err/sum|a||b| "
+            f"{r['mean_err_over_size']:+.3e}" for r in mma_sums))
     for row in int8_sweep:
         log(f"phase 6 quantize_int8_scaled grouped launch of the "
             f"{row['leaves']} leaves of n={row['n']} of a ResNet-18 step: "
@@ -3270,7 +3435,8 @@ def main() -> int:
         f"{resnet['step_ms'] - resnet_none_ms:.3f} ms/step")
     for what, prof in (("ResNet18 int8", resnet_profile),
                        ("ResNet18 no compression", resnet_none_profile),
-                       ("training", train_profile)):
+                       ("training", train_profile),
+                       ("training f32", train32_profile)):
         if not prof:
             continue
         log(f"phase 6 {what} profile (5 steps): wall "
@@ -3282,6 +3448,8 @@ def main() -> int:
                 f"{r['device_ms'] / r['count'] * 1e3:.3f} us each")
     report["phases"].update({
         "train_step_ms": bert["step_ms"], "train_full_step_ms": full_ms,
+        "train_f32_step_ms": bert32["step_ms"],
+        "train_f32_full_step_ms": full32_ms,
         "resnet_int8_step_ms": resnet["step_ms"],
         "resnet_none_step_ms": resnet_none_ms,
         "path_launches": path_launches,

@@ -22,8 +22,10 @@ dequantize_int8       csrc/int8_quant.cu        ``_dequant_kernel``
 :func:`flash_attention` and :func:`layer_norm` are differentiable
 (``torch.autograd.Function``): their forward and backward launch the
 kernels on CUDA tensors. The three flash kernels run on the tensor cores
-for bf16 operands (``*_tc_kernel``, ``mma.sync``) and on the CUDA cores
-for f32; one count each either way. ``layer_norm`` outside autograd (serving, eval)
+for both dtypes (``mma.sync``): bf16 operands as they are
+(``*_tc_kernel``), f32 ones each split into two TF32 terms and multiplied
+as three TF32 products, to f32 accuracy (``*_3xtf32_kernel``); one count
+each either way. ``layer_norm`` outside autograd (serving, eval)
 launches the forward alone, without the mu/rs the backward needs.
 
 Dispatch is by the tensors' device: CPU tensors go to the plain version
@@ -504,20 +506,15 @@ def _strides(*tensors):
     return out
 
 
-def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
 def _flash_operand(t: torch.Tensor) -> torch.Tensor:
-    """An operand as the flash kernels read it: D contiguous and, for the
-    bf16 tensor-core kernels, whose 16-byte ``cp.async`` copies read
-    whole rows, every row starting on a 16-byte boundary (data pointer
-    and batch / sequence / head strides). Anything else is copied into a
-    fresh contiguous tensor."""
-    if t.dtype != torch.bfloat16:
-        return _inner_contiguous(t)
+    """An operand as the flash kernels read it: their 16-byte ``cp.async``
+    copies read whole rows, so D contiguous and every row starting on a
+    16-byte boundary (data pointer, and batch / sequence / head strides
+    multiples of the 8 bf16 or 4 f32 elements of 16 bytes). Anything else
+    is copied into a fresh contiguous tensor."""
+    elems = 16 // t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-            and all(s % 8 == 0 for s in t.stride()[:-1]):
+            and all(s % elems == 0 for s in t.stride()[:-1]):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -525,9 +522,9 @@ def _flash_operand(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
                         causal: bool = False):
-    """(out (B, L, H, D), lse (B, H, L) f32) of the forward kernel: the
-    tensor-core kernel for bf16, the CUDA-core one for f32. q, k and v are
-    read in place through their strides (see :func:`_flash_operand`)."""
+    """(out (B, L, H, D), lse (B, H, L) f32) of the forward kernel (bf16,
+    or f32 as three TF32 products). q, k and v are read in place through
+    their strides (see :func:`_flash_operand`)."""
     if _on_cpu(q, k, v, mask):
         return reference.flash_attention_fwd(q, k, v, mask, causal)
     q, k, v = map(_flash_operand, (q, k, v))

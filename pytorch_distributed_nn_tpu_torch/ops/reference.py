@@ -53,11 +53,39 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _scores(q, k, mask, causal) -> torch.Tensor:
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to 10
+    explicit mantissa bits, to nearest with ties away from zero (half a
+    TF32 unit, 0x1000, added to the bits, then their low 13 bits cleared),
+    in int32 bit operations. For finite x."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as the f32 tensor-core kernels carry it into a product:
+    hi + lo with hi = tf32(x) and lo = tf32(x - hi), summed exactly in f32
+    (22 significant bits at most). Relative error <= 2^-22."""
+    hi = tf32(x)
+    return hi + tf32(x.float() - hi)
+
+
+def einsum_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of f32 operands as the f32 flash kernels
+    take it: each operand split into hi = tf32(x) and lo = tf32(x - hi),
+    and three products lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), each
+    exact in f32 terms, summed in f32."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    a_lo, b_lo = tf32(a.float() - a_hi), tf32(b.float() - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _scores(q, k, mask, causal, einsum=torch.einsum) -> torch.Tensor:
     """(B, H, Lq, Lk) f32 scores of the flash kernels: ``(q . k) * D^-1/2``
     plus the additive pad bias, then -1e30 above the causal diagonal."""
     D = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     s = s * (1.0 / math.sqrt(D))
     if mask is not None:
         bias = torch.where(mask.to(torch.bool), 0.0, NEG_INF)
@@ -71,7 +99,7 @@ def _scores(q, k, mask, causal) -> torch.Tensor:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        causal: bool = False
+                        causal: bool = False, einsum=torch.einsum
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention as ``_flash_forward`` computes it: q/k/v
     (B, L, H, D) -> (out (B, L, H, D) in q's dtype, lse (B, H, L) f32).
@@ -79,12 +107,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = max(-1e30, row max), p = exp(s - m), l = max(sum p, 1e-30);
     p is rounded to v's dtype before P @ V (f32 accumulation), and
     lse = m + log(l). Differentiable by autograd, so it also serves as
-    the plain attention of a ``use_kernels=False`` model."""
-    s = _scores(q, k, mask, causal)
+    the plain attention of a ``use_kernels=False`` model. ``einsum``
+    takes every product (here and in the backward below):
+    :func:`einsum_3xtf32` gives the f32 kernels' three TF32 products."""
+    s = _scores(q, k, mask, causal, einsum)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    acc = einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = acc / l.permute(0, 2, 1, 3)
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
@@ -100,20 +130,22 @@ def flash_attention_delta(out: torch.Tensor, dout: torch.Tensor):
     return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
 
 
-def _probs_and_ds(q, k, v, mask, lse, delta, dout, causal):
+def _probs_and_ds(q, k, v, mask, lse, delta, dout, causal,
+                  einsum=torch.einsum):
     D = q.shape[-1]
-    p = torch.exp(_scores(q, k, mask, causal) - lse[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    p = torch.exp(_scores(q, k, mask, causal, einsum) - lse[..., None])
+    dp = einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(D))
     return p, ds
 
 
 def flash_attention_dq(q, k, v, mask, lse, delta, dout,
-                       causal: bool = False) -> torch.Tensor:
+                       causal: bool = False, einsum=torch.einsum
+                       ) -> torch.Tensor:
     """dq of ``_flash_dq_kernel``: p = exp(s - lse), dp = dO . V in f32,
     ds = p (dp - delta) / sqrt(D), rounded to k's dtype before ds @ K."""
-    _, ds = _probs_and_ds(q, k, v, mask, lse, delta, dout, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    _, ds = _probs_and_ds(q, k, v, mask, lse, delta, dout, causal, einsum)
+    dq = einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
     return dq.to(q.dtype)
 
 
@@ -125,25 +157,28 @@ def split_bf16(x: torch.Tensor) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
-def flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal: bool = False
+def flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal: bool = False,
+                        einsum=torch.einsum
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of ``_flash_dkv_kernel``: dv = p^T @ dO and dk = ds^T @ Q,
     with p, ds, Q and dO all in f32. For bf16 operands p and ds enter the
     products as the dk/dv kernel splits them (:func:`split_bf16`): the
     tensor cores multiply bf16 only, and dO and Q are exact in bf16."""
-    p, ds = _probs_and_ds(q, k, v, mask, lse, delta, dout, causal)
+    p, ds = _probs_and_ds(q, k, v, mask, lse, delta, dout, causal, einsum)
     if q.dtype == torch.bfloat16:
         p, ds = split_bf16(p), split_bf16(ds)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = einsum("bhqk,bqhd->bkhd", p, dout.float())
+    dk = einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q, k, v, mask, out, lse, dout, causal: bool = False):
+def flash_attention_bwd(q, k, v, mask, out, lse, dout, causal: bool = False,
+                        einsum=torch.einsum):
     """(dq, dk, dv) of ``_flash_backward`` from the forward's out and lse."""
     delta = flash_attention_delta(out, dout)
-    dq = flash_attention_dq(q, k, v, mask, lse, delta, dout, causal)
-    dk, dv = flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal)
+    dq = flash_attention_dq(q, k, v, mask, lse, delta, dout, causal, einsum)
+    dk, dv = flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal,
+                                 einsum)
     return dq, dk, dv
 
 

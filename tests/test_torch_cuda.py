@@ -234,23 +234,25 @@ def _flash_inputs(B, L, H, Dh, device, dtype, seed, pad,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("L,Dh,pad,dout_layout", [
-    (64, 64, 0, "contiguous"), (100, 32, 7, "contiguous"),
-    (128, 16, 0, "contiguous"), (77, 64, 5, "contiguous"),
-    (512, 64, 0, "contiguous"), (200, 16, 9, "heads_major"),
-    (512, 64, 0, "heads_major")])
+@pytest.mark.parametrize("L,Dh,pad,dout_layout,nh", [
+    (64, 64, 0, "contiguous", 3), (100, 32, 7, "contiguous", 3),
+    (128, 16, 0, "contiguous", 3), (77, 64, 5, "contiguous", 3),
+    (512, 64, 0, "contiguous", 3), (200, 16, 9, "heads_major", 3),
+    (512, 64, 0, "heads_major", 3), (512, 64, 37, "contiguous", 12),
+    (200, 64, 0, "contiguous", 12)])
 def test_cuda_flash_attention_matches_plain(card, dtype, causal, L, Dh, pad,
-                                            dout_layout):
+                                            dout_layout, nh):
     """Forward (out, lse), dq and dk/dv kernels against their plain
-    versions, ragged L, pad masks, BertBase's L 512 / D 64 and a dO that
-    is not contiguous included; a second launch gives the same bits."""
-    q, k, v, do, mask = _flash_inputs(2, L, 3, Dh, card, dtype, L + Dh, pad,
+    versions, ragged L, pad masks, BertBase's L 512 / 12 heads of 64 (with
+    a pad mask too) and a dO that is not contiguous included; a second
+    launch gives the same bits."""
+    q, k, v, do, mask = _flash_inputs(2, L, nh, Dh, card, dtype, L + Dh, pad,
                                       dout_layout)
     atol, rtol = FLASH_TOL[dtype]
     before = kernels.launch_counts()
     out, lse = kernels.flash_attention_fwd(q, k, v, mask, causal)
     want_out, want_lse = reference.flash_attention_fwd(q, k, v, mask, causal)
-    assert out.dtype == dtype and lse.shape == (2, 3, L)
+    assert out.dtype == dtype and lse.shape == (2, nh, L)
     assert _excess(out, want_out, atol, rtol) <= 0
     assert _excess(lse, want_lse, 1e-4, 1e-5) <= 0
     delta = reference.flash_attention_delta(want_out, do)
@@ -270,12 +272,12 @@ def test_cuda_flash_attention_matches_plain(card, dtype, causal, L, Dh, pad,
     for name in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv"):
         assert after[name] == before[name] + 1
-    again = (kernels.flash_attention_fwd(q, k, v, mask, causal)[0],
+    again = (*kernels.flash_attention_fwd(q, k, v, mask, causal),
              kernels.flash_attention_dq(q, k, v, mask, want_lse, delta, do,
                                         causal),
              *kernels.flash_attention_dkv(q, k, v, mask, want_lse, delta, do,
                                           causal))
-    for a, b in zip((out, dq, dk, dv), again):
+    for a, b in zip((out, lse, dq, dk, dv), again):
         assert torch.equal(a, b)
 
 
@@ -293,20 +295,21 @@ def test_cuda_flash_attention_autograd_matches_plain(card):
         assert _excess(got, want, 1e-4, 1e-4) <= 0
 
 
-@pytest.mark.cuda
-def test_cuda_flash_attention_copies_misaligned_bf16_operands(card):
-    """The bf16 kernels copy 16-byte rows with cp.async: a view whose data
-    starts off a 16-byte boundary, or whose head stride is not a multiple
-    of 8 elements, is copied by the wrapper (the same bits as the aligned
-    operand give), and the C entry point refuses it outright."""
-    q, k, v, do, _ = _flash_inputs(2, 64, 2, 32, card, torch.bfloat16, 5, 0)
+def _misaligned_operands_give_the_aligned_bits(card, dtype):
+    """A view of q whose data starts one element off a 16-byte boundary,
+    and a dO whose head stride is not a multiple of the elements of 16
+    bytes, are copied by the wrappers (the same bits as the aligned
+    operands give); the C entry point refuses them outright."""
+    elems = 16 // torch.empty((), dtype=dtype).element_size()
+    q, k, v, do, _ = _flash_inputs(2, 64, 2, 32, card, dtype, 5, 0)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
     q_off = shifted[1:].view(q.shape)
     q_off.copy_(q)
-    wide = torch.zeros((2, 64, 2, 36), dtype=q.dtype, device=card)
+    wide = torch.zeros((2, 64, 2, 32 + elems // 2), dtype=q.dtype,
+                       device=card)
     do_odd = wide[..., :32]
     do_odd.copy_(do)
-    assert q_off.data_ptr() % 16 != 0 and do_odd.stride(2) % 8 != 0
+    assert q_off.data_ptr() % 16 != 0 and do_odd.stride(2) % elems != 0
     assert kernels._flash_operand(q) is q
     assert kernels._flash_operand(q_off).data_ptr() % 16 == 0
     assert kernels._flash_operand(do_odd).is_contiguous()
@@ -323,12 +326,25 @@ def test_cuda_flash_attention_copies_misaligned_bf16_operands(card):
     lib = kernels._lib("flash_attention")
     B, L, H, Dh = q.shape
     rc = lib.pdtn_flash_fwd(
-        1, Dh, 0, q_off.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-        out.data_ptr(), lse.data_ptr(), B, H, L,
-        *kernels._strides(q_off, k, v), 1.0 / Dh ** 0.5,
-        kernels._stream(q))
+        kernels._DTYPE_CODES[dtype], Dh, 0, q_off.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None, out.data_ptr(), lse.data_ptr(), B, H, L,
+        *kernels._strides(q_off, k, v), 1.0 / Dh ** 0.5, kernels._stream(q))
     assert rc != 0 and "misaligned" in \
         lib.pdtn_cuda_error_string(rc).decode().lower()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_copies_misaligned_bf16_operands(card):
+    """The bf16 kernels copy 16-byte rows with cp.async: misaligned
+    operands are copied by the wrapper and refused by the C entry."""
+    _misaligned_operands_give_the_aligned_bits(card, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_copies_misaligned_f32_operands(card):
+    """The f32 kernels stream 16-byte rows with cp.async too: the same
+    holds for f32 operands (a head stride off a multiple of 4 elements)."""
+    _misaligned_operands_give_the_aligned_bits(card, torch.float32)
 
 
 @pytest.mark.cuda

@@ -207,21 +207,104 @@ def test_flash_bfloat16_split_keeps_p_and_ds_to_16_bits():
 
 
 def test_flash_operands_are_copied_unless_rows_are_16_byte_aligned():
-    """What the flash wrappers hand the kernels (``_flash_operand``): a
-    bf16 operand whose rows all start on a 16-byte boundary goes in place,
-    a view off that boundary or with a head stride that is not a multiple
-    of 8 elements is copied to a fresh contiguous tensor; f32 (the
-    CUDA-core kernels) needs only D contiguous."""
-    x = torch.zeros((2, 8, 3, 32), dtype=torch.bfloat16)
-    assert kernels._flash_operand(x) is x
-    heads_major = x.transpose(1, 2).contiguous().transpose(1, 2)
-    assert kernels._flash_operand(heads_major) is heads_major
-    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
-    off = buf[1:].view(x.shape)
-    odd = torch.zeros((2, 8, 3, 36), dtype=torch.bfloat16)[..., :32]
-    for t in (off, odd):
-        c = kernels._flash_operand(t)
-        assert c.data_ptr() != t.data_ptr() and c.is_contiguous()
-        assert c.data_ptr() % 16 == 0 and torch.equal(c, t)
-    f32 = torch.zeros(x.numel() + 1)[1:].view(x.shape)
-    assert kernels._flash_operand(f32) is f32
+    """What the flash wrappers hand the kernels (``_flash_operand``): an
+    operand whose rows all start on a 16-byte boundary goes in place, a
+    view off that boundary or with a head stride that is not a multiple of
+    the elements of 16 bytes (8 bf16, 4 f32) is copied to a fresh
+    contiguous tensor. Both dtypes: the f32 kernels stream their tiles
+    with 16-byte ``cp.async`` copies too."""
+    for dtype, elems in ((torch.bfloat16, 8), (torch.float32, 4)):
+        x = torch.zeros((2, 8, 3, 32), dtype=dtype)
+        assert kernels._flash_operand(x) is x
+        heads_major = x.transpose(1, 2).contiguous().transpose(1, 2)
+        assert kernels._flash_operand(heads_major) is heads_major
+        buf = torch.zeros(x.numel() + 1, dtype=dtype)
+        off = buf[1:].view(x.shape)
+        odd = torch.zeros((2, 8, 3, 32 + elems // 2), dtype=dtype)[..., :32]
+        for t in (off, odd):
+            c = kernels._flash_operand(t)
+            assert c.data_ptr() != t.data_ptr() and c.is_contiguous()
+            assert c.data_ptr() % 16 == 0 and torch.equal(c, t)
+
+
+def test_flash_tf32_split_rounds_as_cvt_rna():
+    """``reference.tf32`` rounds as ``cvt.rna.tf32.f32``: 10 explicit
+    mantissa bits (the low 13 of the f32 bits zero), to nearest, ties away
+    from zero; and the hi + lo split keeps x to 2^-22."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(
+        (rng.randn(4096) * 10.0 ** rng.uniform(-20, 20, 4096))
+        .astype(np.float32))
+    hi = reference.tf32(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert ((hi - x).abs() <= 2.0 ** -11 * x.abs()).all()
+    split = reference.split_tf32(x)
+    assert ((split - x).abs() <= 2.0 ** -22 * x.abs()).all()
+    # a tie (half a TF32 unit above 1) goes away from zero on both signs;
+    # just below it, to the nearer value
+    ties = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11),
+                         1 + 2.0 ** -11 - 2.0 ** -23, 3.0])
+    assert reference.tf32(ties).tolist() == [1 + 2.0 ** -10,
+                                             -(1 + 2.0 ** -10), 1.0, 3.0]
+
+
+def test_flash_tf32_three_products_keep_f32_accuracy():
+    """Three TF32 products of the split operands (``einsum_3xtf32``, the
+    f32 kernels' products) against the f64 product, on p^T dO and ds^T Q
+    of the dk/dv kernel and Q K^T of the forward: within 2^-20 of
+    sum |x| |y| (each term taken in f64, so only the split's error shows).
+    One TF32 rounding of each element (TF32 mode) would be off by more
+    than 2^-13 of an element for some."""
+    L, D = 64, 32
+    q, k, v, do, _ = _inputs(L, D, seed=9, pad=0)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = reference.flash_attention_fwd(tq, tk, tv, None, True)
+    delta = reference.flash_attention_delta(out, tdo)
+    p, ds = reference._probs_and_ds(tq, tk, tv, None, lse, delta, tdo, True)
+
+    def three(eq, a, b):
+        a, b = a.double(), b.double()
+        a_hi, b_hi = reference.tf32(a).double(), reference.tf32(b).double()
+        a_lo = reference.tf32(a - a_hi).double()
+        b_lo = reference.tf32(b - b_hi).double()
+        return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+                + torch.einsum(eq, a_hi, b_hi))
+
+    for eq, x, y in (("bhqk,bqhd->bkhd", p, tdo), ("bhqk,bqhd->bkhd", ds, tq),
+                     ("bqhd,bkhd->bhqk", tq, tk)):
+        nz = x != 0
+        one = ((reference.tf32(x) - x).abs()[nz] / x.abs()[nz]).max().item()
+        assert 2.0 ** -13 < one <= 2.0 ** -11
+        exact = torch.einsum(eq, x.double(), y.double())
+        size = torch.einsum(eq, x.double().abs(), y.double().abs())
+        assert ((three(eq, x, y) - exact).abs() <= 2.0 ** -20 * size).all()
+
+
+@pytest.mark.parametrize("causal,pad", [(False, 0), (True, 0), (False, 7)])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_flash_three_tf32_products_match_pallas(causal, pad, D):
+    """The plain forward, dq and dk/dv with every product taken as the f32
+    kernels take it (three TF32 products of split operands,
+    ``reference.einsum_3xtf32``) against ``_flash_forward`` and
+    ``_flash_backward`` in interpret mode (f32 ``jnp.dot``), the backward
+    on the same (out, lse, dO): at 1e-5, the tolerance of the f32
+    products themselves."""
+    L = 64
+    q, k, v, do, mask = _inputs(L, D, seed=31 + D + pad, pad=pad)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_out, want_lse = _flash_forward(jq, jk, jv, _jmask(mask), causal, L,
+                                        L)
+    want = _flash_backward(jq, jk, jv, _jmask(mask), want_out, want_lse,
+                           jnp.asarray(do), causal, L, L)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = reference.flash_attention_fwd(
+        tq, tk, tv, _tmask(mask), causal, einsum=reference.einsum_3xtf32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(want_lse).reshape(B, H, L), atol=1e-5)
+    got = reference.flash_attention_bwd(
+        tq, tk, tv, _tmask(mask), torch.from_numpy(np.array(want_out)),
+        torch.from_numpy(np.array(want_lse).reshape(B, H, L)), tdo, causal,
+        einsum=reference.einsum_3xtf32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)

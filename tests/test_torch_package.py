@@ -158,8 +158,8 @@ def test_ptxas_report_is_read_per_kernel():
 
     fwd = ("_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi64EEEvPK13__nv_bfloat16"
            "S3_S3_PKfPS1_PfiiNS_7StridesES8_S8_if")
-    dkv = ("_ZN12_GLOBAL__N_116flash_dkv_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS6_"
-           "S6_PS1_S7_iiNS_7StridesES8_S8_S8_if")
+    dkv = ("_ZN12_GLOBAL__N_123flash_dkv_3xtf32_kernelILi64ELi16ELi2ELi2EEEvPKf"
+           "S2_S2_S2_S2_S2_S2_PfS3_iiNS_7StridesES4_S4_S4_if")
     text = "\n".join([
         "ptxas info    : 0 bytes gmem",
         f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
@@ -175,8 +175,9 @@ def test_ptxas_report_is_read_per_kernel():
     assert parse_ptxas(text) == {
         "flash_fwd_tc_kernel<64>": {"registers": 160, "stack": 0,
                                     "spill_stores": 0, "spill_loads": 0},
-        "flash_dkv_kernel<float,32>": {"registers": 128, "stack": 8,
-                                       "spill_stores": 8, "spill_loads": 4},
+        "flash_dkv_3xtf32_kernel<64,16,2,2>": {
+            "registers": 128, "stack": 8, "spill_stores": 8,
+            "spill_loads": 4},
     }
 
 
@@ -229,7 +230,9 @@ def test_chip_smoke_profile_knows_every_kernel_of_the_sources():
     for want in ("decode_attn_kernel", "ln_fwd_kernel", "ln_fwd_vec_kernel",
                  "ln_bwd_kernel", "ln_bwd_vec_kernel", "ln_bwd_sum_kernel",
                  "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
-                 "flash_dkv_tc_kernel", "quant_group_kernel",
+                 "flash_dkv_tc_kernel", "flash_fwd_3xtf32_kernel",
+                 "flash_dq_3xtf32_kernel", "flash_dkv_3xtf32_kernel",
+                 "quant_group_kernel",
                  "dequant_kernel"):
         assert want in names
     from pytorch_distributed_nn_tpu_torch.ops import kernels
