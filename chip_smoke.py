@@ -3,7 +3,8 @@
 of GptMini, MLM training of BertBase (and GptMini), data-parallel
 ResNet-18/CIFAR-10 training with the int8 gradient collective, the
 checkpoints, resume, polling evaluator and SIGTERM path of the last two,
-and single-pass serving (``POST /v1/infer``) of their checkpoints.
+single-pass serving (``POST /v1/infer``) of their checkpoints, and the
+training path's faults, flight recorder, profiler and elastic resume.
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
@@ -180,15 +181,52 @@ Phases, each printed on its own line:
    a profile of each; the LayerNorm forward kernel against its plain
    version at (1, 768) and (4096, 768) bf16 -> f32, timed beside its bound,
    its general kernel and ``F.layer_norm``, eager calls too;
-9. one JSON line listing the kernels (launches on the driven paths of
-   phases 4, 5 and 8, error against the plain version, times, least
-   possible time), then the result line ``{"ok": true, "device": {...}}``.
+9. faults and the flight recorder, each reading beside the card's name
+   and power limit: ResNet-18 as in phase 5 (host layout, cuDNN's
+   deterministic algorithms) under ``FAULT_SPEC`` with
+   ``--skip-nonfinite --supervise --flightrec default --heartbeat-grace
+   30 --eval-freq 2`` until its crash: each entry's ``fault_injected``
+   once at its step, ``nonfinite_skip`` at step 3 with the state after it
+   bit for bit the state after step 2, one ``retry`` of step 4's publish,
+   step 6's file convicted by its manifest, one quantize launch a step;
+   one ``14-step_regression`` bundle whose ``torch.profiler`` trace
+   holds one ``quant_group_kernel`` a captured step, and a ``report.md``;
+   ``--resume`` quarantines the torn emergency checkpoint (step 19),
+   restores step 18 and runs to 26, its losses within
+   ``FAULT_RESUME_TOL`` of an uninterrupted run of the same faults but
+   the crash (its image loader restarted where the resume restarts it),
+   steps 1-18 too; step ms inside the capture window beside before it;
+10. the profiler: BertBase f32 (``--attn-impl pallas``) and bf16
+   (``--fused-ln``) with ``--profile 2``: every flash and LayerNorm
+   kernel in the trace's summary 2 x its per-step launches, the
+   wrappers' counters exact, ``device_step_time_ms`` within
+   ``PROFILE_AGREE`` of ``device_rows`` of the same profile; profiled
+   step ms beside unprofiled and phase 5's; bf16 with ``--flightrec
+   default`` armed and idle;
+11. ``serve run --faults SERVE_FAULTS`` on phase 8's ResNet-18 artifact,
+   one client in turn: request 12 reset with no response, 15-17 answered
+   503, every other 200, the first 8 with ``infer_ms`` >= 200 and the
+   rest below, one ``fault_injected`` an entry;
+12. TF32: ``train`` (2 steps and its eval) and the ``evaluator`` of
+   ResNet-20 at the CLI's default ``--dtype float32``, subprocesses on
+   the card with TF32 at PyTorch's defaults, against ``--device cpu``:
+   losses and metrics within ``TF32_RTOL``;
+13. elastic resume: 2 gloo ranks on the CPU (``torch.distributed.run``)
+   checkpoint ResNet-20 at step 2; ``--resume`` on the card at world size
+   1 emits ``elastic_resume`` (dp 2 -> 1, the global batch kept) and
+   continues with finite losses; ``--strict-geometry`` raises naming both
+   geometries;
+14. one JSON line listing the kernels (launches on the driven paths of
+   phases 4, 5, 8, 9 and 10, error against the plain version, times,
+   least possible time), then the result line ``{"ok": true, "device":
+   {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
 f32), the resumed steps of
-phase 7, BertBase's served batches in phase 8) and read just after; the
-evaluator subprocess counts its own.
+phase 7, BertBase's served batches in phase 8, each training run of
+phases 9 and 10) and read just after; the evaluator subprocess counts
+its own.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -731,11 +769,15 @@ def device_rows(prof):
     """A profile's device-side rows (kernels and copies), the largest
     first: the host ops that launched them would count the same time
     again, and user annotations (the optimizer's ``Optimizer.step#...``
-    range) span device time other rows count."""
+    range) span device time other rows count. An annotation's key has a
+    ``#`` and no parameter list; a kernel's may have a ``#`` inside its
+    own (PyTorch's elementwise kernels name their lambdas
+    ``{lambda()#3}``), and counts."""
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA") \
-                or getattr(e, "is_user_annotation", False) or "#" in e.key:
+                or getattr(e, "is_user_annotation", False) \
+                or ("#" in e.key and "(" not in e.key):
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
@@ -2679,6 +2721,495 @@ def first_batches(stream, n=FIRST_BATCHES):
     return out
 
 
+# -- phases 9-13: faults, the flight recorder, the profiler, TF32, elastic --
+
+#: phase 9's fault plan for ResNet-18 (1-indexed steps, checkpoints at
+#: every even step): a NaN batch, a failed first publish, a torn periodic
+#: checkpoint, a 1 s host delay, a torn emergency checkpoint and the crash
+#: that writes it. The resume's newest-first scan meets step 19's torn
+#: file (the emergency checkpoint of the crash), quarantines it and
+#: restores step 18; step 6's stays convicted by its manifest but unread
+FAULT_SPEC = ("nan_grad@3,flaky_io@4,torn_ckpt@6,delay@14:1.0s,"
+              "torn_ckpt@19,crash@20")
+#: the fault plan's entries as (step, fault), and the resumed run's end
+FAULT_FIRED = [(3, "nan_grad"), (4, "flaky_io"), (6, "torn_ckpt"),
+               (14, "delay"), (19, "torn_ckpt"), (20, "crash")]
+FAULT_STEPS = 26
+#: the resumed run's losses (steps 19-26) against an uninterrupted run
+#: whose data stream restarts where the resume restarts it (the image
+#: loaders begin their epoch again on resume, as the JAX package's do),
+#: absolute: the same state, batches and sync seeds on a card with
+#: cuDNN's deterministic algorithms, so anything past reduction-order
+#: noise is a resume fault (phase 7's BERT_RESUME_TOL)
+FAULT_RESUME_TOL = 1e-5
+#: BertBase steps of the --profile runs: step 1, the window (2 and 3), 4
+PROFILE_STEPS = 4
+PROFILE_WINDOW = 2
+#: device ms per step from the exported trace (utils/profiling.py) against
+#: the same profile's key_averages (device_rows): relative
+PROFILE_AGREE = 0.02
+#: BertBase bf16 steps with the flags off, then with the flight recorder
+#: armed and idle
+ARMED_STEPS = 8
+#: phase 11's serve run fault plan and its sequential requests
+SERVE_FAULTS = "slow_infer@1:0.2s:x8,conn_reset@12,http_503@15:x3"
+SERVE_FAULT_REQUESTS = 20
+#: phases 12 and 13: ResNet-20 f32 on a synthetic CIFAR-10 of 256 images,
+#: the host layout (the same numpy draws on the card and the CPU)
+SMALL_IMAGE_FLAGS = ("--network", "ResNet20", "--dataset", "Cifar10",
+                     "--synthetic-size", "256", "--batch-size", "64",
+                     "--test-batch-size", "128", "--data-layout", "host")
+#: the f32 image path on the card against --device cpu, with TF32 at
+#: PyTorch's defaults in the card's process: relative
+TF32_RTOL = 1e-4
+
+
+def step_records(stream):
+    return {r["step"]: r for r in stream if r.get("kind") == "step"}
+
+
+def fault_phase(kernels, seed, root):
+    """Phase 9: ResNet-18 (phase 5's configuration, host layout) under
+    FAULT_SPEC with --skip-nonfinite --supervise --flightrec default
+    --heartbeat-grace 30 --eval-freq 2 until its crash; --resume to step
+    26; an uninterrupted run of the same faults but the crash."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.data.datasets import load_dataset
+    from pytorch_distributed_nn_tpu_torch.data.loader import DataLoader
+    from pytorch_distributed_nn_tpu_torch.observability import flightrec
+    from pytorch_distributed_nn_tpu_torch.resilience.faults import (
+        InjectedCrash,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import profiling
+
+    d = os.path.join(root, "faults")
+    base = dataclasses.replace(resnet_config("int8", FAULT_STEPS, seed),
+                               data_layout="host", skip_nonfinite=True)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(dataclasses.replace(
+            base, train_dir=d, eval_freq=2, faults=FAULT_SPEC,
+            supervise=True, flightrec="default", heartbeat_grace=30.0))
+        snaps, inner = {}, trainer.step
+
+        def step(batch):  # the state after steps 2 and 3 (NaN batch)
+            m = inner(batch)
+            if trainer.state.step in (2, 3):
+                snaps[trainer.state.step] = {
+                    k: v.detach().clone()
+                    for k, v in trainer.model.state_dict().items()}
+            return m
+
+        trainer.step = step
+        kernels.reset_launch_counts()
+        crashed = None
+        try:
+            trainer.train()
+        except InjectedCrash as e:
+            crashed = str(e)
+        finally:
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            trainer.close()
+        if crashed != "fault: crash@20":
+            fail(f"phase 9: the faulted run ended with {crashed!r}")
+        expect_launches(kernels, launches, {"quantize_int8_scaled": 1}, 19,
+                        "phase 9 faulted ResNet18 run (steps 1-19)")
+        stream = read_stream(os.path.join(d, "telemetry.jsonl"))
+        events = [r for r in stream if r.get("kind") == "event"]
+        fired = sorted((r["step"], r["fault"]) for r in events
+                       if r["type"] == "fault_injected")
+        if fired != FAULT_FIRED:
+            fail(f"phase 9 fault_injected events {fired}, want {FAULT_FIRED}")
+        skips = [r["step"] for r in events if r["type"] == "nonfinite_skip"]
+        retries = [r.get("label", "") for r in events if r["type"] == "retry"]
+        if skips != [3]:
+            fail(f"phase 9 nonfinite_skip at steps {skips}, want [3]")
+        if len(retries) != 1 or "model_step_4" not in retries[0]:
+            fail(f"phase 9 retry events {retries}, want one for step 4")
+        diff = [k for k in snaps[2] if not torch.equal(snaps[2][k],
+                                                       snaps[3][k])]
+        if diff:
+            fail(f"phase 9 the skipped step 3 changed {diff[:5]}")
+        incidents = flightrec.list_incidents(d)
+        regress = [i for i in incidents if i["name"] == "14-step_regression"]
+        if len(regress) != 1 or not regress[0]["has_trace"] \
+                or not regress[0]["has_report"]:
+            fail(f"phase 9 incident bundles {incidents}")
+        bundle = regress[0]["path"]
+        with open(os.path.join(bundle, "incident.json")) as f:
+            meta = json.load(f)
+        lo, hi = meta["capture_from_step"], meta["capture_until_step"]
+        trace = os.path.join(bundle, "trace")
+        summary = profiling.summarize_trace(trace)
+        quant = sum(r.count for rows in summary.values() for r in rows
+                    if r.name == "quant_group_kernel")
+        if quant != hi - lo:
+            fail(f"phase 9 the bundle's trace holds {quant} "
+                 f"quant_group_kernel launches over steps {lo + 1}..{hi}, "
+                 f"not one a step: {summary}")
+        records = step_records(stream)
+        window = [records[s]["step_ms"] for s in range(lo + 1, hi + 1)]
+        # outside: the steps before the delay; the step after the window
+        # runs beside the report thread's read of the trace
+        outside = [records[s]["step_ms"] for s in range(2, 14)]
+        after_window = records[hi + 1]["step_ms"]
+        verified = {s: ckpt.verify_checkpoint(ckpt.checkpoint_path(d, s))
+                    for s in ckpt.all_steps(d)}
+        if verified.get(6, (True,))[0] or not verified[18][0]:
+            fail(f"phase 9 checkpoints before the resume: {verified}")
+
+        trainer = Trainer(dataclasses.replace(
+            base, train_dir=d, eval_freq=2, resume=True, supervise=True))
+        start = trainer.start_step
+        kernels.reset_launch_counts()
+        try:
+            resumed = trainer.train()
+        finally:
+            torch.cuda.synchronize()
+            resume_launches = kernels.launch_counts()
+            trainer.close()
+        quarantined = sorted(os.listdir(os.path.join(d, ckpt.QUARANTINE_DIR)))
+        if start != 18 or quarantined != ["model_step_19",
+                                          "model_step_19.meta.json"]:
+            fail(f"phase 9 resume: start step {start}, quarantined "
+                 f"{quarantined}")
+        expect_launches(kernels, resume_launches, {"quantize_int8_scaled": 1},
+                        FAULT_STEPS - 18, "phase 9 resumed run")
+
+        ref = Trainer(dataclasses.replace(
+            base, faults=FAULT_SPEC.replace(",crash@20", ""), max_steps=18,
+            train_dir=os.path.join(root, "faults_ref")))
+        kernels.reset_launch_counts()
+        try:
+            before = ref.train()
+            # where the resume restarts the image loader
+            c = ref.config
+            ref.train_loader.close()
+            ref.train_loader = DataLoader(
+                load_dataset(c.dataset, train=True, data_dir=c.data_dir,
+                             synthetic_size=c.synthetic_size),
+                c.batch_size, shuffle=True, seed=c.seed, device=ref.device)
+            ref.start_step = ref.state.step
+            c.max_steps = FAULT_STEPS
+            after = ref.train()
+        finally:
+            torch.cuda.synchronize()
+            ref_launches = kernels.launch_counts()
+            ref.close()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    expect_launches(kernels, ref_launches, {"quantize_int8_scaled": 1},
+                    FAULT_STEPS, "phase 9 uninterrupted run")
+    got = [r["loss"] for r in resumed]
+    want = [r["loss"] for r in after]
+    if [r["step"] for r in resumed] != list(range(19, FAULT_STEPS + 1)) \
+            or not all(map(math.isfinite, got)):
+        fail(f"phase 9 resumed steps {[r['step'] for r in resumed]}: {got}")
+    err = max(abs(a - b) for a, b in zip(got, want))
+    pre = [(records[r["step"]]["loss"], r["loss"]) for r in before]
+    pre_err = max(abs(a - b) for a, b in pre
+                  if math.isfinite(a) or math.isfinite(b))
+    if not err <= FAULT_RESUME_TOL or not pre_err <= FAULT_RESUME_TOL:
+        fail(f"phase 9 resumed losses {got} against the uninterrupted "
+             f"{want}: max abs diff {err}; steps 1-18 {pre_err} (tol "
+             f"{FAULT_RESUME_TOL})")
+    return {"fired": fired, "bundles": [i["name"] for i in incidents],
+            "capture": [lo + 1, hi], "quant_in_trace": quant,
+            "window_ms": window, "outside_ms": outside,
+            "after_ms": after_window,
+            "top": [(r.name, r.count, r.total_ms)
+                    for rows in summary.values() for r in rows[:12]],
+            "overlap": profiling.collective_overlap_report(trace),
+            "families": profiling.family_summary(summary),
+            "resume_err": err, "pre_crash_err": pre_err,
+            "losses": got, "launches": {
+                k: launches[k] + resume_launches[k] + ref_launches[k]
+                for k in launches}}
+
+
+def profile_phase(kernels, seed, root):
+    """Phase 10: BertBase f32 (--attn-impl pallas) and bf16 (--fused-ln)
+    with --profile 2; the summary's kernel counts against the wrappers'
+    counters and its device time against device_rows of the same
+    profile; then bf16 with the flight recorder armed and idle."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import profiling
+
+    #: a wrapper's kernels in a trace (either LayerNorm kernel counts)
+    kernels_of = {
+        "float32": {"flash_attention_fwd": ("flash_fwd_3xtf32_kernel",),
+                    "flash_attention_dq": ("flash_dq_3xtf32_kernel",),
+                    "flash_attention_dkv": ("flash_dkv_3xtf32_kernel",)},
+        "bfloat16": {"flash_attention_fwd": ("flash_fwd_tc_kernel",),
+                     "flash_attention_dq": ("flash_dq_tc_kernel",),
+                     "flash_attention_dkv": ("flash_dkv_tc_kernel",)}}
+    for names in kernels_of.values():
+        names.update({"layer_norm": ("ln_fwd_vec_kernel", "ln_fwd_kernel"),
+                      "layer_norm_bwd": ("ln_bwd_vec_kernel",
+                                         "ln_bwd_kernel"),
+                      "layer_norm_bwd_sum": ("ln_bwd_sum_kernel",)})
+    out, total = {}, {k: 0 for k in kernels.KERNELS}
+    for dtype, flags in (("float32", F32_FLAGS), ("bfloat16", {})):
+        d = os.path.join(root, f"profile_{dtype}")
+        trainer = Trainer(train_config(
+            "BertBase", PROFILE_STEPS, seed=seed, train_dir=d,
+            profile_steps=PROFILE_WINDOW, **flags))
+        L = trainer.model.config.num_layers
+        per = {"flash_attention_fwd": L, "flash_attention_dq": L,
+               "flash_attention_dkv": L, "layer_norm": 2 * L + 2,
+               "layer_norm_bwd": 2 * L + 2}
+        kernels.reset_launch_counts()
+        try:
+            history = trainer.train()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            # the session's lead-in launches are not the steps'
+            own = [r for r in device_rows(trainer.last_profile)
+                   if "spin_kernel" not in r["name"]]
+        finally:
+            trainer.close()
+        expect_launches(kernels, launches, per, PROFILE_STEPS,
+                        f"phase 10 BertBase {dtype} --profile run")
+        for k in total:
+            total[k] += launches[k]
+        trace = os.path.join(d, "profile")
+        summary = profiling.summarize_trace(trace)
+        rows = {}
+        for rs in summary.values():
+            for r in rs:
+                rows[r.name] = rows.get(r.name, 0) + r.count
+        counts = {w: sum(rows.get(n, 0) for n in names)
+                  for w, names in kernels_of[dtype].items()}
+        want = {w: per[w.replace("_sum", "")] * PROFILE_WINDOW
+                for w in counts}
+        raw = {}  # the trace's own kernel names, as it kept them
+        for ev in profiling.device_events(profiling.load_trace(
+                profiling.find_trace(trace))):
+            raw[ev.name] = raw.get(ev.name, 0) + 1
+        mangled = sum(n for name, n in raw.items() if name.startswith("_Z"))
+        if counts != want:
+            ours = {k: n for k, n in raw.items()
+                    if "flash" in k or "ln_" in k}
+            fail(f"phase 10 BertBase {dtype}: kernel launches in the trace "
+                 f"{counts}, want {want} ({PROFILE_WINDOW} steps of the "
+                 f"wrappers' counts {launches}); the trace's names {ours}")
+        dev = profiling.device_step_time_ms(trace, PROFILE_WINDOW)
+        own_ms = sum(r["device_ms"] for r in own) / PROFILE_WINDOW
+        agree = abs(dev - own_ms) / own_ms
+        if not agree <= PROFILE_AGREE:
+            fail(f"phase 10 BertBase {dtype}: device ms/step {dev} from the "
+                 f"trace against {own_ms} from key_averages ({agree:.4f} > "
+                 f"{PROFILE_AGREE})")
+        ms = [r["step_ms"] for r in history]
+        out[dtype] = {"launch_counts": counts, "mangled": mangled,
+                      "device_ms": dev,
+                      "device_rows_ms": own_ms, "agree": agree,
+                      "profiled_ms": ms[1:1 + PROFILE_WINDOW],
+                      "unprofiled_ms": ms[1 + PROFILE_WINDOW:],
+                      "families": profiling.family_summary(summary)}
+        del trainer
+        torch.cuda.empty_cache()
+    # the flags off, then the flight recorder armed (and idle), back to back
+    for name, flags in (("off", {}), ("armed", {"flightrec": "default"})):
+        d = os.path.join(root, name)
+        trainer = Trainer(train_config("BertBase", ARMED_STEPS, seed=seed,
+                                       train_dir=d, **flags))
+        kernels.reset_launch_counts()
+        try:
+            history = trainer.train()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            trainer.close()
+        for k in total:
+            total[k] += launches[k]
+        ms = sorted(r["step_ms"] for r in history[1:])
+        bundles = os.path.join(d, "incidents")
+        out[name] = {"step_ms": ms[len(ms) // 2],
+                     "bundles": len(os.listdir(bundles))
+                     if os.path.isdir(bundles) else 0}
+        del trainer
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+def serve_fault_phase(repo, root):
+    """Phase 11: serve run --faults SERVE_FAULTS on phase 8's ResNet-18
+    artifact, one client sending SERVE_FAULT_REQUESTS requests in turn."""
+    import http.client
+
+    server = start_server(repo, os.path.join(root, "resnet_artifact_none"),
+                          root, "resnet_faults", "--faults", SERVE_FAULTS,
+                          "--buckets", "1,2,4")
+    try:
+        port = int(server_url(server).rsplit(":", 1)[1])
+        body = json.dumps({"inputs": [[[[0.0] * 3] * 32] * 32]})
+        results = []
+        for _ in range(SERVE_FAULT_REQUESTS):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request("POST", "/v1/infer", body,
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                results.append((resp.status, json.loads(resp.read())))
+            except (http.client.RemoteDisconnected, ConnectionError) as e:
+                results.append(("reset", repr(e)))
+            finally:
+                conn.close()
+    finally:
+        if server["proc"].poll() is None:
+            drain_server(server)
+    statuses = [s for s, _ in results]
+    want = [200] * SERVE_FAULT_REQUESTS
+    want[11] = "reset"
+    want[14:17] = [503] * 3
+    infer_ms = [doc["infer_ms"][0] if s == 200 else None
+                for s, doc in results]
+    slow = [ms for ms in infer_ms[:8]]
+    if statuses != want or not all(ms >= 200.0 for ms in slow) or any(
+            ms >= 200.0 for ms in infer_ms[8:] if ms is not None):
+        fail(f"phase 11 serve run --faults: statuses {statuses}, want "
+             f"{want}; infer_ms {infer_ms}")
+    stream = read_stream(os.path.join(root, "resnet_faults", "serving.jsonl"))
+    fired = [(r["fault"], r["request"]) for r in stream
+             if r.get("type") == "fault_injected"]
+    if fired != [("slow_infer", 1), ("conn_reset", 12), ("http_503", 15)]:
+        fail(f"phase 11 fault_injected events {fired}")
+    return {"statuses": statuses, "infer_ms": infer_ms, "fired": fired}
+
+
+def run_cli(repo, args, timeout=600.0):
+    """Start ``python -m pytorch_distributed_nn_tpu_torch ARGS``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch", *args],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli(proc, what, timeout=600.0):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}: {err[-4000:]}")
+    return out
+
+
+def tf32_phase(repo, root):
+    """Phase 12: ``train`` (2 steps, then its eval) and the ``evaluator``
+    of ResNet-20 at the CLI's default --dtype float32, on the card in
+    subprocesses (TF32 at PyTorch's defaults there) and with --device cpu;
+    losses and eval metrics within TF32_RTOL."""
+    runs = {}
+    procs = {}
+    for dev in ("card", "cpu"):
+        d = os.path.join(root, f"tf32_{dev}")
+        procs[dev] = run_cli(repo, [
+            "train", *SMALL_IMAGE_FLAGS, "--max-steps", "2", "--eval-freq",
+            "2", "--train-dir", d, "--metrics-path",
+            os.path.join(d, "metrics.jsonl")]
+            + (["--device", "cpu"] if dev == "cpu" else []))
+    for dev, proc in procs.items():
+        finish_cli(proc, f"phase 12 train ({dev})")
+    for dev in ("card", "cpu"):
+        d = os.path.join(root, f"tf32_{dev}")
+        procs[dev] = run_cli(repo, [
+            "evaluator", "--model-dir", d, *SMALL_IMAGE_FLAGS[:6],
+            "--test-batch-size", "128", "--data-layout", "host",
+            "--eval-freq", "2", "--max-evals", "1", "--timeout", "300"]
+            + (["--device", "cpu"] if dev == "cpu" else []))
+    for dev, proc in procs.items():
+        out = finish_cli(proc, f"phase 12 evaluator ({dev})")
+        stream = read_stream(os.path.join(root, f"tf32_{dev}",
+                                          "metrics.jsonl"))
+        runs[dev] = {
+            "losses": [r["loss"] for r in stream if r.get("kind") == "step"],
+            "eval": [r["loss"] for r in stream
+                     if r.get("type") == "eval_result"],
+            "evaluator": json.loads(out.strip().splitlines()[-1])[
+                "evaluated"]["2"]}
+    card, cpu = runs["card"], runs["cpu"]
+    pairs = (list(zip(card["losses"], cpu["losses"]))
+             + list(zip(card["eval"], cpu["eval"]))
+             + [(card["evaluator"][k], cpu["evaluator"][k])
+                for k in ("loss", "acc1", "acc5")])
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+    if len(card["losses"]) != 2 or len(card["eval"]) != 1 \
+            or not rel <= TF32_RTOL:
+        fail(f"phase 12 the f32 image path on the card against the CPU: "
+             f"{runs} (relative {rel}, tol {TF32_RTOL})")
+    return {"card": card, "cpu": cpu, "max_rel": rel}
+
+
+def elastic_phase(repo, root):
+    """Phase 13: 2 gloo ranks on the CPU (torchrun) checkpoint ResNet-20
+    at step 2; --resume on the card at world size 1 adapts (dp 2 -> 1,
+    the global batch kept) and continues; with --strict-geometry it
+    raises, naming both geometries."""
+    import math
+    import socket
+
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    d = os.path.join(root, "elastic")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "127.0.0.1", "--master-port", str(port), "-m",
+         "pytorch_distributed_nn_tpu_torch", "train", "--device", "cpu",
+         "--num-workers", "2", *SMALL_IMAGE_FLAGS, "--max-steps", "2",
+         "--eval-freq", "2", "--train-dir", d],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 13 torchrun of 2 gloo ranks exited {proc.returncode}: "
+             f"{proc.stderr[-4000:]}")
+    before = step_records(read_stream(os.path.join(d, "telemetry.jsonl")))
+    cfg = dict(network="ResNet20", dataset="Cifar10", synthetic_size=256,
+               batch_size=64, test_batch_size=128, data_layout="host",
+               max_steps=4, eval_freq=2, train_dir=d, num_workers=2,
+               resume=True)
+    try:
+        Trainer(TrainConfig(**cfg, strict_geometry=True))
+        fail("phase 13 --strict-geometry resumed across dp 2 -> 1")
+    except ValueError as e:
+        strict = str(e)
+    if "data=2" not in strict or "data=1" not in strict:
+        fail(f"phase 13 --strict-geometry error names {strict!r}")
+    trainer = Trainer(TrainConfig(**cfg))
+    try:
+        start, history = trainer.start_step, trainer.train()
+    finally:
+        trainer.close()
+    stream = read_stream(os.path.join(d, "telemetry.jsonl"))
+    (ev,) = [r for r in stream if r.get("type") == "elastic_resume"]
+    losses = [r["loss"] for r in history]
+    last = before[2]["loss"]
+    if start != 2 or [r["step"] for r in history] != [3, 4] \
+            or ev["old"]["mesh"]["data"] != 2 or ev["num_workers"] != 1 \
+            or ev["batch_size"] != 64 or ev["per_device_batch"] != 64 \
+            or not all(map(math.isfinite, losses)) \
+            or not abs(losses[0] - last) <= 0.5 * last:
+        fail(f"phase 13 elastic resume: start {start}, event {ev}, losses "
+             f"{losses} after {last}")
+    return {"event": ev, "strict": strict, "losses": losses,
+            "before": [before[s]["loss"] for s in sorted(before)]}
+
+
 # -- --step-times: this checkout's training steps, nothing checked ---------
 
 STEP_TIMES_STEPS = 40
@@ -3466,7 +3997,76 @@ def main() -> int:
         # -- 8. single-pass serving of phase 7's checkpoints --------------
         serving = serving_phase(kernels, reference, F, args.seed, smi, repo,
                                 root)
+        # -- 9-13. faults, the flight recorder, the profiler, TF32, elastic
+        serve_faults = serve_fault_phase(repo, root)
+        faults = fault_phase(kernels, args.seed, root)
+        prof = profile_phase(kernels, args.seed, root)
+        tf32 = tf32_phase(repo, root)
+        elastic = elastic_phase(repo, root)
     report["serving"] = serving
+    report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
+                  tf32=tf32, elastic=elastic)
+    log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
+        f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
+        f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
+        f"state after it bit for bit the state after step 2; one retry of "
+        f"step 4's publish; the crash's emergency checkpoint (step 19, torn) "
+        f"quarantined on --resume, which restored step 18 and ran to "
+        f"{FAULT_STEPS}; resumed losses against an uninterrupted run max abs "
+        f"diff {faults['resume_err']:.3e}, steps 1-18 "
+        f"{faults['pre_crash_err']:.3e} (tol {FAULT_RESUME_TOL})")
+    log(f"phase 9 flight recorder ({smi}): bundles {faults['bundles']}; "
+        f"torch.profiler trace of steps {faults['capture'][0]}.."
+        f"{faults['capture'][1]} holds {faults['quant_in_trace']} "
+        f"quant_group_kernel launches (one a step); step ms in the capture "
+        f"window {[round(x, 3) for x in faults['window_ms']]} (median "
+        f"{median(faults['window_ms']):.3f}), before it (steps 2-13) median "
+        f"{median(faults['outside_ms']):.3f}; the step after it (the report "
+        f"thread reads the trace) {faults['after_ms']:.3f}; NCCL overlap "
+        f"{faults['overlap']}; device time by family over the window "
+        f"{faults['families']}")
+    for dtype in ("float32", "bfloat16"):
+        r = prof[dtype]
+        off = bert32["step_ms"] if dtype == "float32" else bert["step_ms"]
+        log(f"phase 10 profiler BertBase {dtype} --profile "
+            f"{PROFILE_WINDOW} ({smi}): launches in the trace "
+            f"{r['launch_counts']} (= {PROFILE_WINDOW} steps of the "
+            f"wrappers' counts; {r['mangled']} kernel events kept their "
+            f"mangled names); device ms/step from the trace "
+            f"{r['device_ms']:.3f}, from key_averages "
+            f"{r['device_rows_ms']:.3f} (diff {r['agree']:.4f}, tol "
+            f"{PROFILE_AGREE}); step ms profiled "
+            f"{[round(x, 3) for x in r['profiled_ms']]}, unprofiled "
+            f"{[round(x, 3) for x in r['unprofiled_ms']]}, phase 5 without "
+            f"--profile {off:.3f}; families {r['families']}")
+    log(f"phase 10 BertBase bf16 --flightrec default armed and idle "
+        f"({smi}): step {prof['armed']['step_ms']:.3f} ms (median of "
+        f"{ARMED_STEPS - 1}), {prof['armed']['bundles']} bundles; the run "
+        f"before it with the flags off {prof['off']['step_ms']:.3f} ms; "
+        f"phase 5 {bert['step_ms']:.3f} ms")
+    served_ms = [None if x is None else round(x, 3)
+                 for x in serve_faults["infer_ms"]]
+    log(f"phase 11 serve run --faults {SERVE_FAULTS} ({smi}): statuses "
+        f"{serve_faults['statuses']}; infer_ms {served_ms}; fault_injected "
+        f"{serve_faults['fired']}")
+    log(f"phase 12 TF32 ({smi}): ResNet20 --dtype float32 train (2 steps, "
+        f"eval) and evaluator on the card with TF32 at PyTorch's defaults "
+        f"against --device cpu: losses {tf32['card']['losses']} vs "
+        f"{tf32['cpu']['losses']}, eval {tf32['card']['eval']} vs "
+        f"{tf32['cpu']['eval']}, evaluator loss "
+        f"{tf32['card']['evaluator']['loss']} vs "
+        f"{tf32['cpu']['evaluator']['loss']}: max relative diff "
+        f"{tf32['max_rel']:.3e} (tol {TF32_RTOL})")
+    log(f"phase 13 elastic ({smi}): 2 gloo ranks on the CPU (losses "
+        f"{elastic['before']}) resumed on the card at world size 1: "
+        f"elastic_resume {elastic['event']['old']} -> "
+        f"{elastic['event']['new']}, global batch "
+        f"{elastic['event']['batch_size']} (per rank "
+        f"{elastic['event']['per_device_batch']}); losses "
+        f"{elastic['losses']}; --strict-geometry: {elastic['strict']}")
+    for e in entries:
+        e["launches"] += (faults["launches"].get(e["name"], 0)
+                          + prof["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(
@@ -3477,7 +4077,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2, default=str)
 
-    # -- 9. result lines --------------------------------------------------
+    # -- 14. result lines -------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -25,11 +25,14 @@ kernel). ``--eval-freq N`` checkpoints every N steps into
 ``--train-dir`` in the JAX package's format (``--no-async-ckpt`` writes
 inline, ``--keep-last K`` keeps the newest K, ``--overlap-eval`` scores
 each checkpoint on a thread); ``--resume`` continues from the newest
-valid checkpoint; ``--supervise`` turns SIGTERM into an emergency
-checkpoint and exit 0; ``--skip-nonfinite`` skips non-finite updates. A
-flag the port cannot honour yet raises, naming the ROADMAP item that
-ports it. Training runs on the card unless ``--device cpu`` is given,
-and fails without one.
+valid checkpoint (elastic across a changed world size;
+``--strict-geometry`` raises instead); ``--supervise`` turns SIGTERM into
+an emergency checkpoint and exit 0; ``--skip-nonfinite`` skips
+non-finite updates; ``--faults SPEC`` injects the fault plan,
+``--flightrec SPEC`` arms the flight recorder and ``--profile N`` traces
+N steps with ``torch.profiler``. A flag the port cannot honour yet
+raises, naming the ROADMAP item that ports it. Training runs on the card
+unless ``--device cpu`` is given, and fails without one.
 
     python -m pytorch_distributed_nn_tpu_torch single [train flags]
 
@@ -76,9 +79,11 @@ in-flight requests finish, then the process exits 0.
 sustained req/s, latency percentiles, achieved FLOP/s, and a failure if
 anything was built after warmup; ``smoke`` is the few-second serving
 gate. The serving commands run on the card unless ``--device cpu`` is
-given, and fail without one. Their flags that belong to later ROADMAP
-items (``--registry``, ``--reload-poll``, ``--canary``,
-``--admin-token``, ``--slo``, ``--flightrec``, ``--faults``, ``serve
+given, and fail without one. ``serve run --faults SPEC`` injects the
+fault plan's serving kinds (``slow_infer``, ``conn_reset``, ``http_503``,
+keyed by request count; a spec without one is refused). Its flags that
+belong to a later ROADMAP item (``--registry``, ``--reload-poll``,
+``--canary``, ``--admin-token``, ``--slo``, ``--flightrec``, ``serve
 frontend``) raise, naming the item.
 """
 
@@ -94,12 +99,11 @@ from typing import Optional, Sequence
 
 
 _ITEM6 = "ROADMAP Queue 1 item 6 (router, frontend, registry, SLOs)"
-_ITEM4 = "ROADMAP Queue 1 item 4 (faults and the flight recorder)"
 
 #: ``serve run`` flags of later items: flag -> the item that ports it
 _SERVE_LATER = {"registry": _ITEM6, "reload_poll": _ITEM6,
                 "canary": _ITEM6, "admin_token": _ITEM6, "slo": _ITEM6,
-                "flightrec": _ITEM6, "faults": _ITEM4}
+                "flightrec": _ITEM6}
 
 
 def _buckets(text: Optional[str]):
@@ -140,6 +144,22 @@ def _serve_loop(server, port_file: Optional[str] = None) -> None:
         server.close()
 
 
+def _fault_injector(plan, telemetry, engine):
+    """The serving fault injector of ``plan`` (None without one), its
+    ``slow_infer`` wrapped around the engine's single-pass ``infer``
+    (a generative engine has none)."""
+    if plan is None:
+        return None
+    from pytorch_distributed_nn_tpu_torch.serving.faultinject import (
+        ServingFaultInjector,
+    )
+
+    injector = ServingFaultInjector(plan, telemetry=telemetry)
+    if hasattr(engine, "infer"):
+        injector.attach_engine(engine)
+    return injector
+
+
 def _serve_run(args) -> int:
     from pytorch_distributed_nn_tpu_torch.models import is_generative_model
     from pytorch_distributed_nn_tpu_torch.serving.artifact import (
@@ -155,6 +175,22 @@ def _serve_run(args) -> int:
         raise NotImplementedError(
             f"serve run --{later[0].replace('_', '-')} is not ported yet: "
             f"{_SERVE_LATER[later[0]]}")
+    fault_plan = None
+    if args.faults:  # parsed before the engine pays its warmup
+        from pytorch_distributed_nn_tpu_torch.resilience.faults import (
+            FaultPlan,
+        )
+
+        try:
+            fault_plan = FaultPlan.parse(args.faults)
+            if not fault_plan.has_serving_faults():
+                raise ValueError(
+                    f"--faults {args.faults!r} has no serving-side "
+                    "entries (slow_infer/conn_reset/http_503) — nothing "
+                    "would ever fire on the request path")
+        except ValueError as e:
+            print(f"serve run: {e}", file=sys.stderr)
+            return 2
     max_queue = args.max_queue if args.max_queue > 0 else None
     serve_dir = args.serve_dir or os.path.join(args.artifact, "serve")
     os.makedirs(serve_dir, exist_ok=True)
@@ -170,11 +206,12 @@ def _serve_run(args) -> int:
         engine.warmup()
         telemetry = serving_telemetry(serve_dir, engine,
                                       extra={"generative": True})
+        faults = _fault_injector(fault_plan, telemetry, engine)
         sched = GenerateScheduler(engine, telemetry=telemetry,
                                   default_timeout_s=args.timeout,
                                   max_queue=max_queue)
         server = ServingServer(engine, None, host=args.host, port=args.port,
-                               generator=sched)
+                               generator=sched, faults=faults)
         what = "GENERATIVE "
     else:
         from pytorch_distributed_nn_tpu_torch.serving.batcher import Batcher
@@ -185,11 +222,12 @@ def _serve_run(args) -> int:
         engine = InferenceEngine(args.artifact, device=args.device, **kw)
         engine.warmup()
         telemetry = serving_telemetry(serve_dir, engine)
+        faults = _fault_injector(fault_plan, telemetry, engine)
         sched = Batcher(engine, telemetry=telemetry,
                         batch_window_s=args.batch_window_ms / 1000.0,
                         default_timeout_s=args.timeout, max_queue=max_queue)
         server = ServingServer(engine, sched, host=args.host,
-                               port=args.port)
+                               port=args.port, faults=faults)
         what = ""
     print(f"serving {what}{args.artifact} on "
           f"http://{server.host}:{server.port} ({engine.device}; stream: "
@@ -294,6 +332,9 @@ def _add_serve_flags(serve: argparse.ArgumentParser) -> None:
                           "<artifact>/serve)")
     run.add_argument("--port-file", default=None, metavar="FILE",
                      help="write the bound port here (use with --port 0)")
+    run.add_argument("--faults", default=None, metavar="SPEC",
+                     help="inject serving faults (slow_infer, conn_reset, "
+                          "http_503; keyed by request count)")
     for flag in _SERVE_LATER:
         run.add_argument("--" + flag.replace("_", "-"), default=None,
                          help=f"not ported yet: {_SERVE_LATER[flag]}")

@@ -106,7 +106,13 @@ class _IndexedLoader:
 
 
 class DataLoader(_IndexedLoader):
-    """Host-side loader with one prefetch thread (module docstring)."""
+    """Host-side loader with one prefetch thread (module docstring).
+
+    ``host_transform(k, (x, y))`` (set before the first ``next_batch``),
+    when given, is applied to the k-th batch ``next_batch`` returns
+    (1-indexed) while it is still on the host (numpy), on the calling
+    thread, before the copy to the device: the fault plan's ``nan_grad``
+    hook."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle=True,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
@@ -117,21 +123,30 @@ class DataLoader(_IndexedLoader):
         self._queue: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self.host_transform = None
+        self._drawn = 0  # batches next_batch returned
 
-    def _make_batch(self, idx: np.ndarray) -> Batch:
+    def _host_batch(self, idx: np.ndarray):
         local = self._local(len(idx))
         x = self.dataset.images[idx[local]]
         if self.dataset.augment:
             ys, xs, flip = augment_draws(self._rng, len(idx))
             x = augment_gather(x, ys[local], xs[local], flip[local])
-        y = self.dataset.labels[idx[local]]
-        return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+        return np.ascontiguousarray(x), self.dataset.labels[idx[local]]
+
+    def _to_device(self, host) -> Batch:
+        x, y = host
+        return (torch.from_numpy(x).to(self.device),
                 torch.from_numpy(y.astype(np.int64)).to(self.device))
 
-    def _produce(self):
+    def _make_batch(self, idx: np.ndarray, host: bool = False):
+        batch = self._host_batch(idx)
+        return batch if host else self._to_device(batch)
+
+    def _produce(self, host: bool):
         while not self._stop.is_set():
             for idx in self._epoch_index_slices(self._epoch_order()):
-                batch = self._make_batch(idx)
+                batch = self._make_batch(idx, host)
                 while not self._stop.is_set():
                     try:
                         self._queue.put(batch, timeout=0.2)
@@ -144,15 +159,22 @@ class DataLoader(_IndexedLoader):
 
     def next_batch(self) -> Batch:
         t0 = time.perf_counter()
+        host = self.host_transform is not None
         try:
             if self.prefetch == 0:
-                return self._make_batch(self._next_idx())
-            if self._thread is None:
-                self._queue = queue.Queue(maxsize=self.prefetch)
-                self._thread = threading.Thread(target=self._produce,
-                                                daemon=True)
-                self._thread.start()
-            return self._queue.get()
+                batch = self._make_batch(self._next_idx(), host)
+            else:
+                if self._thread is None:
+                    self._queue = queue.Queue(maxsize=self.prefetch)
+                    self._thread = threading.Thread(
+                        target=self._produce, args=(host,), daemon=True)
+                    self._thread.start()
+                batch = self._queue.get()
+            self._drawn += 1
+            if host:
+                batch = self._to_device(
+                    self.host_transform(self._drawn, batch))
+            return batch
         finally:
             self.last_wait_ms = (time.perf_counter() - t0) * 1000
 

@@ -3,11 +3,12 @@
 A subset of ``pytorch_distributed_nn_tpu/observability/core.py``: the
 metric registry (counters, gauges, histograms), the append-only JSONL
 sink whose first record is the run's ``manifest``, and
-:class:`Telemetry` with ``emit`` (typed events: ``checkpoint_write``,
-``checkpoint_gc``, ``ckpt_backpressure``, ``eval_result``, ``preempt``,
-``retry``, ``nonfinite_skip``, ``stall``) and ``log_step`` (one
-``kind: "step"`` record per training step, or per served request,
-routed to the ``serving_*`` metric family). The process default
+:class:`Telemetry` with ``emit`` (the typed events of
+:data:`EVENT_TYPES`), ``log_step`` (one ``kind: "step"`` record per
+training step, or per served request, routed to the ``serving_*`` metric
+family) and ``subscribe`` (live listeners on every record: the flight
+recorder's detectors; a listener that raises is logged and dropped from
+that record, never the run's failure). The process default
 (:func:`get_telemetry`, :func:`install`) is where the low-level writers
 (checkpoint, retry, evaluator) emit. Records keep the JAX package's
 stream format, so its ``obs`` tools read a port stream. Training-step
@@ -17,12 +18,15 @@ efficiency gauges and the Prometheus exporter are not ported yet.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import platform
 import threading
 import time
 import uuid
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+logger = logging.getLogger(__name__)
 
 SCHEMA_VERSION = 2
 #: a run's stream inside its train_dir (rank 0's; the JAX package's name)
@@ -34,6 +38,23 @@ SERVING_BASENAME = "serving.jsonl"
 DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+
+#: the typed events the port emits (the JAX package's names and fields)
+EVENT_TYPES = (
+    "checkpoint_write",
+    "ckpt_backpressure",
+    "checkpoint_gc",
+    "retry",
+    "nonfinite_skip",
+    "fault_injected",
+    "eval_result",
+    "preempt",
+    "stall",
+    "incident",
+    "elastic_resume",
+    "data_refastforward",
 )
 
 
@@ -194,6 +215,7 @@ class Telemetry:
         self.registry = registry or MetricRegistry()
         self.sink = sink
         self.manifest = manifest
+        self._subs: List[Callable[[dict], None]] = []
 
     @classmethod
     def for_run(cls, path: Optional[str],
@@ -254,6 +276,20 @@ class Telemetry:
     def _publish(self, record: dict) -> None:
         if self.sink is not None:
             self.sink.write(record)
+        for fn in list(self._subs):
+            try:
+                fn(record)
+            except Exception:  # a broken subscriber must not kill the run
+                logger.exception("telemetry subscriber failed")
+
+    def subscribe(self, fn: Callable[[dict], None]) -> None:
+        """Call ``fn(record)`` with every record published from now on
+        (on the emitting thread)."""
+        self._subs.append(fn)
+
+    def unsubscribe(self, fn: Callable[[dict], None]) -> None:
+        if fn in self._subs:
+            self._subs.remove(fn)
 
     def flush(self, fsync: bool = False) -> None:
         if self.sink is not None:

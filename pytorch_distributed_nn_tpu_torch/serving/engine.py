@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -54,6 +53,9 @@ import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
+from pytorch_distributed_nn_tpu_torch.utils.precision import (
+    no_tf32 as _no_tf32,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -63,31 +65,6 @@ DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 _SWAP = ("weight hot swap, shadow engines and canaries are not ported yet: "
          "ROADMAP Queue 1 item 6 (router, frontend, registry)")
-
-
-# TF32 switches held off while any engine forward runs: the first forward
-# to start saves them, the last to finish restores them
-_tf32_lock = threading.Lock()
-_tf32_users = 0
-_tf32_saved: Optional[Tuple[bool, bool]] = None
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    global _tf32_users, _tf32_saved
-    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    with _tf32_lock:
-        if _tf32_users == 0:
-            _tf32_saved = (matmul.allow_tf32, cudnn.allow_tf32)
-            matmul.allow_tf32 = cudnn.allow_tf32 = False
-        _tf32_users += 1
-    try:
-        yield
-    finally:
-        with _tf32_lock:
-            _tf32_users -= 1
-            if _tf32_users == 0:
-                matmul.allow_tf32, cudnn.allow_tf32 = _tf32_saved
 
 
 def length_buckets(max_len: int) -> Tuple[int, ...]:

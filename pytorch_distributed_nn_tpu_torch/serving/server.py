@@ -32,8 +32,11 @@ device batches. Only the scheduler threads run the engines.
   precision, the generative engine's state, the artifact identity and
   uptime.
 
-Admin swap, canaries, SLOs and injected faults wait for ROADMAP Queue 1
-items 6 and 4.
+Injected faults (``faults``: a :class:`~.faultinject.ServingFaultInjector`,
+``serve run --faults``) act on ``POST /v1/infer`` and ``/v1/generate``
+before a body is read: ``conn_reset`` closes the connection with no
+status line, ``http_503`` answers 503. Admin swap, canaries and SLOs
+wait for ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -66,12 +69,14 @@ class ServingServer:
     port and ``self.port`` reports it."""
 
     def __init__(self, engine, batcher, host: str = "127.0.0.1",
-                 port: int = 8000, generator=None):
+                 port: int = 8000, generator=None, faults=None):
         if batcher is None and generator is None:
             raise ValueError("a server needs a batcher, a generator or both")
         self.engine = engine
         self.batcher = batcher
         self.generator = generator
+        # serving fault injector (serving/faultinject.py): HTTP-layer hooks
+        self.faults = faults
         self.started = time.time()
         # readiness: constructed after the engines' warmup, so ready
         # until a drain begins (liveness never flips)
@@ -206,9 +211,31 @@ class ServingServer:
                     with outer._inflight_lock:
                         outer._inflight -= 1
 
+            def _injected_fault(self) -> bool:
+                """Fire an HTTP-layer fault covering this request; True
+                when the fault consumed it."""
+                if outer.faults is None:
+                    return False
+                action = outer.faults.http_action()
+                if action == "conn_reset":
+                    # no status line, no body: the client sees the
+                    # connection reset or an empty response
+                    self.close_connection = True
+                    try:
+                        self.connection.close()
+                    except OSError:
+                        pass
+                    return True
+                if action == "http_503":
+                    self._discard_body()
+                    self._reply(503, {"error": "injected http_503 fault"})
+                    return True
+                return False
+
             def _refuse(self, needed) -> bool:
                 """An early reply when this server lacks the path's
-                scheduler or is draining."""
+                scheduler, an injected fault takes the request, or the
+                server is draining."""
                 if needed is None:
                     self._discard_body()
                     self._reply(400, {"error": (
@@ -216,6 +243,8 @@ class ServingServer:
                         if self.path == "/v1/infer" else
                         "this server has no generative engine (the "
                         "artifact is single-pass — POST /v1/infer)")})
+                    return True
+                if self._injected_fault():
                     return True
                 if outer.draining:
                     self._discard_body()

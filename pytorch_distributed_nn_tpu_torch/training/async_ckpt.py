@@ -112,9 +112,12 @@ class SaveHandle:
     ``done``, set once the checkpoint is published or failed."""
 
     def __init__(self, step: int, dev_state: Snapshot,
-                 retain_device_state: bool = False, data_state=None):
+                 retain_device_state: bool = False, data_state=None,
+                 fault_plan=None):
         self.step = step
         self.dev_state = dev_state
+        # the injection hooks ride with the save (checkpoint.py)
+        self.fault_plan = fault_plan
         self.retain_device_state = retain_device_state
         self.data_state = data_state
         self.stall_ms = 0.0
@@ -164,7 +167,8 @@ class AsyncCheckpointer:
 
     def save(self, state, step: Optional[int] = None,
              retain_device_state: bool = False,
-             data_state: Optional[dict] = None) -> SaveHandle:
+             data_state: Optional[dict] = None,
+             fault_plan=None) -> SaveHandle:
         """Hand one checkpoint of ``state`` to the writer. Blocks for a
         save still in flight (emitting ``ckpt_backpressure``) and for the
         snapshot's enqueue; ``handle.stall_ms`` is that time."""
@@ -178,7 +182,7 @@ class AsyncCheckpointer:
         snap = snapshot(state)
         handle = SaveHandle(int(state.step if step is None else step), snap,
                             retain_device_state=retain_device_state,
-                            data_state=data_state)
+                            data_state=data_state, fault_plan=fault_plan)
         handle.stall_ms = (time.perf_counter() - t0) * 1e3
         handle.enqueued_at = time.perf_counter()
         reg = get_telemetry().registry
@@ -291,6 +295,7 @@ class AsyncCheckpointer:
         item.path = writer(
             self.directory, train_state_to_flax(layout, host), step=item.step,
             data_state=item.data_state, geometry=self.geometry,
+            fault_plan=item.fault_plan,
             event_extra={"async": True, "stall_ms": round(item.stall_ms, 3),
                          "queued_ms": round(queued_ms, 3),
                          "fetch_ms": round(fetch_ms, 3)})

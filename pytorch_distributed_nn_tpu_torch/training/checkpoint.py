@@ -155,7 +155,8 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
                     compress: bool = True,
                     event_extra: Optional[dict] = None,
                     data_state: Optional[dict] = None,
-                    geometry: Optional[dict] = None) -> str:
+                    geometry: Optional[dict] = None,
+                    fault_plan=None) -> str:
     """Write one atomic FILE checkpoint, its CRC32 manifest and, given
     ``data_state``, its iterator-state sidecar; emit ``checkpoint_write``.
 
@@ -163,7 +164,13 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     host state dict of one (:func:`state_tree`; the async writer's
     snapshot): both give the same bytes. ``write_ms`` is this call's
     time; ``stall_ms`` is what the training loop lost, the whole write
-    here, which an overlapped caller overrides in ``event_extra``."""
+    here, which an overlapped caller overrides in ``event_extra``.
+
+    ``fault_plan`` (:class:`..resilience.faults.FaultPlan`) is the
+    injection hook: a ``flaky_io`` step fails its first publish attempt
+    with ``OSError`` (the retry absorbs it and emits ``retry``), and a
+    ``torn_ckpt`` step's file is truncated after its publish, which the
+    manifest then convicts on resume."""
     t0 = time.perf_counter()
     os.makedirs(directory, exist_ok=True)
     tree = state if isinstance(state, dict) else state_tree(state)
@@ -187,7 +194,14 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     for p_ in parts:
         crc = zlib.crc32(p_, crc)
 
+    flake = [fault_plan is not None and fault_plan.should_flake(step)]
+
     def _publish():
+        if flake[0]:
+            flake[0] = False
+            get_telemetry().emit("fault_injected", step=step,
+                                 fault="flaky_io", path=path)
+            raise OSError(f"fault: flaky_io@{step} — injected transient EIO")
         with open(tmp, "wb") as f:
             for p_ in parts:
                 f.write(p_)
@@ -204,6 +218,10 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     }, f"manifest write {path}")
     if data_state is not None:
         save_data_state(path, data_state)
+    if fault_plan is not None and fault_plan.should_tear(step):
+        _tear_file(path)
+        get_telemetry().emit("fault_injected", step=step, fault="torn_ckpt",
+                             path=path)
     elapsed_ms = (time.perf_counter() - t0) * 1e3
     fields = {"path": path, "bytes": nbytes,
               "seconds": round(elapsed_ms / 1e3, 6), "format": "file",
@@ -213,6 +231,30 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
         fields.update(event_extra)
     get_telemetry().emit("checkpoint_write", step=step, **fields)
     return path
+
+
+def _tear_file(path: str) -> None:
+    """torn_ckpt fault: truncate the published file to half its bytes,
+    the corruption an atomic writer cannot produce by itself."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(size // 2, 1))
+    logger.warning("fault: torn_ckpt — truncated %s from %d to %d bytes",
+                   path, size, max(size // 2, 1))
+
+
+def checkpoint_geometry(path: str) -> Optional[dict]:
+    """The geometry recorded when checkpoint ``path`` was written, or
+    ``None`` (a manifest without one, or none readable)."""
+    meta_file = (os.path.join(path, "meta.json") if os.path.isdir(path)
+                 else meta_path(path))
+    try:
+        with open(meta_file) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return None
+    geom = meta.get("geometry")
+    return dict(geom) if isinstance(geom, dict) else None
 
 
 def _decode_payload(path: str, blob: bytes) -> memoryview:

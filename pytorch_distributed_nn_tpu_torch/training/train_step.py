@@ -36,12 +36,18 @@ not finite, the update is skipped: parameters, optimizer state and count,
 and BatchNorm statistics keep their values, the step count advances, and
 the metrics carry ``skipped_nonfinite`` 1 (else 0). The check reads one
 flag from the device each step.
+
+The image steps of a float32 model run with TF32 off
+(:func:`..utils.precision.no_tf32`): PyTorch's cuDNN default would run
+their convolutions with a 10-bit mantissa, where the JAX package's are
+f32. The switches come back after each step; a bf16 model's steps leave
+them alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -60,6 +66,8 @@ from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
     rank,
     world_size,
 )
+from pytorch_distributed_nn_tpu_torch.resilience.faults import all_finite
+from pytorch_distributed_nn_tpu_torch.utils.precision import f32_context
 
 
 @dataclasses.dataclass
@@ -104,13 +112,6 @@ def _seed_dropout(state: TrainState) -> None:
     if state.dropout_generator is not None:
         state.dropout_generator.manual_seed(
             dropout_seed(state.seed, state.rank, state.step))
-
-
-def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
-    """Whether every element of every tensor is finite (one device read)."""
-    if not tensors:
-        return True
-    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
 
 
 def param_count(model: torch.nn.Module) -> int:
@@ -226,6 +227,10 @@ def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
     group = grad_sync.group
 
     def step(state: TrainState, batch, seed: int) -> Dict[str, torch.Tensor]:
+        with f32_context(state.model):
+            return _step(state, batch, seed)
+
+    def _step(state: TrainState, batch, seed: int):
         images, labels = batch
         model, opt = state.model, state.optimizer
         model.train()
@@ -280,7 +285,8 @@ def build_image_eval_step(group):
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         images, labels = batch
         state.model.eval()
-        logits = state.model(images)
+        with f32_context(state.model):
+            logits = state.model(images)
         return _mean_over_ranks(
             {"loss": cross_entropy_loss(logits, labels),
              **_classification_metrics(logits, labels)}, group)

@@ -38,28 +38,50 @@ Checkpoints, resume and supervision, as the JAX trainer runs them:
   stream from its ``.data.json`` sidecar (the image loaders restart, as
   in the JAX package), and numbers the steps on from there. Dropout is
   re-seeded from (seed, rank, step) at each step, so a resumed run draws
-  what an uninterrupted one draws.
+  what an uninterrupted one draws. Resume is elastic
+  (:mod:`..resilience.elastic`): before the gradient sync is built, the
+  checkpoint's recorded geometry is held against the world size of this
+  launch; a changed one keeps the global batch (the per-rank batch and
+  ``grad_accum`` rescale) and emits ``elastic_resume``, and under
+  ``strict_geometry`` raises, naming both geometries.
 - ``supervise``: SIGTERM/SIGINT stop the run at the next step boundary
   with an emergency checkpoint of the completed step and a ``preempt``
   event (the process exits 0); ``heartbeat.json`` is beaten every step,
   and ``heartbeat_grace`` adds the stall watchdog. The in-flight async
   save is drained first, and at the end of every run.
 - ``skip_nonfinite``: the train step's guard (:mod:`.train_step`).
+- ``faults`` (:class:`..resilience.faults.FaultPlan`): ``delay``,
+  ``crash`` and ``preempt`` fire entering their step (``delay@N:pK``
+  sleeps rank K only, an entry without a rank every rank; a crash writes
+  the emergency checkpoint and re-raises, a preempt takes the SIGTERM
+  path), ``nan_grad`` poisons the step's host batch before its copy to
+  the card (``data_layout="host"``; image models only), ``flaky_io`` and
+  ``torn_ckpt`` fire in the checkpoint writer.
+- ``profile_steps = N``: a ``torch.profiler`` trace of steps 2 to N + 1
+  of the run (rank 0) into ``profile_dir`` (default
+  ``<train_dir>/profile``), stopped also when the run ends inside it;
+  read it with ``python -m pytorch_distributed_nn_tpu_torch.
+  observability.xplane``.
+- ``flightrec`` (:mod:`..observability.flightrec`, rank 0): detectors on
+  the run's stream open incident bundles under ``<train_dir>/incidents``
+  with a ``torch.profiler`` trace of the steps after the trigger (none
+  while a ``profile_steps`` window is open: two sessions cannot nest);
+  the supervisor's stall watchdog reports to it directly.
 
 The run's telemetry stream (``metrics_path``, else
 ``<train_dir>/telemetry.jsonl`` when the run checkpoints or is
 supervised) starts with its ``manifest``; steps are ``kind: "step"``
 records and ``checkpoint_write``, ``checkpoint_gc``, ``eval_result``,
-``preempt`` and ``nonfinite_skip`` are events with the JAX package's
+``preempt``, ``nonfinite_skip``, ``fault_injected``, ``retry``,
+``incident`` and ``elastic_resume`` are events with the JAX package's
 field names.
 
 Every flag the port cannot honour yet raises, naming the ROADMAP item
 that ports it (:data:`UNSUPPORTED`, :data:`TEXT_UNSUPPORTED`); none is
-silently ignored: still ``faults``, ``flightrec`` and ``profile_steps``
-(item 4), the sharded and streaming paths (items 1 and 3) and the rest of
-the gradient sync (item 2). The trainer runs on the card unless
-``device="cpu"`` is given; without a card it raises, it never falls back
-to the CPU.
+silently ignored: the sharded and streaming paths (items 1 and 3) and
+the rest of the gradient sync (item 2, with ``straggler_deadline``). The
+trainer runs on the card unless ``device="cpu"`` is given; without a card
+it raises, it never falls back to the CPU.
 
 Weights are initialised from ``seed`` with a ``torch.Generator``: the
 flax initialisation's scheme, not its numbers (JAX's PRNG differs).
@@ -89,6 +111,10 @@ from pytorch_distributed_nn_tpu_torch.models import (
     is_text_model,
 )
 from pytorch_distributed_nn_tpu_torch.observability import core as obs
+from pytorch_distributed_nn_tpu_torch.observability.detect import DetectorSpec
+from pytorch_distributed_nn_tpu_torch.observability.flightrec import (
+    FlightRecorder,
+)
 from pytorch_distributed_nn_tpu_torch.ops import kernels
 from pytorch_distributed_nn_tpu_torch.optim import (
     build_optimizer,
@@ -99,7 +125,13 @@ from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
 )
 from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
     all_reduce,
+    env_ranks,
     init_group,
+)
+from pytorch_distributed_nn_tpu_torch.resilience import elastic
+from pytorch_distributed_nn_tpu_torch.resilience.faults import (
+    FaultPlan,
+    InjectedCrash,
 )
 from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
 from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
@@ -114,6 +146,7 @@ from pytorch_distributed_nn_tpu_torch.training.train_step import (
     run_eval_pass,
     sync_seed,
 )
+from pytorch_distributed_nn_tpu_torch.utils import profiling
 from pytorch_distributed_nn_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_nn_tpu_torch.utils.timing import (
     MetricsLogger,
@@ -125,7 +158,6 @@ logger = logging.getLogger(__name__)
 _SYNC = "ROADMAP Queue 1 item 2 (gradient sync over torch.distributed)"
 _SPMD = "ROADMAP Queue 1 item 1 (dp x tp x sp training)"
 _DATA = "ROADMAP Queue 1 item 3 (data)"
-_CKPT = "ROADMAP Queue 1 item 4 (faults, flight recorder, profiler)"
 
 #: config field -> (the values the port runs, the ROADMAP item that ports
 #: the rest); any other value raises
@@ -138,9 +170,6 @@ UNSUPPORTED = {
     "warm_start": ((None,), _SPMD),
     "data_path": ((None,), _DATA),
     "loader_workers": ((0,), _DATA),
-    "faults": ((None,), _CKPT),
-    "flightrec": ((None,), _CKPT),
-    "profile_steps": ((0,), _CKPT),
 }
 
 #: what the text models' single-device MLM step does not run yet: their
@@ -229,11 +258,30 @@ def build_train_model(c: TrainConfig) -> torch.nn.Module:
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig, device=None):
+    """``Trainer(config, device=None, group=None)``: ``group`` is the
+    process group of the image path's ranks (default: the torchrun world,
+    :func:`..parallel.mesh.init_group`); the tests pass gloo groups of
+    ranks that run as threads."""
+
+    def __init__(self, config: TrainConfig, device=None, group=None):
         c = self.config = config
         validate(c)
+        # a bad --flightrec or --faults spec fails before any model is
+        # built
+        self._flightrec_spec = (DetectorSpec.parse(c.flightrec)
+                                if c.flightrec else None)
+        self.fault_plan = (FaultPlan.parse(c.faults, seed=c.seed)
+                           if c.faults else None)
         self.device = resolve_device(device)
         self.is_text = is_text_model(c.network)
+        if self.is_text and self.fault_plan is not None and any(
+                e.kind == "nan_grad" for e in self.fault_plan.entries):
+            raise ValueError(
+                "nan_grad faults poison the float image batch; text "
+                "batches are integer token ids (no NaN representation)")
+        self._elastic_plan = None
+        if c.resume:
+            self._plan_elastic(group)
         schedule = make_schedule(c.lr, c.warmup_steps, c.lr_decay_steps,
                                  c.lr_decay_factor)
 
@@ -245,17 +293,29 @@ class Trainer:
         if self.is_text:
             self._init_text(build_opt)
         else:
-            self._init_image(build_opt)
+            self._init_image(build_opt, group)
         if c.overlap_eval and self.n_workers > 1:
             raise NotImplementedError(
                 "overlap_eval over several ranks (an eval pass on a thread "
                 f"beside the training collectives) is not ported yet: {_SYNC}")
-        self._geometry = {"devices": self.n_workers,
-                          "processes": self.n_workers}
+        self._check_fault_plan()
+        self._geometry = elastic.rank_geometry(self.n_workers)
         self.start_step = 0
         if c.resume:
             self._resume()
         self._init_telemetry()
+        if self._elastic_plan is not None:
+            self.telemetry.emit("elastic_resume", step=self.start_step,
+                                **self._elastic_plan.event_fields())
+        # after the telemetry install, so that the detectors see every
+        # record of the run; rank 0 only (bundles live in train_dir)
+        self._flightrec = None
+        if self._flightrec_spec is not None and self.rank == 0:
+            self._flightrec = FlightRecorder(c.train_dir, self.telemetry,
+                                             self._flightrec_spec)
+            logger.info("Flight recorder armed: %s",
+                        self._flightrec_spec.describe())
+        self.last_profile = None  # the --profile window's torch.profiler
         # after the telemetry install: the writer's events land in the
         # run's stream. Rank 0 writes (the state is the same on every rank)
         self._async_ckpt = None
@@ -301,9 +361,69 @@ class Trainer:
             self.device, eval_batches=c.eval_batches,
         )
 
-    def _init_image(self, build_opt) -> None:
+    def _plan_elastic(self, group) -> None:
+        """The elastic resume plan, before the sync is built: the world
+        this launch gives against the checkpoint's recorded geometry
+        (JAX trainer semantics; module docstring). Adopts the derived
+        ``num_workers`` and ``grad_accum`` into the config, which the
+        run's manifest then records."""
         c = self.config
-        self.group, self.device = init_group(self.device, c.num_workers)
+        world = 1 if self.is_text else (
+            group.size() if group is not None else env_ranks()[1])
+        plan = elastic.plan_resume(
+            c.train_dir, world, batch_size=c.batch_size,
+            num_workers=c.num_workers, grad_accum=c.grad_accum,
+            tensor_parallel=c.tensor_parallel, seq_parallel=c.seq_parallel)
+        if plan is None:
+            return
+        if plan.changed and c.strict_geometry:
+            raise elastic.strict_geometry_error(plan, c.train_dir)
+        if plan.num_workers != world:
+            raise ValueError(
+                f"global batch {c.batch_size} gives {plan.num_workers} "
+                f"data-parallel workers on a world of {world} rank(s): "
+                f"launch {plan.num_workers} rank(s)")
+        impossible = c.num_workers is not None and c.num_workers != world
+        if plan.changed or impossible:
+            if not self.is_text:
+                c.num_workers = plan.num_workers
+            c.grad_accum = plan.grad_accum
+        if plan.changed:
+            self._elastic_plan = plan
+            logger.warning("Elastic resume engaged: %s", plan.describe())
+
+    def _check_fault_plan(self) -> None:
+        """JAX trainer's checks of the plan against the built run."""
+        plan = self.fault_plan
+        if plan is None:
+            return
+        bad_rank = plan.max_rank_referenced()
+        if bad_rank >= self.n_workers:
+            raise ValueError(
+                f"fault plan references rank p{bad_rank} but the run has "
+                f"{self.n_workers} data-parallel workers")
+        if any(e.kind == "nan_grad" for e in plan.entries):
+            if not isinstance(self.train_loader, DataLoader):
+                raise ValueError(
+                    "nan_grad faults poison the HOST batch, but data_layout "
+                    "resolved to 'device' (batches are built on the card and "
+                    "never pass through the host); run with "
+                    "data_layout='host' to use nan_grad injection")
+            # the k-th batch of this loader is step start_step + k
+            self.train_loader.host_transform = (
+                lambda k, b: plan.poison_batch(self.start_step + k, b))
+        logger.info("Fault plan: %s", plan.describe())
+
+    def _init_image(self, build_opt, group=None) -> None:
+        c = self.config
+        if group is None:
+            self.group, self.device = init_group(self.device, c.num_workers)
+        else:
+            if c.num_workers is not None and c.num_workers != group.size():
+                raise ValueError(
+                    f"num_workers={c.num_workers} but the group has "
+                    f"{group.size()} rank(s)")
+            self.group = group
         self.rank, self.n_workers = self.group.rank(), self.group.size()
         n = self.n_workers
         if c.batch_size % (n * c.grad_accum):
@@ -525,7 +645,10 @@ class Trainer:
                 RunSupervisor,
             )
 
-            sup = RunSupervisor(c.train_dir, grace=c.heartbeat_grace)
+            sup = RunSupervisor(
+                c.train_dir, grace=c.heartbeat_grace,
+                on_stall=(self._flightrec.notify_stall
+                          if self._flightrec is not None else None))
             sup.extra["geometry"] = self._geometry
 
         def preempt_exit(completed: int):
@@ -537,14 +660,34 @@ class Trainer:
             logger.warning("Preempted after step %d: emergency checkpoint "
                            "written, exiting cleanly", completed)
 
+        plan = self.fault_plan
+        # the --profile window: steps start_step + 2 .. + 1 + profile_steps
+        profile_at = (self.start_step + 1
+                      if c.profile_steps > 0 and self.rank == 0 else None)
+        profile_stop = None
         ok = False
         step = self.start_step - 1  # the last completed step
         try:
             with sup if sup is not None else contextlib.nullcontext():
                 for step in range(self.start_step, total):
+                    if plan is not None:
+                        plan.pre_step(step + 1, rank=self.rank)
                     if self._stop_requested(sup):
                         preempt_exit(step)
                         break
+                    if step == profile_at and profiling.trace_active():
+                        logger.warning("--profile window skipped: a flight "
+                                       "recorder capture holds the profiler")
+                        profile_at = None
+                    if step == profile_at:
+                        flush()
+                        pdir = c.profile_dir or os.path.join(c.train_dir,
+                                                             "profile")
+                        profiling.start_trace(pdir)
+                        profile_stop = step + c.profile_steps
+                        logger.info("Profiling steps %d..%d to %s", step + 1,
+                                    profile_stop, pdir)
+                        window_t0 = time.perf_counter()
                     timer.reset()
                     with timer.phase("data"):
                         batch = self.train_loader.next_batch()
@@ -557,10 +700,25 @@ class Trainer:
                         "input_wait_ms": self.train_loader.last_wait_ms})
                     if (step + 1) % c.log_every == 0 or step + 1 == total:
                         flush()
+                    if profile_stop is not None and step + 1 >= profile_stop:
+                        flush()  # the trace holds whole steps
+                        self.last_profile = profiling.stop_trace()
+                        profile_stop = profile_at = None
+                        window_t0 = time.perf_counter()
                     if c.eval_freq and (step + 1) % c.eval_freq == 0:
                         flush()
                         self._save_periodic(step + 1, timer)
                         window_t0 = time.perf_counter()
+                    if self._flightrec is not None:
+                        # a capture starts or stops between whole steps;
+                        # inside a --profile window it takes no trace
+                        due = self._flightrec.due(step + 1)
+                        if due:
+                            flush()
+                        self._flightrec.tick(step + 1,
+                                             trace_ok=profile_stop is None)
+                        if due:
+                            window_t0 = time.perf_counter()
                     if sup is not None:
                         sup.beat(step + 1)
                         # a signal during the step stops here: the grace
@@ -569,7 +727,20 @@ class Trainer:
                             preempt_exit(step + 1)
                             break
             ok = True
+        except InjectedCrash:
+            # an abrupt failure: checkpoint the last completed step (the
+            # crash fires entering its step) and let it propagate
+            self._emergency_save()
+            self.telemetry.flush(fsync=True)
+            raise
         finally:
+            # an open capture stops its trace and writes its report first
+            # (a failing run is when the bundle matters)
+            if self._flightrec is not None:
+                try:
+                    self._flightrec.finalize(step + 1)
+                except Exception:
+                    logger.exception("flight recorder finalize failed")
             # the last enqueued save publishes before the run is done, and
             # a writer failure fails the run as a sync write would (on the
             # success path; a failing run keeps its own error)
@@ -580,6 +751,13 @@ class Trainer:
                     sup.beat(step + 1)
                 flush()
                 self.telemetry.flush()
+                if profile_stop is not None:  # the run ended in the window
+                    try:
+                        self.last_profile = profiling.stop_trace()
+                    except Exception:
+                        if ok:
+                            raise
+                        logger.exception("stop_trace failed during shutdown")
         return history
 
     def _save_periodic(self, step: int, timer: PhaseTimer) -> None:
@@ -594,7 +772,7 @@ class Trainer:
                 handle = self._async_ckpt.save(
                     self.state, step=step,
                     retain_device_state=c.overlap_eval,
-                    data_state=data_state)
+                    data_state=data_state, fault_plan=self.fault_plan)
             logger.info("Checkpoint step %d handed to the async writer "
                         "(loop stalled %.1f ms)", step, handle.stall_ms)
             if c.overlap_eval:
@@ -603,7 +781,8 @@ class Trainer:
         with timer.phase("checkpoint"):
             path = ckpt.save_checkpoint(c.train_dir, self.state, step=step,
                                         data_state=data_state,
-                                        geometry=self._geometry)
+                                        geometry=self._geometry,
+                                        fault_plan=self.fault_plan)
         if c.keep_last is not None:
             ckpt.gc_checkpoints(c.train_dir, c.keep_last)
         logger.info("Checkpointed step %d to %s", step, path)
@@ -683,7 +862,8 @@ class Trainer:
         try:
             path = ckpt.save_checkpoint(c.train_dir, self.state,
                                         data_state=self._loader_state(),
-                                        geometry=self._geometry)
+                                        geometry=self._geometry,
+                                        fault_plan=self.fault_plan)
             logger.info("Emergency checkpoint: %s", path)
             return path
         except Exception:
@@ -715,6 +895,8 @@ class Trainer:
 
     def close(self) -> None:
         try:
+            if self._flightrec is not None:
+                self._flightrec.close()
             self._finish_background_io(raise_errors=False)
             if self._async_ckpt is not None:
                 self._async_ckpt.close()

@@ -26,6 +26,7 @@ kernels against their plain versions: equal bit for bit.
 """
 
 import importlib.util
+import os
 import pathlib
 
 import numpy as np
@@ -890,3 +891,121 @@ def test_cuda_engine_holds_tf32_off_in_its_forwards_only(card, tmp_path):
         assert engine.retraces() == 0
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def _image_run(device, tmp_path, name):
+    """ResNet-20 f32 on the synthetic CIFAR-10 (host layout: the same
+    numpy draws on either device), 2 steps, then an eval pass."""
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(TrainConfig(
+        network="ResNet20", dataset="Cifar10", batch_size=64,
+        test_batch_size=128, synthetic_size=256, max_steps=2,
+        data_layout="host", train_dir=str(tmp_path / name)), device=device)
+    try:
+        losses = [r["loss"] for r in trainer.train()]
+        ev = trainer.evaluate()
+    finally:
+        trainer.close()
+    return losses, ev
+
+
+@pytest.mark.cuda
+def test_cuda_f32_image_training_matches_the_cpu_with_tf32_at_default(
+        card, tmp_path):
+    """The f32 image path's train and eval steps hold TF32 off (PyTorch's
+    cuDNN default would run the convolutions with a 10-bit mantissa):
+    with the switches at PyTorch's defaults the card's losses and eval
+    metrics equal the CPU's within 1e-4 relative, and the switches are
+    where they were afterwards."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    try:
+        matmul.allow_tf32, cudnn.allow_tf32 = False, True  # the defaults
+        got = _image_run(card, tmp_path, "card")
+        assert (matmul.allow_tf32, cudnn.allow_tf32) == (False, True)
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+    want = _image_run("cpu", tmp_path, "cpu")
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=0)
+    for k in ("loss", "acc1", "acc5"):
+        np.testing.assert_allclose(got[1][k], want[1][k], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_profile_summary_counts_the_flash_and_layernorm_kernels(
+        card, tmp_path):
+    """``--profile 2`` on BertTiny with the flash and LayerNorm kernels:
+    the trace's summary names each kernel, 2 steps' launches of each,
+    equal to the wrappers' counters, and its device time per step is the
+    profile's own device time."""
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import profiling
+
+    trainer = Trainer(TrainConfig(
+        network="BertTiny", dataset="MLMSynth", batch_size=4, seq_len=64,
+        test_batch_size=4, eval_batches=1, max_steps=3, profile_steps=2,
+        optimizer="adam", lr=1e-3, attn_impl="pallas", fused_ln=True,
+        train_dir=str(tmp_path)), device=card)
+    try:
+        kernels.reset_launch_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        L = trainer.model.config.num_layers
+    finally:
+        trainer.close()
+    trace = str(tmp_path / "profile")
+    rows = {}
+    for rs in profiling.summarize_trace(trace, top=5).values():
+        for r in rs:
+            rows[r.name] = rows.get(r.name, 0) + r.count
+    # a wrapper's kernels (either LayerNorm kernel: vectorised or general)
+    for names, wrapper in (
+            (("flash_fwd_3xtf32_kernel",), "flash_attention_fwd"),
+            (("flash_dq_3xtf32_kernel",), "flash_attention_dq"),
+            (("flash_dkv_3xtf32_kernel",), "flash_attention_dkv"),
+            (("ln_fwd_vec_kernel", "ln_fwd_kernel"), "layer_norm"),
+            (("ln_bwd_vec_kernel", "ln_bwd_kernel"), "layer_norm_bwd"),
+            (("ln_bwd_sum_kernel",), "layer_norm_bwd")):
+        got = sum(rows.get(n, 0) for n in names)
+        assert 2 * launches[wrapper] == 3 * got, (names, rows, launches)
+    assert rows["flash_fwd_3xtf32_kernel"] == 2 * L
+    dev = profiling.device_step_time_ms(trace, 2)
+    # device rows of key_averages, less the optimizer's user annotation
+    # (a kernel's name may hold a "#" in its lambda's name) and the
+    # session's lead-in launches
+    prof_ms = sum(e.self_device_time_total
+                  for e in trainer.last_profile.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and not ("#" in e.key and "(" not in e.key)
+                  and "spin_kernel" not in e.key) / 1e3
+    assert dev == pytest.approx(prof_ms / 2, rel=0.02)
+
+
+@pytest.mark.cuda
+def test_cuda_flight_recorder_bundle_holds_a_device_trace(card, tmp_path):
+    from pytorch_distributed_nn_tpu_torch.observability import flightrec
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+    from pytorch_distributed_nn_tpu_torch.utils import profiling
+
+    d = str(tmp_path)
+    trainer = Trainer(TrainConfig(
+        network="LeNet", dataset="MNIST", batch_size=64, synthetic_size=256,
+        test_batch_size=64, max_steps=12, train_dir=d,
+        metrics_path=str(tmp_path / "telemetry.jsonl"), faults="delay@8:1.0s",
+        flightrec="step_regression:warmup=5,capture_steps=2"), device=card)
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    (inc,) = flightrec.list_incidents(d)
+    assert inc["kind"] == "step_regression" and inc["step"] == 8
+    assert inc["has_trace"] and inc["has_report"]
+    summary = profiling.summarize_trace(os.path.join(inc["path"], "trace"))
+    assert summary and sum(r.count for rs in summary.values() for r in rs)
+    with open(os.path.join(inc["path"], "report.md")) as f:
+        assert "GPU 0 stream" in f.read()

@@ -56,6 +56,7 @@ from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
 )
 from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
 from pytorch_distributed_nn_tpu_torch.training.train_step import (
+    build_image_eval_step,
     build_image_train_step,
     create_train_state,
     sync_seed,
@@ -282,3 +283,31 @@ def test_cli_trains_lenet_with_int8_sync_on_the_cpu(tmp_path):
     assert "Validation" in proc.stderr
     assert records[-1]["type"] == "eval_result"
     assert records[-1]["images"] == 256
+
+
+@pytest.mark.parametrize("dtype,held_off", [("float32", True),
+                                            ("bfloat16", False)])
+def test_f32_image_steps_hold_tf32_off_and_give_it_back(dtype, held_off):
+    """PyTorch's cuDNN default runs f32 convolutions in TF32; the f32
+    image steps (train and eval) turn both switches off while they run
+    and restore them after; a bf16 model's steps leave them alone."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    seen = []
+    try:
+        matmul.allow_tf32 = cudnn.allow_tf32 = True
+        model = build_model("LeNet", dtype=dtype)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.register_forward_hook(lambda *a: seen.append(
+            (matmul.allow_tf32, cudnn.allow_tf32)))
+        state = create_train_state(
+            model, lambda ps: build_optimizer("sgd", ps, 0.1), "cpu")
+        x = torch.zeros(4, 28, 28, 1)
+        y = torch.zeros(4, dtype=torch.int64)
+        build_image_train_step(make_grad_sync(None, "local"))(
+            state, (x, y), 0)
+        build_image_eval_step(None)(state, (x, y))
+        assert seen == [(not held_off, not held_off)] * 2
+        assert (matmul.allow_tf32, cudnn.allow_tf32) == (True, True)
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

@@ -241,3 +241,26 @@ def test_chip_smoke_profile_knows_every_kernel_of_the_sources():
                        / "csrc" / f"{lib}.cu").read_text()
                       for lib in kernels.LIBRARIES)
     assert len(names) == sources.count("__global__")
+
+
+def test_fault_profiler_and_recorder_modules_load_no_jax():
+    """The modules of the faults, profiler, flight recorder and elastic
+    resume slice, imported with the trainer, the server and the CLI,
+    bring no JAX module into the process."""
+    mods = ["resilience.faults", "resilience.elastic",
+            "serving.faultinject", "observability.detect",
+            "observability.flightrec", "observability.xplane",
+            "utils.profiling", "utils.precision", "training.trainer",
+            "serving.server", "cli"]
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module("
+                      f"'pytorch_distributed_nn_tpu_torch.{m}')\n"
+                      for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(FORBIDDEN) + ")\nprint(bad)\nsys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=torch_cpu.SUBPROCESS_ENV)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for m in mods:
+        assert (PORT / (m.replace(".", "/") + ".py")).is_file()

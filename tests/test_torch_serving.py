@@ -665,7 +665,7 @@ def test_cli_serve_flags_of_later_items_raise(arts):
 
     for args, item in ((("--slo", "lat_p99<25ms@60s"), "item 6"),
                        (("--registry", "r"), "item 6"),
-                       (("--faults", "http_503@1"), "item 4")):
+                       (("--flightrec", "default"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["serve", "run", "--artifact", arts["LeNet"],
                       "--device", "cpu", *args])
@@ -706,3 +706,114 @@ def test_cli_serve_run_answers_infer_and_drains_on_sigterm(arts, tmp_path):
         records = [json.loads(line) for line in f]
     assert records[0]["kind"] == "manifest"
     assert sum(r.get("kind") == "step" for r in records) == 2
+
+
+# -- injected serving faults (serve run --faults) -----------------------------
+
+FAULT_SPECS = ["slow_infer@1:0.2s:x8,conn_reset@12,http_503@15:x3",
+               "conn_reset@2:x3,http_503@3:x4,slow_infer@5:0.01s",
+               "http_503@40,slow_infer@10:0.5s:x2,slow_infer@11:0.25s:x5"]
+
+
+class _FakeEngine:
+    """``infer`` of one batch: stats as the engines give them."""
+
+    def infer(self, xs):
+        return list(xs), {"batch": len(xs), "infer_ms": 1.0}
+
+
+def _fault_sequence(injector_cls, plan_cls, telemetry, spec, monkeypatch,
+                    module):
+    slept = []
+    monkeypatch.setattr(module.time, "sleep", slept.append)
+    inj = injector_cls(plan_cls.parse(spec), telemetry=telemetry)
+    engine = _FakeEngine()
+    inj.attach_engine(engine)
+    actions = [inj.http_action() for _ in range(40)]
+    batches = [engine.infer([0] * n)[1]["infer_ms"]
+               for n in (1, 1, 3, 2, 1, 5, 1, 1, 4, 1, 2, 1)]
+    return actions, batches, slept, inj.fired
+
+
+@pytest.mark.parametrize("spec", FAULT_SPECS)
+def test_serving_fault_sequence_equals_jax(spec, monkeypatch):
+    from pytorch_distributed_nn_tpu.observability import core as jcore
+    from pytorch_distributed_nn_tpu.resilience.faults import (
+        FaultPlan as JaxPlan,
+    )
+    from pytorch_distributed_nn_tpu.serving import faultinject as jfi
+    from pytorch_distributed_nn_tpu_torch.resilience.faults import FaultPlan
+    from pytorch_distributed_nn_tpu_torch.serving import faultinject as fi
+
+    jtel, tel = jcore.Telemetry(), obs.Telemetry()
+    jseen, seen = [], []
+    jtel.subscribe(jseen.append)
+    tel.subscribe(seen.append)
+    want = _fault_sequence(jfi.ServingFaultInjector, JaxPlan, jtel, spec,
+                           monkeypatch, jfi)
+    got = _fault_sequence(fi.ServingFaultInjector, FaultPlan, tel, spec,
+                          monkeypatch, fi)
+    assert got == want
+    strip = ("time", "mono")
+    assert [{k: v for k, v in r.items() if k not in strip} for r in seen] \
+        == [{k: v for k, v in r.items() if k not in strip} for r in jseen]
+    assert len(seen) == len(FaultPlan.parse(spec).entries)
+
+
+def test_server_applies_injected_faults(lenet):
+    """One sequential client: slow_infer bills its requests' infer_ms,
+    conn_reset closes request 3's connection with no response, http_503
+    answers requests 4 and 5; every entry fires once."""
+    from pytorch_distributed_nn_tpu_torch.resilience.faults import FaultPlan
+    from pytorch_distributed_nn_tpu_torch.serving.faultinject import (
+        ServingFaultInjector,
+    )
+
+    tel = obs.Telemetry()
+    seen = []
+    tel.subscribe(seen.append)
+    inj = ServingFaultInjector(FaultPlan.parse(
+        "slow_infer@1:0.05s:x2,conn_reset@3,http_503@4:x2"), telemetry=tel)
+
+    class Wrapped:  # the module's warm engine stays unwrapped
+        def __getattr__(self, name):
+            return getattr(lenet, name)
+
+    engine = Wrapped()
+    engine.infer = lenet.infer
+    inj.attach_engine(engine)
+    batcher = Batcher(engine, batch_window_s=0.0)
+    server = ServingServer(lenet, batcher, port=0, faults=inj)
+    server.start()
+    row = np.zeros((28, 28, 1)).tolist()
+    out = []
+    try:
+        for _ in range(7):
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=30)
+            try:
+                status, doc, _ = _post(conn, "/v1/infer", {"inputs": [row]})
+                out.append((status, doc.get("infer_ms")))
+            except (http.client.RemoteDisconnected, ConnectionError):
+                out.append(("reset", None))
+            finally:
+                conn.close()
+    finally:
+        server.close()
+        batcher.close()
+    assert [s for s, _ in out] == [200, 200, "reset", 503, 503, 200, 200]
+    assert all(ms[0] >= 50.0 for _, ms in out[:2])
+    assert all(ms[0] < 50.0 for _, ms in out[5:])
+    assert [(r["fault"], r["request"], r["layer"]) for r in seen] == [
+        ("slow_infer", 1, "engine"), ("conn_reset", 3, "http"),
+        ("http_503", 4, "http")]
+
+
+def test_cli_serve_run_refuses_faults_without_a_serving_kind(arts, capsys):
+    from pytorch_distributed_nn_tpu_torch import cli
+
+    assert cli.main(["serve", "run", "--artifact", arts["LeNet"],
+                     "--device", "cpu", "--faults", "crash@3"]) == 2
+    assert "no serving-side entries" in capsys.readouterr().err
+    assert cli.main(["serve", "run", "--artifact", arts["LeNet"],
+                     "--device", "cpu", "--faults", "boom@3"]) == 2

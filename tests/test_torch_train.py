@@ -327,8 +327,8 @@ _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
 
 @pytest.mark.parametrize("field,value", [
     ("sync_mode", "ps"), ("compression", "int8"), ("tensor_parallel", 2),
-    ("seq_parallel", 2), ("num_workers", 2), ("flightrec", "default"),
-    ("profile_steps", 2), ("remat", True), ("faults", "crash@2"),
+    ("seq_parallel", 2), ("num_workers", 2), ("straggler_deadline", 1.0),
+    ("bucket_bytes", 1024), ("remat", True), ("loader_workers", 2),
     ("warm_start", "ckpt"), ("data_path", "shards"), ("kill_ranks", (1,)),
 ])
 def test_unsupported_flags_raise_naming_their_roadmap_item(field, value):
