@@ -3,8 +3,11 @@
 of GptMini, MLM training of BertBase (and GptMini), data-parallel
 ResNet-18/CIFAR-10 training with the int8 gradient collective, the
 checkpoints, resume, polling evaluator and SIGTERM path of the last two,
-single-pass serving (``POST /v1/infer``) of their checkpoints, and the
-training path's faults, flight recorder, profiler and elastic resume.
+single-pass serving (``POST /v1/infer``) of their checkpoints, the
+training path's faults, flight recorder, profiler and elastic resume,
+and the rest of the gradient sync (int8 and bucketed collectives on
+BertBase, topk with error feedback and its resume, the straggler
+simulator).
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
@@ -216,8 +219,26 @@ Phases, each printed on its own line:
    1 emits ``elastic_resume`` (dp 2 -> 1, the global batch kept) and
    continues with finite losses; ``--strict-geometry`` raises naming both
    geometries;
-14. one JSON line listing the kernels (launches on the driven paths of
-   phases 4, 5, 8, 9 and 10, error against the plain version, times,
+14. the gradient sync, each reading beside the card's name and power
+   limit: BertBase as in phase 5 for SYNC_STEPS steps with each of
+   SYNC_RUNS in turns (``--compress-grad none``, ``int8``, ``int8`` with
+   ``--bucket-kb 1024`` and ``topk`` at 0.01), each with exact launch
+   counts a step (flash and LayerNorm as phase 5, and the grouped quantize
+   over the leaves of 16384 elements or more, 64 to a launch: 2 over
+   BertBase's 201 leaves, 7 over its 418 buckets), finite losses and the
+   step ms; one step's gradient synced through the kernel and the plain
+   grouped quantizer, bit for bit (int8, bucketed too); for topk, sent +
+   new residual == gradient + old residual bit for bit and at least k
+   kept in every leaf. Then ResNet-18 as in phase 5 (host layout, cuDNN
+   deterministic) with topk, checkpointed at step 4 and resumed to 8: the
+   restored residuals bit for bit those saved and those the file holds
+   through the JAX-layout converter, the resumed losses within
+   ``FAULT_RESUME_TOL`` of the same run carried on uninterrupted; and
+   ResNet-18 with ``--straggler-deadline 1.0 --faults delay@3:p0:2.0s``:
+   the delay simulated (``fault_injected`` with ``simulated: true``, no
+   sleep, no rank dropped);
+15. one JSON line listing the kernels (launches on the driven paths of
+   phases 4, 5, 8, 9, 10 and 14, error against the plain version, times,
    least possible time), then the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -225,7 +246,7 @@ Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
 f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8, each training run of
-phases 9 and 10) and read just after; the evaluator subprocess counts
+phases 9, 10 and 14) and read just after; the evaluator subprocess counts
 its own.
 
 It needs one card and exits non-zero, printing no result, without one,
@@ -1577,7 +1598,7 @@ def resnet_sync_check(trainer, reference):
     grads = [p.grad.detach().clone() for p in model.parameters()]
     model.zero_grad(set_to_none=True)
     seed = sync_seed(12345, 0)
-    got = trainer.grad_sync(grads, seed)
+    got, _ = trainer.grad_sync(grads, None, seed)
     quant_seed = compression.leaf_seeds(seed, 2)[1]
     want = compression.int8_psum_mean(
         grads, quant_seed, trainer.group,
@@ -3210,6 +3231,373 @@ def elastic_phase(repo, root):
             "before": [before[s]["loss"] for s in sorted(before)]}
 
 
+# -- phase 14: the gradient sync: int8, buckets, topk, the simulator --------
+
+#: BertBase steps of each phase-14 sync run (the first two, warming the
+#: libraries and the allocator, left out of the step time)
+SYNC_STEPS = 12
+SYNC_BUCKET_KB = 1024
+SYNC_TOPK_RATIO = 0.01
+#: BertBase's phase-14 runs, in turns: (label, TrainConfig fields)
+SYNC_RUNS = (("none", {}), ("int8", {"compression": "int8"}),
+             (f"int8, --bucket-kb {SYNC_BUCKET_KB}",
+              {"compression": "int8", "bucket_bytes": SYNC_BUCKET_KB * 1024}),
+             (f"topk {SYNC_TOPK_RATIO}",
+              {"compression": "topk", "topk_ratio": SYNC_TOPK_RATIO}))
+#: ResNet-18 topk: the checkpoint at step 4, the resume to step 8
+TOPK_SAVE_STEP, TOPK_STEPS = 4, 8
+#: ResNet-18 with the straggler simulator: rank 0's simulated 2 s delay
+#: at step 3 against a 1 s deadline (min_keep keeps the only rank)
+STRAGGLER_FLAGS = {"straggler_deadline": 1.0, "faults": "delay@3:p0:2.0s"}
+STRAGGLER_STEPS = 5
+
+
+def quant_launches(sizes):
+    """Grouped quantize launches a step for int8 leaves (or buckets) of
+    these sizes: those of QUANT_KERNEL_MIN_SIZE elements or more,
+    QUANT_GROUP_LEAVES to a launch."""
+    from pytorch_distributed_nn_tpu_torch.ops.compression import (
+        QUANT_KERNEL_MIN_SIZE,
+    )
+    from pytorch_distributed_nn_tpu_torch.ops.kernels import (
+        QUANT_GROUP_LEAVES,
+    )
+
+    big = sum(n >= QUANT_KERNEL_MIN_SIZE for n in sizes)
+    return -(-big // QUANT_GROUP_LEAVES)
+
+
+def bucket_sizes(sizes, bucket_bytes):
+    """The f32 buckets ``flatten_buckets`` cuts these leaves into."""
+    total, per = sum(sizes), bucket_bytes // 4
+    return [min(per, total - o) for o in range(0, total, per)]
+
+
+def bert_grads(trainer):
+    """One step's gradients of the trainer's BertBase at its weights and
+    next batch (the global masked loss), the parameters' .grad left
+    empty."""
+    from pytorch_distributed_nn_tpu_torch.ops.metrics import (
+        make_global_masked_cross_entropy,
+    )
+
+    model = trainer.model
+    tokens, labels = trainer.train_loader.next_batch()
+    model.train()
+    model.zero_grad(set_to_none=True)
+    make_global_masked_cross_entropy(trainer.group)(
+        model(tokens), labels).backward()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def int8_sync_check(trainer, reference, grads):
+    """The trainer's int8 GradSync (kernel) against the same collective
+    with the plain grouped quantizer, on the same gradients and seed,
+    buckets and all: bit for bit. Returns the synced leaves' count."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import compression as C
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        sync_seed,
+    )
+
+    seed = sync_seed(12345, 0)
+    got, _ = trainer.grad_sync(grads, None, seed)
+    leaves, meta = grads, None
+    bucket = trainer.config.bucket_bytes
+    if bucket:
+        leaves, meta = C.flatten_buckets(grads, bucket)
+    want = C.int8_psum_mean(
+        leaves, C.leaf_seeds(seed, 2)[1], trainer.group,
+        group_quantizer=reference.quantize_int8_scaled_group)
+    if meta is not None:
+        want = C.unflatten_buckets(want, meta)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            fail(f"phase 14 int8 sync check ({trainer.config.bucket_bytes} "
+                 f"bucket bytes): leaf {i} ({tuple(a.shape)}) differs "
+                 f"between the kernel and the plain quantizer in "
+                 f"{int((a != b).sum())} elements")
+    return len(leaves)
+
+
+def topk_sync_check(trainer, grads):
+    """The trainer's topk GradSync at its live residuals: for every leaf
+    sent + new residual == gradient + old residual bit for bit (one rank:
+    the synced gradient is what it sent), sent == (gradient + residual) x
+    its mask, and the mask keeps at least k coordinates. Returns the
+    least (kept - k) over the leaves and the kept share overall."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import compression as C
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        sync_seed,
+    )
+
+    ratio = trainer.config.topk_ratio
+    old = [e.clone() for e in trainer.state.ef_state]
+    if not any(bool(e.any()) for e in old):
+        fail("phase 14 topk: the residuals are all zero after the run")
+    sent, new = trainer.grad_sync(grads, old, sync_seed(12345, 0))
+    slack, kept_total = None, 0
+    for i, (g, e, s_, r) in enumerate(zip(grads, old, sent, new)):
+        acc = g + e
+        mask = C.topk_mask_leaf(acc, ratio)
+        kept = int(mask.sum())
+        k = max(1, int(acc.numel() * ratio + 0.999999))
+        if not torch.equal(s_ + r, acc) or not torch.equal(s_, acc * mask):
+            fail(f"phase 14 topk: leaf {i} ({tuple(g.shape)}): sent + "
+                 "residual is not gradient + old residual bit for bit")
+        if kept < k:
+            fail(f"phase 14 topk: leaf {i} keeps {kept} < k = {k}")
+        slack = kept - k if slack is None else min(slack, kept - k)
+        kept_total += kept
+    return slack, kept_total / sum(g.numel() for g in grads)
+
+
+def bert_sync_run(kernels, reference, seed, label, flags):
+    """BertBase (phase 5's configuration) for SYNC_STEPS steps with the
+    sync ``flags``: exact launches a step (flash, LayerNorm and the
+    grouped quantize), finite losses, then the sync check of its kind."""
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(train_config("BertBase", SYNC_STEPS, seed=seed,
+                                   **flags))
+    L = trainer.model.config.num_layers
+    sizes = [p.numel() for p in trainer.model.parameters()]
+    c = trainer.config
+    quant = 0
+    if c.compression == "int8":
+        quant = quant_launches(bucket_sizes(sizes, c.bucket_bytes)
+                               if c.bucket_bytes else sizes)
+    per_step = {"flash_attention_fwd": L, "flash_attention_dq": L,
+                "flash_attention_dkv": L, "layer_norm": 2 * L + 2,
+                "layer_norm_bwd": 2 * L + 2, "quantize_int8_scaled": quant}
+    out = {"label": label, "per_step": per_step, "leaves": len(sizes)}
+    try:
+        kernels.reset_launch_counts()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        expect_launches(kernels, launches, per_step, SYNC_STEPS,
+                        f"phase 14 BertBase {label}")
+        losses = [r["loss"] for r in history]
+        if len(losses) != SYNC_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"phase 14 BertBase {label} losses {losses}")
+        if c.compression != "none":
+            grads = bert_grads(trainer)
+            if c.compression == "int8":
+                out["synced"] = int8_sync_check(trainer, reference, grads)
+            else:
+                out["slack"], out["kept_share"] = topk_sync_check(trainer,
+                                                                  grads)
+            del grads
+    finally:
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    ms = sorted(r["step_ms"] for r in history[2:])
+    out.update(losses=losses, launches=launches, step_ms=ms[len(ms) // 2],
+               step_ms_all=[r["step_ms"] for r in history])
+    return out
+
+
+def topk_resume_run(kernels, seed, root):
+    """ResNet-18 (phase 5's configuration, host layout, cuDNN
+    deterministic) with topk: checkpoint at TOPK_SAVE_STEP, a resume from
+    it to TOPK_STEPS (its residuals bit for bit those saved, and through
+    the JAX-layout converter those of the file), and the same trainer run
+    on uninterrupted to TOPK_STEPS, its image loader restarted where the
+    resume restarts it: the losses within FAULT_RESUME_TOL."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.data.datasets import load_dataset
+    from pytorch_distributed_nn_tpu_torch.data.loader import DataLoader
+    from pytorch_distributed_nn_tpu_torch.models.convert import ef_rows_of
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    d = os.path.join(root, "topk")
+    base = dataclasses.replace(resnet_config("topk", TOPK_STEPS, seed),
+                               data_layout="host", topk_ratio=SYNC_TOPK_RATIO)
+    saved_flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = Trainer(dataclasses.replace(base, max_steps=TOPK_SAVE_STEP,
+                                            train_dir=d,
+                                            eval_freq=TOPK_SAVE_STEP))
+        kernels.reset_launch_counts()
+        try:
+            before = first.train()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            saved = [e.detach().clone() for e in first.state.ef_state]
+            path = ckpt.checkpoint_path(d, TOPK_SAVE_STEP)
+            raw = ckpt.load_raw(path)["ef_state"]
+            rows = ef_rows_of(first.model, raw)
+            names = [n for n, _ in first.model.named_parameters()]
+            if len(rows) != 1 or any(
+                    not torch.equal(rows[0][n], e.cpu())
+                    for n, e in zip(names, saved)):
+                fail("phase 14 topk: the file's ef_state (through the "
+                     "JAX-layout converter) is not the saved residuals")
+            resumed_t = Trainer(dataclasses.replace(base, train_dir=d,
+                                                    resume=True))
+            try:
+                if resumed_t.start_step != TOPK_SAVE_STEP:
+                    fail(f"phase 14 topk resume started at "
+                         f"{resumed_t.start_step}")
+                diff = [n for n, a, b in zip(names, resumed_t.state.ef_state,
+                                             saved) if not torch.equal(a, b)]
+                if diff:
+                    fail(f"phase 14 topk: restored residuals differ from "
+                         f"those saved at {diff[:5]}")
+                kernels.reset_launch_counts()
+                resumed = resumed_t.train()
+                torch.cuda.synchronize()
+                resume_launches = kernels.launch_counts()
+            finally:
+                resumed_t.close()
+            c = first.config
+            first.train_loader.close()
+            first.train_loader = DataLoader(
+                load_dataset(c.dataset, train=True, data_dir=c.data_dir,
+                             synthetic_size=c.synthetic_size),
+                c.batch_size, shuffle=True, seed=c.seed, device=first.device)
+            first.start_step = first.state.step
+            c.max_steps, c.eval_freq = TOPK_STEPS, 0
+            after = first.train()
+        finally:
+            first.close()
+    finally:
+        torch.backends.cudnn.deterministic = saved_flag
+    expect_launches(kernels, launches, {}, 1, "phase 14 ResNet18 topk")
+    expect_launches(kernels, resume_launches, {}, 1,
+                    "phase 14 ResNet18 topk resumed")
+    got, want = [r["loss"] for r in resumed], [r["loss"] for r in after]
+    if [r["step"] for r in resumed] != list(range(TOPK_SAVE_STEP + 1,
+                                                 TOPK_STEPS + 1)) \
+            or not all(map(math.isfinite, got + [r["loss"] for r in before])):
+        fail(f"phase 14 topk resumed steps {[r['step'] for r in resumed]}: "
+             f"{got}")
+    err = max(abs(a - b) for a, b in zip(got, want))
+    if not err <= FAULT_RESUME_TOL:
+        fail(f"phase 14 topk resumed losses {got} against the "
+             f"uninterrupted {want}: max abs diff {err} (tol "
+             f"{FAULT_RESUME_TOL})")
+    nonzero = sum(int((e != 0).sum()) for e in saved)
+    return {"losses": [r["loss"] for r in before] + got, "resume_err": err,
+            "residual_nonzero": nonzero, "leaves": len(saved)}
+
+
+def straggler_run(kernels, seed, root):
+    """ResNet-18 (phase 5's configuration) with STRAGGLER_FLAGS at world
+    size 1: one ``fault_injected`` at step 3 with ``simulated: true``,
+    ``straggler_dropped`` 0 every step (min_keep keeps rank 0), one
+    quantize launch a step, and no sleep: step 3's wall within its
+    neighbours' spread, far below the 2 s delay."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    stream = os.path.join(root, "straggler.jsonl")
+    trainer = Trainer(dataclasses.replace(
+        resnet_config("int8", STRAGGLER_STEPS, seed), metrics_path=stream,
+        **STRAGGLER_FLAGS))
+    kernels.reset_launch_counts()
+    try:
+        history = trainer.train()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        trainer.close()
+    expect_launches(kernels, launches, {"quantize_int8_scaled": 1},
+                    STRAGGLER_STEPS, "phase 14 ResNet18 straggler run")
+    fired = [(r["step"], r.get("simulated")) for r in read_stream(stream)
+             if r.get("type") == "fault_injected"]
+    dropped = [r["straggler_dropped"] for r in history]
+    ms = [r["step_ms"] for r in history]
+    arrival = history[2]["straggler_arrival_max"]
+    if fired != [(3, True)] or any(dropped) or not arrival > 2.0:
+        fail(f"phase 14 straggler run: fault_injected {fired}, dropped "
+             f"{dropped}, step 3's slowest arrival {arrival}")
+    spread = max(ms[1], ms[3])
+    if not ms[2] < 1000.0 or not ms[2] <= 2 * spread:
+        fail(f"phase 14 straggler run: step 3 took {ms[2]} ms against "
+             f"{ms[1]} and {ms[3]} beside it: the delay slept")
+    return {"fired": fired, "dropped": dropped, "step_ms": ms,
+            "arrival_max": arrival, "skew": history[2]["straggler_skew"],
+            "launches": launches}
+
+
+def sync_phase(kernels, reference, seed, smi, root):
+    """Phase 14: BertBase with each of SYNC_RUNS in turns, the ResNet-18
+    topk resume and the straggler run. Returns the facts and the
+    launches of the driven paths."""
+    import torch
+
+    runs = []
+    for label, flags in SYNC_RUNS:
+        r = bert_sync_run(kernels, reference, seed, label, flags)
+        runs.append(r)
+        extra = ""
+        if "synced" in r:
+            extra = (f"; one step's gradient synced through the kernel and "
+                     f"the plain grouped quantizer over {r['synced']} "
+                     f"{'buckets' if 'bucket' in label else 'leaves'}: bit "
+                     "for bit equal")
+        if "slack" in r:
+            extra = (f"; sent + new residual == gradient + old residual bit "
+                     f"for bit in all {r['leaves']} leaves, each keeping >= "
+                     f"k (least kept - k: {r['slack']}), kept share "
+                     f"{r['kept_share']:.6f}")
+        log(f"phase 14 BertBase {label} ({smi}; B=16, L=512, bf16, adam, "
+            f"flash + fused LN, one NCCL rank): losses "
+            f"{[round(x, 4) for x in r['losses']]}; launches per step "
+            f"{r['per_step']} (exact over {SYNC_STEPS} steps); step "
+            f"{r['step_ms']:.3f} ms (median of steps 3-{SYNC_STEPS}; all "
+            f"{[round(x, 3) for x in r['step_ms_all']]})" + extra)
+    none_ms = runs[0]["step_ms"]
+    log(f"phase 14 BertBase step ms by sync ({smi}): "
+        + "; ".join(f"{r['label']} {r['step_ms']:.3f} "
+                    f"({r['step_ms'] - none_ms:+.3f} against none)"
+                    for r in runs))
+    topk = topk_resume_run(kernels, seed, root)
+    torch.cuda.empty_cache()
+    log(f"phase 14 ResNet18 topk {SYNC_TOPK_RATIO} ({smi}; B={RESNET_B}, "
+        f"bf16, host layout, cuDNN deterministic): checkpoint at step "
+        f"{TOPK_SAVE_STEP} ({topk['residual_nonzero']} nonzero residual "
+        f"coordinates over {topk['leaves']} leaves), resumed to "
+        f"{TOPK_STEPS}: the restored residuals bit for bit those saved, "
+        f"and the file's ef_state through the JAX-layout converter too; "
+        f"losses {[round(x, 4) for x in topk['losses']]}, resumed against "
+        f"the uninterrupted run max abs diff {topk['resume_err']:.3e} "
+        f"(tol {FAULT_RESUME_TOL})")
+    strag = straggler_run(kernels, seed, root)
+    log(f"phase 14 ResNet18 --straggler-deadline 1.0 --faults "
+        f"{STRAGGLER_FLAGS['faults']} ({smi}): fault_injected "
+        f"{strag['fired']} (simulated); straggler_dropped "
+        f"{strag['dropped']}; step 3's slowest simulated arrival "
+        f"{strag['arrival_max']:.3f} s, skew {strag['skew']:.3f}; step ms "
+        f"{[round(x, 3) for x in strag['step_ms']]}: no sleep")
+    launches = {name: sum(r["launches"][name] for r in runs)
+                + strag["launches"][name] for name in kernels.KERNELS}
+    return {"bert": runs, "topk": topk, "straggler": strag,
+            "launches": launches}
+
+
 # -- --step-times: this checkout's training steps, nothing checked ---------
 
 STEP_TIMES_STEPS = 40
@@ -4003,7 +4391,10 @@ def main() -> int:
         prof = profile_phase(kernels, args.seed, root)
         tf32 = tf32_phase(repo, root)
         elastic = elastic_phase(repo, root)
+        # -- 14. the gradient sync ----------------------------------------
+        sync = sync_phase(kernels, reference, args.seed, smi, root)
     report["serving"] = serving
+    report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
                   tf32=tf32, elastic=elastic)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
@@ -4066,7 +4457,8 @@ def main() -> int:
         f"{elastic['losses']}; --strict-geometry: {elastic['strict']}")
     for e in entries:
         e["launches"] += (faults["launches"].get(e["name"], 0)
-                          + prof["launches"].get(e["name"], 0))
+                          + prof["launches"].get(e["name"], 0)
+                          + sync["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(
@@ -4077,7 +4469,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2, default=str)
 
-    # -- 14. result lines -------------------------------------------------
+    # -- 15. result lines -------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -8,15 +8,22 @@ trains an image model of the CNN zoo, data-parallel over the torchrun
 world (``torchrun --nproc-per-node N -m pytorch_distributed_nn_tpu_torch
 train --num-workers N ...``; one rank without torchrun), with the JAX
 package's gradient sync flags (``--sync-mode``, ``--num-aggregate``,
-``--kill-ranks``, ``--compress-grad none|int8``, ``--bn-stats-sync``)
-and data flags (``--data-layout``, ``--data-dir``, ``--synthetic-size``).
+``--kill-ranks``, ``--compress-grad none|int8|topk``, ``--topk-ratio``,
+``--bucket-kb``, ``--straggler-deadline``, ``--straggler-min-keep``,
+``--bn-stats-sync``) and data flags (``--data-layout``, ``--data-dir``,
+``--synthetic-size``). ``--multihost`` requires the torchrun environment
+(``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) and retries the rendezvous store, as the JAX CLI
+retries ``jax.distributed.initialize``.
 
     python -m pytorch_distributed_nn_tpu_torch train --network BertBase \
         --dataset MLMSynth --optimizer adam --learning-rate 1e-4 \
         --attn-impl pallas --fused-ln --dtype bfloat16 --batch-size 16 \
         --max-steps N [--device cpu] [...]
 
-trains a text model on one device. Both take the JAX package's ``train``
+trains a text model, data-parallel over the same world with the same
+sync flags (the masked-LM loss over the global masked count). Both take
+the JAX package's ``train``
 flags (same names, defaults and meanings, so a command line moves across
 unchanged) and run ``train()`` then ``evaluate()``. ``--attn-impl
 pallas`` selects the hand-written flash kernel, ``full`` plain attention
@@ -440,10 +447,6 @@ def train_config(args):
     builds it."""
     from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet: ROADMAP Queue 1 item 2 "
-            "(gradient sync over torch.distributed)")
     return TrainConfig(
         network=args.network, dataset=args.dataset,
         batch_size=args.batch_size, test_batch_size=args.test_batch_size,
@@ -490,7 +493,8 @@ def _train(args) -> int:
                         format="%(asctime)s %(name)s: %(message)s")
     if args.cmd == "single":  # the JAX main_single: one rank, no sync
         args.sync_mode, args.num_workers = "local", 1
-    trainer = Trainer(train_config(args), device=args.device)
+    trainer = Trainer(train_config(args), device=args.device,
+                      multihost=args.multihost)
     try:
         trainer.train()
         trainer.evaluate()
@@ -618,8 +622,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     _add_train_flags(sub.add_parser(
-        "train", help="train an image model (data-parallel) or a text "
-                      "model (one device)"))
+        "train", help="train an image or a text model, data-parallel"))
     _add_train_flags(sub.add_parser(
         "single", help="the single-machine baseline: train on one rank "
                        "with no sync"))

@@ -11,7 +11,10 @@ stream, and a fixed eval set drawn in canonical 512-sequence chunks.
 
 Special ids follow BERT conventions: 0=[PAD] 1=[CLS] 2=[SEP] 3=[MASK];
 real tokens are ids >= NUM_SPECIAL. ``MLMLoader`` moves batches to the
-trainer's device as int64 tensors.
+trainer's device as int64 tensors; over several ranks every rank draws
+the same global batch and rank r of n takes its rows ``[r*B/n,
+(r+1)*B/n)`` (the JAX ``batch_sharding`` split), so the stream's
+position, resume and skip are the same on every rank.
 
 The training stream's position is one counter: ``skip(n)`` fast-forwards
 it, and ``state()`` / ``restore()`` carry it through a checkpoint's
@@ -164,14 +167,21 @@ class MLMBatches:
 
 
 class MLMLoader:
-    """The trainer's view of :class:`MLMBatches`: batches as int64
-    tensors on ``device``; the fixed eval set moved there once and kept.
+    """The trainer's view of :class:`MLMBatches`: this rank's rows of
+    each global batch (``rank`` of ``world``) as int64 tensors on
+    ``device``; the fixed eval set moved there once and kept.
     ``last_wait_ms`` is the time the last ``next_batch`` took (the
     batch is generated on the calling thread, so all of it is wait)."""
 
     def __init__(self, batches: MLMBatches, device,
-                 steps_per_epoch: int = 100, eval_batches: int = 64):
+                 steps_per_epoch: int = 100, eval_batches: int = 64,
+                 rank: int = 0, world: int = 1):
+        if batches.batch_size % world:
+            raise ValueError(f"global batch {batches.batch_size} not "
+                             f"divisible by {world} ranks")
         self._batches = batches
+        per = batches.batch_size // world
+        self._rows = slice(rank * per, (rank + 1) * per)
         self.device = torch.device(device)
         self.steps_per_epoch = steps_per_epoch
         self._eval_batches = eval_batches
@@ -194,7 +204,8 @@ class MLMLoader:
         self._batches.restore(state)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a.astype(np.int64)).to(self.device)
+        return torch.from_numpy(a[self._rows].astype(np.int64)).to(
+            self.device)
 
     def next_batch(self) -> Tuple[torch.Tensor, torch.Tensor]:
         t0 = time.perf_counter()

@@ -28,11 +28,14 @@ Both directions copy values exactly (transposes and reshapes only).
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Dict
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _QKV = ("query", "key", "value")
 _LNS = ("ln_attn", "ln_mlp")
@@ -231,11 +234,19 @@ def state_dict_to_cnn(state_dict: Dict[str, torch.Tensor]):
 #               AdamState: count, mu, nu,   optim.Adam's m, v, v_max
 #                 nu_max tree | None          (amsgrad)
 #   batch_stats {<bn>: {mean, var}} | {}    BatchNorm running_mean/var
-#   ef_state    None                        (topk error feedback: not ported)
+#   ef_state    params tree, each leaf      TrainState.ef_state: this rank's
+#               (n, *shape): every          row (topk error feedback), or
+#               replica's residual | None   None without topk
 #
-# The optimizer's trees have the params tree's structure. Before an
-# optimizer's first update the JAX state holds zeros and the torch one
-# nothing; both start the same way from either.
+# The optimizer's trees and each ef_state row have the params tree's
+# structure. Before an optimizer's first update the JAX state holds zeros
+# and the torch one nothing; both start the same way from either. A save
+# over several ranks stacks every rank's residuals (``ef_rows``, gathered
+# by the trainer); a restore takes this rank's row, resets the residuals
+# to zero (with a warning) for a file of another replica count when asked
+# to, and otherwise raises naming both geometries, as the JAX
+# ``restore_resharded`` and ``_check_ef_geometry`` do. A file without
+# residuals restores zero ones.
 
 
 def _sorted(tree):
@@ -275,13 +286,18 @@ def _opt_kind(optimizer) -> str:
     raise TypeError(f"no JAX optimizer state for {type(optimizer).__name__}")
 
 
-def train_state_tensors(state):
+def train_state_tensors(state, ef_rows=None):
     """``(layout, tensors)`` of a port ``TrainState``: its live tensors,
-    flat, keyed ``params/<name>``, ``batch_stats/<name>``, and
-    ``<momentum_buf|mu|nu|nu_max>/<name>`` for the optimizer's state, and
-    the small facts :func:`train_state_to_flax` needs besides them. The
-    tensors are the state's own (a caller that keeps them past the next
-    step clones them)."""
+    flat, keyed ``params/<name>``, ``batch_stats/<name>``,
+    ``<momentum_buf|mu|nu|nu_max>/<name>`` for the optimizer's state and
+    ``ef_state/<name>`` for the residuals, (n, *shape) with every
+    replica's row, and the small facts :func:`train_state_to_flax` needs
+    besides them. ``ef_rows`` (one (n, *shape) tensor per parameter) is
+    the residuals gathered from every rank; without it a state of one
+    replica gives its own, and one of several raises; an empty sequence
+    leaves them out. The tensors are the
+    state's own (a caller that keeps them past the next step clones
+    them)."""
     model, sched = state.model, state.optimizer
     opt = sched.optimizer
     kind = _opt_kind(opt)
@@ -314,6 +330,19 @@ def train_state_tensors(state):
             slot("nu_max", "v_max")
     layout["cnn"] = is_cnn(model)
     layout["num_heads"] = None if layout["cnn"] else model.config.num_heads
+    layout["ef"] = None
+    ef = getattr(state, "ef_state", None)
+    if ef is not None:
+        if ef_rows is None:
+            if state.replicas != 1:
+                raise ValueError(
+                    f"a state of {state.replicas} replicas saves the "
+                    "residuals of every rank: pass the gathered ef_rows")
+            ef_rows = [e.detach()[None] for e in ef]
+        if len(ef_rows):  # an empty sequence leaves the residuals out
+            for (n, _), rows in zip(named, ef_rows):
+                tensors["ef_state/" + n] = rows
+            layout["ef"] = int(ef_rows[0].shape[0])
     return layout, tensors
 
 
@@ -343,8 +372,61 @@ def train_state_to_flax(layout: dict, tensors: dict) -> dict:
                      "nu": _named_to_tree(layout, role("nu")),
                      "nu_max": _named_to_tree(layout, role("nu_max"))
                      if layout["amsgrad"] else None}
+    ef_state = None
+    if layout.get("ef") is not None:
+        rows = role("ef_state")
+        ef_state = _stack_trees([
+            _named_to_tree(layout, {k: v[r] for k, v in rows.items()})
+            for r in range(layout["ef"])])
     return {"step": np.asarray(layout["step"], np.int32), "params": p_tree,
-            "opt_state": opt_state, "batch_stats": stats, "ef_state": None}
+            "opt_state": opt_state, "batch_stats": stats,
+            "ef_state": ef_state}
+
+
+def _stack_trees(trees):
+    """One tree whose leaves stack the trees' leaves on a new first axis
+    (a view for one tree)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if len(trees) == 1:
+        return np.asarray(first)[None]
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def _unstack_tree(tree, r: int):
+    """Row ``r`` of every leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _unstack_tree(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+class GeometryMismatch(ValueError):
+    """A checkpoint's error-feedback residuals are of another replica
+    count than the live run's: a run geometry to fix, not a corrupt
+    file."""
+
+
+def _ef_mismatch(where: str, got, replicas: int) -> str:
+    """The JAX ``_check_ef_geometry`` message."""
+    rs = [tuple(np.shape(a)) for _, a in _leaves(got)][:1]
+    ts = [(replicas, *rs[0][1:])] if rs else []
+    return (f"{where}: checkpoint geometry mismatch — the error-feedback "
+            f"state was saved with per-replica shapes {rs}... but the live "
+            f"mesh expects {ts}... (checkpoint written on "
+            f"{{'data-parallel replicas': {rs[0][0] if rs else '?'}}}; see "
+            "the live run's mesh). Resume on the original geometry "
+            "(--strict-geometry documents this contract), or let elastic "
+            "resume reshard-on-load: --resume without --strict-geometry")
+
+
+def ef_rows_of(model, raw_ef) -> list:
+    """A checkpoint's ``ef_state`` tree as every replica's residuals in
+    the port's layout: a list over replicas of ``{parameter name:
+    tensor}``."""
+    n = next(iter(_leaves(raw_ef)))[1].shape[0]
+    return [_tree_to_named(model, _unstack_tree(raw_ef, r))
+            for r in range(n)]
 
 
 def _expect_keys(what: str, got: dict, want) -> None:
@@ -363,19 +445,25 @@ def _check_shapes(what: str, got: dict, want: dict) -> None:
 
 
 @torch.no_grad()
-def load_train_state(state, tree: dict, params_only: bool = False) -> None:
+def load_train_state(state, tree: dict, params_only: bool = False,
+                     ef: str = "raise", ef_rows: list = None,
+                     where: str = "checkpoint") -> None:
     """Copy a JAX ``TrainState`` state dict (numpy leaves) into the port's
     ``state`` in place: parameters, BatchNorm statistics and the step,
-    and, unless ``params_only``, the optimizer's state and count. Raises,
-    before changing anything, on a key the state does not have or lacks
-    and on a shape it does not have, as flax's ``from_state_dict``
+    and, unless ``params_only``, the optimizer's state and count, and
+    this rank's row of the error-feedback residuals (a state with topk).
+    ``ef`` says what a file of another replica count does: ``"raise"``
+    (the JAX ``_check_ef_geometry``), ``"reset"`` (zero residuals and a
+    warning, the JAX ``restore_resharded``), or ``"skip"`` (the residuals
+    are left alone: another rank scatters them). A list given as
+    ``ef_rows`` receives every replica's residuals (:func:`ef_rows_of`).
+    Raises, before changing anything, on a key the state does not have or
+    lacks and on a shape it does not have, as flax's ``from_state_dict``
     refuses a tree that is not its template's."""
     _expect_keys("state", tree, ("step", "params", "opt_state",
                                  "batch_stats", "ef_state"))
-    if tree["ef_state"] is not None:
-        raise ValueError("the checkpoint holds topk error-feedback state, "
-                         "which the port does not run (ROADMAP Queue 1 "
-                         "item 2)")
+    if ef not in ("raise", "reset", "skip"):
+        raise ValueError(f"unknown ef mode {ef!r}")
     model, sched = state.model, state.optimizer
     if is_cnn(model):
         sd = cnn_to_state_dict(tree["params"], tree["batch_stats"])
@@ -421,8 +509,32 @@ def load_train_state(state, tree: dict, params_only: bool = False) -> None:
             named[n]: ({**extra, **{k: got[k][n] for k in roles}}
                        if count and roles else {})
             for n in named}
+    new_ef = None
+    live_ef = getattr(state, "ef_state", None)
+    if not params_only and live_ef is not None and ef != "skip":
+        new_ef = [torch.zeros_like(e) for e in live_ef]
+        raw = tree["ef_state"]
+        if raw is not None:
+            rows = ef_rows_of(model, raw)
+            if len(rows) == state.replicas:
+                for row in rows:
+                    _check_shapes("ef_state", row, named)
+                mine = rows[state.rank]
+                new_ef = [mine[n].to(e.device, e.dtype)
+                          for n, e in zip(named, live_ef)]
+                if ef_rows is not None:
+                    ef_rows.extend(rows)
+            elif ef == "raise":
+                raise GeometryMismatch(_ef_mismatch(where, raw,
+                                                    state.replicas))
+            else:
+                logger.warning("%s: EF residuals reset — saved for a "
+                               "different data-parallel degree (%d vs live "
+                               "%d)", where, len(rows), state.replicas)
     model.load_state_dict(sd, strict=True)
     state.step = int(tree["step"])
+    if new_ef is not None:
+        state.ef_state = new_ef
     if new_opt_state is not None:
         opt.state.clear()
         opt.state.update(new_opt_state)

@@ -20,8 +20,8 @@ Detector catalogue (``DETECTOR_KINDS``):
   past the grace window), also delivered through the direct
   ``RunSupervisor`` hook.
 - ``straggler_burst`` — ``count`` distinct steps with ``straggler_drop``
-  events inside a sliding ``window`` of steps (the port emits none until
-  ROADMAP Queue 1 item 2 ports the straggler simulator).
+  events inside a sliding ``window`` of steps (the trainer emits one for
+  each step whose simulated stragglers were dropped).
 - ``nonfinite`` — ``count`` ``nonfinite_skip`` events inside ``window``
   steps.
 - ``ckpt_stall`` — a ``checkpoint_write`` whose loop stall exceeds

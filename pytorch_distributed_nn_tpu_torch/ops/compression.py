@@ -1,15 +1,19 @@
 """Gradient compression fused around the collective, over
-``torch.distributed``: the port of ``psum_mean``, ``_int8_quantize_leaf``
-and ``int8_psum_mean`` of ``pytorch_distributed_nn_tpu/ops/compression.py``,
-plus the host-side int8 weight codec of serving artifacts
-(``quantize_int8_host`` for the exporter, ``dequantize_int8_host`` for the
-reader).
+``torch.distributed``: the port of ``psum_mean``, ``_int8_quantize_leaf``,
+``int8_psum_mean``, the top-k sparsification with error feedback
+(``topk_mask_leaf``, ``topk_compress_ef``, ``init_ef_state``) and the
+gradient buckets (``flatten_buckets``, ``unflatten_buckets``) of
+``pytorch_distributed_nn_tpu/ops/compression.py``, plus the host-side int8
+weight codec of serving artifacts (``quantize_int8_host`` for the
+exporter, ``dequantize_int8_host`` for the reader).
 
 ``int8``: stochastic-rounded int8 quantization with a scale shared across
 ranks (one ``all_reduce(MAX)`` of the vector of every leaf's amax, the JAX
 per-leaf ``lax.pmax``), so the ranks' int8 payloads are summable; the
 payload is cast to int32 before the ``all_reduce(SUM)``, as the JAX
-package casts before its psum.
+package casts before its psum. Every sum over the ranks is one collective
+of one flat buffer (:func:`psum`), the counterpart of XLA's all-reduce
+combiner, which merges the JAX step's per-leaf psums.
 
 Leaves of at least :data:`QUANT_KERNEL_MIN_SIZE` elements are quantized
 together by ``quantize_int8_scaled_group`` (one launch of the hand-written
@@ -20,6 +24,19 @@ the JAX package's own dispatch rule (its TPU program sends the large leaves
 to the Pallas kernel), not a fallback. Both are unbiased stochastic
 rounding; they are different realisations of it.
 
+``topk``: each rank sends the ``k = ceil(ratio * size)`` largest-magnitude
+coordinates of gradient + residual (ties at the k-th magnitude kept) and
+keeps the rest as its residual for the next step: nothing is lost, only
+delayed. The threshold is ``torch.topk``'s k-th value, exact on every
+device: the JAX package's ``method="auto"`` takes ``lax.approx_max_k`` on
+a TPU and the exact ``lax.top_k`` elsewhere, so ``"auto"`` and
+``"approx"`` are exact here (a stated departure).
+
+Buckets: the gradient leaves flattened in order into f32 buckets of
+``bucket_bytes // 4`` elements (boundaries need not fall on leaf
+boundaries), one collective and, for int8, one shared scale a bucket;
+``unflatten_buckets`` restores each leaf's shape and dtype.
+
 Collectives take the process group explicitly (``group``, from
 :mod:`..parallel.mesh`); ``group=None`` is the JAX ``axis_name=None``
 single-contributor mode: the same codec arithmetic with no collective.
@@ -27,6 +44,7 @@ single-contributor mode: the same codec arithmetic with no collective.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,15 +65,25 @@ from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
 QUANT_KERNEL_MIN_SIZE = 16384
 
 
+def psum(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """The sum over the ranks of each tensor (one dtype), new tensors: one
+    ``all_reduce`` of one flat buffer and views of it, as XLA's
+    all-reduce combiner merges the JAX step's per-leaf psums (a collective
+    a leaf costs its host launch: 201 of them a BertBase step)."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    all_reduce(flat, "sum", group)
+    return [part.view(t.shape) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def psum_mean(grads: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     """Plain full-precision gradient averaging: the sum over the ranks
-    divided by their number (``lax.pmean``)."""
+    divided by their number (``lax.pmean``), in one collective
+    (:func:`psum`)."""
     recip = f32_reciprocal(world_size(group))
-    out = [g.clone() for g in grads]
-    for g in out:
-        all_reduce(g, "sum", group)
-        g.mul_(recip)
-    return out
+    return [g.mul_(recip) for g in psum(grads, group)]
 
 
 def leaf_noise(shape, seed: int, device) -> torch.Tensor:
@@ -157,16 +185,83 @@ def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
     qs = quantize_leaves(grads, leaf_seeds(seed, len(grads)), amax,
                          group_quantizer)
     scales = torch.where(amax > 0, amax * RECIP127, torch.zeros_like(amax))
+    # q * mask, with this rank's 0/1 mask; int32 sums of every leaf in
+    # one collective (exact in any order)
+    totals = [(torch.zeros_like(q) if mask is not None and not mask else q)
+              .to(torch.int32) for q in qs]
+    if group is not None:
+        totals = psum(totals, group)
     out = []
-    for i, (g, q) in enumerate(zip(grads, qs)):
-        if mask is not None and not mask:
-            q = torch.zeros_like(q)  # q * mask, with this rank's 0/1 mask
-        total = q.to(torch.int32)
-        if group is not None:
-            all_reduce(total, "sum", group)
+    for i, (g, total) in enumerate(zip(grads, totals)):
         dequant = total.to(torch.float32) * scales[i]
         avg = dequant / count if count is not None else dequant * recip
         out.append(avg.to(g.dtype))
+    return out
+
+
+def topk_mask_leaf(g: torch.Tensor, ratio: float,
+                   method: str = "auto") -> torch.Tensor:
+    """0/1 mask (``g``'s dtype) keeping the ``k = max(1, int(size * ratio
+    + 0.999999))`` largest ``|g|``, ties at the k-th magnitude kept
+    (``>=``): the JAX ``_topk_mask_leaf``. The threshold is the k-th value
+    of ``torch.topk``, exact for every ``method`` (module docstring)."""
+    if method not in ("auto", "exact", "approx"):
+        raise ValueError(f"unknown topk method {method!r}; expected "
+                         "auto|exact|approx")
+    flat = g.detach().abs().reshape(-1)
+    k = max(1, int(flat.numel() * ratio + 0.999999))
+    if k >= flat.numel():
+        return torch.ones_like(g)
+    kth = torch.topk(flat, k, sorted=False).values.min()
+    return (g.abs() >= kth).to(g.dtype)
+
+
+def topk_compress_ef(grads: Sequence[torch.Tensor],
+                     ef_state: Sequence[torch.Tensor], ratio: float,
+                     method: str = "auto"):
+    """Top-k sparsification with error feedback, on this rank (no
+    collective): ``(sent, residuals)``, lists in the order of ``grads``,
+    with ``acc = g + e``, ``sent = acc * mask`` and ``residual = acc -
+    sent``, so ``sent + residual == g + e`` exactly."""
+    sent, resid = [], []
+    for g, e in zip(grads, ef_state):
+        acc = g + e
+        s = acc * topk_mask_leaf(acc, ratio, method)
+        sent.append(s)
+        resid.append(acc - s)
+    return sent, resid
+
+
+def init_ef_state(params) -> List[torch.Tensor]:
+    """Zero error-feedback residuals shaped like the gradients."""
+    return [torch.zeros_like(p.detach()) for p in params]
+
+
+def flatten_buckets(grads: Sequence[torch.Tensor], bucket_bytes: int):
+    """``(buckets, meta)``: the leaves flattened in order into one f32
+    vector, split into buckets of ``bucket_bytes // 4`` elements (the last
+    one shorter); ``meta`` (each leaf's shape and dtype) restores them
+    through :func:`unflatten_buckets`."""
+    meta = [(tuple(g.shape), g.dtype) for g in grads]
+    if not grads:
+        return [], meta
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+    per = max(1, bucket_bytes // 4)
+    return list(torch.split(flat, per)), meta
+
+
+def unflatten_buckets(buckets: Sequence[torch.Tensor],
+                      meta) -> List[torch.Tensor]:
+    """The inverse of :func:`flatten_buckets`: each leaf back at its
+    shape and dtype."""
+    if not meta:
+        return []
+    flat = torch.cat(list(buckets)) if len(buckets) > 1 else buckets[0]
+    out, off = [], 0
+    for shape, dtype in meta:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].reshape(shape).to(dtype))
+        off += n
     return out
 
 

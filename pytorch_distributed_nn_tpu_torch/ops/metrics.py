@@ -2,10 +2,12 @@
 ``topk_accuracy`` and the masked-LM part of
 ``pytorch_distributed_nn_tpu/ops/metrics.py``.
 
-On one replica the JAX package's "global" forms
-(``make_global_masked_cross_entropy``, ``make_global_mlm_metrics``:
-local sums over the mean count across replicas) are the local forms
-here: the count of one replica is the global count.
+The "global" MLM forms (:func:`make_global_masked_cross_entropy`,
+:func:`make_global_mlm_metrics`) divide each rank's sums by the mean
+masked count over the ranks of a process group (one ``all_reduce`` of the
+count), so that the mean over the ranks of their values, and of their
+gradients, is the global masked mean. On one rank they are the local
+forms.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from pytorch_distributed_nn_tpu_torch.ops.reference import f32_reciprocal
+from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
+    all_reduce,
+    world_size,
+)
 
 #: label sentinel for positions outside the masked objective
 IGNORE_INDEX = -1
@@ -77,6 +85,45 @@ def mlm_metrics(logits: torch.Tensor, labels: torch.Tensor,
     count = mask.sum().clamp_min(1.0)
     return {f"acc{k}": (in_top_k(logits, safe, k) * mask).sum() / count
             for k in (1, 5)}
+
+
+def mean_count(count: torch.Tensor, group) -> torch.Tensor:
+    """max(the mean over the ranks of ``group`` of their masked
+    ``count``s, 1): the JAX ``lax.pmean(count)`` (a sum, then a product
+    with the world size's f32 reciprocal), one ``all_reduce``."""
+    if group is not None:
+        count = all_reduce(count.detach().clone(), "sum", group)
+        count = count * f32_reciprocal(world_size(group))
+    return count.clamp_min(1.0)
+
+
+def make_global_masked_cross_entropy(group):
+    """Masked cross-entropy over the GLOBAL masked count: this rank's sum
+    of masked token losses over :func:`mean_count`. Per-rank counts
+    differ; dividing by the mean count makes the mean of the ranks'
+    gradients the gradient of global sum / global count."""
+
+    def loss(logits, labels, ignore_index: int = IGNORE_INDEX):
+        mask, safe = _mask_and_safe(labels, ignore_index)
+        return (_token_losses(logits, safe) * mask).sum() \
+            / mean_count(mask.sum(), group)
+
+    return loss
+
+
+def make_global_mlm_metrics(group):
+    """acc1 / acc5 over the GLOBAL masked count: this rank's hits over
+    :func:`mean_count`, so the mean over the ranks is global hits over
+    global count."""
+
+    @torch.no_grad()
+    def metrics(logits, labels, ignore_index: int = IGNORE_INDEX):
+        mask, safe = _mask_and_safe(labels, ignore_index)
+        count = mean_count(mask.sum(), group)
+        return {f"acc{k}": (in_top_k(logits, safe, k) * mask).sum() / count
+                for k in (1, 5)}
+
+    return metrics
 
 
 def mlm_sums(logits: torch.Tensor, labels: torch.Tensor,

@@ -13,20 +13,40 @@ Every function takes the group explicitly: a group is a plain
 ``torch.distributed.ProcessGroup`` object, built here and never installed
 as the process's default group, so one process can hold several (the
 tests run several gloo ranks, one thread each, over one in-process store).
-At world size 1 the collectives are still called. A group that cannot be
-built raises; nothing falls back to running without one.
+:func:`sibling_group` builds a second group of the same ranks over the
+same store, for collectives issued from another thread (the overlapped
+eval): two threads never share one communicator. At world size 1 the
+collectives are still called. A group that cannot be built raises;
+nothing falls back to running without one.
+
+``multihost=True`` (``train --multihost``, the JAX CLI's
+``jax.distributed.initialize``) requires the whole torchrun environment
+and builds the rendezvous store under
+:func:`..resilience.retry.retry_call` with the JAX CLI's arguments (4
+attempts, 2 s base, 15 s cap), since a store's first connect races the
+other hosts' start.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
+import weakref
 from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+#: the torchrun environment ``multihost`` requires
+TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+#: group -> what built it (store, rank, world, device, timeout), for
+#: :func:`sibling_group`
+_ORIGINS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def env_ranks() -> Tuple[int, int, int]:
@@ -47,15 +67,67 @@ def new_group(store, rank: int, world: int, device: torch.device,
     if device.type == "cuda":
         if not hasattr(dist, "ProcessGroupNCCL"):
             raise RuntimeError("this torch build has no NCCL")
-        return dist.ProcessGroupNCCL(store, rank, world)
-    return dist.ProcessGroupGloo(store, rank, world,
-                                 datetime.timedelta(seconds=timeout_s))
+        group = dist.ProcessGroupNCCL(store, rank, world)
+    else:
+        group = dist.ProcessGroupGloo(store, rank, world,
+                                      datetime.timedelta(seconds=timeout_s))
+    _ORIGINS[group] = (store, rank, world, device, timeout_s)
+    return group
 
 
-def init_group(device: torch.device, num_workers: Optional[int] = None):
+def sibling_group(group, name: str):
+    """A second group of ``group``'s ranks over its store, under the key
+    prefix ``name``: every rank must call this at the same point, as it
+    built ``group``."""
+    try:
+        store, r, world, device, timeout_s = _ORIGINS[group]
+    except KeyError:
+        raise ValueError("sibling_group: the group was not built by "
+                         "parallel.mesh.new_group") from None
+    return new_group(dist.PrefixStore(name, store), r, world, device,
+                     timeout_s)
+
+
+def multihost_env() -> None:
+    """Raise unless the whole torchrun environment is set (``train
+    --multihost``), naming what is missing."""
+    missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"--multihost needs the torchrun environment; {', '.join(missing)}"
+            " not set (launch with torchrun / torch.distributed.run, one "
+            "process per card)")
+
+
+def tcp_store(rank: int, world: int, multihost: bool = False,
+              sleep=time.sleep):
+    """The rendezvous ``TCPStore`` at ``MASTER_ADDR:MASTER_PORT`` (rank 0
+    hosts it); ``multihost`` builds it under ``retry_call`` (4 attempts,
+    2 s base, 15 s cap, on ``RuntimeError``/``OSError``/``ValueError``),
+    sleeping with ``sleep`` between attempts."""
+    addr = os.environ.get("MASTER_ADDR", "localhost")
+    port = int(os.environ["MASTER_PORT"])
+    timeout = datetime.timedelta(seconds=600)
+    if not multihost:
+        return dist.TCPStore(addr, port, world, rank == 0, timeout=timeout)
+    from pytorch_distributed_nn_tpu_torch.resilience.retry import retry_call
+
+    return retry_call(dist.TCPStore, addr, port, world, rank == 0,
+                      timeout=timeout, attempts=4, base_delay=2.0,
+                      max_delay=15.0,
+                      retry_on=(RuntimeError, OSError, ValueError),
+                      sleep=sleep, label="torch.distributed.TCPStore")
+
+
+def init_group(device: torch.device, num_workers: Optional[int] = None,
+               multihost: bool = False):
     """(group, device) of this process: the group of the torchrun world (or
     of one rank), and the device the rank runs on (``cuda:LOCAL_RANK`` when
-    ``device`` is the card). ``num_workers`` must equal the world size."""
+    ``device`` is the card). ``num_workers`` must equal the world size.
+    ``multihost``: the torchrun environment is required, and its store is
+    built with retries."""
+    if multihost:
+        multihost_env()
     rank, world, local = env_ranks()
     if num_workers is not None and num_workers != world:
         raise ValueError(
@@ -64,13 +136,10 @@ def init_group(device: torch.device, num_workers: Optional[int] = None):
     if device.type == "cuda":
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
-    if world == 1:
+    if world == 1 and not multihost:
         store = dist.HashStore()
     else:
-        store = dist.TCPStore(
-            os.environ.get("MASTER_ADDR", "localhost"),
-            int(os.environ["MASTER_PORT"]), world, rank == 0,
-            timeout=datetime.timedelta(seconds=600))
+        store = tcp_store(rank, world, multihost)
     return new_group(dist.PrefixStore("pdtn_dp", store), rank, world,
                      device), device
 

@@ -16,12 +16,15 @@ At resume time the trainer asks :func:`plan_resume` for an
   divides the global batch, which is PRESERVED (the per-rank batch
   rescales); ``grad_accum`` drops to the largest count that still
   divides;
-- :meth:`ElasticPlan.event_fields` is the ``elastic_resume`` event.
+- :meth:`ElasticPlan.event_fields` is the ``elastic_resume`` event; a
+  topk run's says whether its error-feedback residuals were reset (the
+  residuals are per replica: another data-parallel degree restarts them
+  at zero, with a warning, as the JAX ``restore_resharded`` does).
 
 ``--strict-geometry`` keeps the exact-match contract: a changed geometry
 raises :func:`strict_geometry_error`, naming both. The port's state is
-replicated on every rank, so a changed world size needs no reshard: the
-same file restores on any number of ranks. Sharded checkpoints (ROADMAP
+replicated on every rank but the residuals, so a changed world size
+needs no reshard: the same file restores on any number of ranks. Sharded checkpoints (ROADMAP
 Queue 1 item 1) and streaming repartition (item 3) are not ported.
 """
 
@@ -120,9 +123,12 @@ class ElasticPlan:
             return int(self.old.mesh["data"])
         return int(self.old.devices)
 
-    def event_fields(self) -> dict:
-        """The ``elastic_resume`` telemetry event payload."""
-        return {
+    def event_fields(self, error_feedback: bool = False) -> dict:
+        """The ``elastic_resume`` telemetry event payload; for a run with
+        topk error feedback also ``ef_state``: ``"reset"`` when the
+        data-parallel degree changed (the residuals of the old replicas
+        restart at zero), else ``"restored"``."""
+        out = {
             "old": self.old.to_dict(),
             "new": self.new.to_dict(),
             "num_workers": self.num_workers,
@@ -130,6 +136,10 @@ class ElasticPlan:
             "batch_size": self.batch_size,
             "per_device_batch": self.batch_size // self.num_workers,
         }
+        if error_feedback:
+            out["ef_state"] = ("reset" if self._old_dp != self.num_workers
+                               else "restored")
+        return out
 
 
 def derive_data_parallel(

@@ -22,8 +22,11 @@ Where each kind fires:
   sleeps rank K only and the other ranks wait for it at the step's
   collectives: the step's wall time grows by the delay on every rank. An
   entry without a rank sleeps every rank. Every rank records the entry
-  as fired. (The straggler simulator that consumes delays as simulated
-  arrival times instead is ROADMAP Queue 1 item 2.)
+  as fired. With the straggler simulator on (``--straggler-deadline``,
+  :mod:`.stragglers`), the trainer calls ``pre_step(...,
+  sleep_delays=False)``: the delay enters the step's simulated arrival
+  times through :meth:`FaultPlan.delay_table`, nothing sleeps, and the
+  event says ``simulated: true``.
 - ``crash`` — ``pre_step`` raises :class:`InjectedCrash` entering the
   step; the trainer writes an emergency checkpoint of the completed step
   and re-raises.

@@ -184,14 +184,19 @@ class Watchdog:
 
 
 def resume_latest_valid(directory: str, state, params_only: bool = False,
-                        quarantine: bool = True, restore_fn=None):
+                        quarantine: bool = True, restore_fn=None,
+                        **restore_kw):
     """Restore into ``state`` the newest checkpoint of ``directory`` that
     verifies and restores; quarantine each newer one that does not.
     Returns the restored state, or ``None`` when none is valid.
-    ``restore_fn(path, state)`` replaces ``checkpoint.restore_checkpoint``."""
+    ``restore_fn(path, state)`` replaces ``checkpoint.restore_checkpoint``;
+    ``restore_kw`` (``ef``, ``ef_rows``) go to ``load_train_state``.
+    Residuals of another replica count (``GeometryMismatch``) raise: the
+    file is sound, the run's geometry is not its."""
     from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
 
     from pytorch_distributed_nn_tpu_torch.models.convert import (
+        GeometryMismatch,
         load_train_state,
     )
 
@@ -204,8 +209,11 @@ def resume_latest_valid(directory: str, state, params_only: bool = False,
                     return restore_fn(path, state)
             else:
                 load_train_state(state, ckpt.load_verified(path),
-                                 params_only=params_only)
+                                 params_only=params_only, where=path,
+                                 **restore_kw)
                 return state
+        except GeometryMismatch:
+            raise
         except (ValueError, RuntimeError, KeyError, OSError) as e:
             reason = str(e)
         logger.warning("checkpoint %s is corrupt (%s)", path, reason)

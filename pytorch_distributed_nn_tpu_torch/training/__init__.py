@@ -1,5 +1,5 @@
-"""Training of the port: the transformer family's MLM step on one device
-and the CNN zoo's data-parallel step (``config``, ``train_step``,
+"""Training of the port: the data-parallel steps of the transformer
+family (MLM) and of the CNN zoo (``config``, ``train_step``,
 ``trainer``), checkpoints in the JAX package's file format
 (``checkpoint``), their background writer (``async_ckpt``) and the
 polling evaluator (``evaluator``)."""

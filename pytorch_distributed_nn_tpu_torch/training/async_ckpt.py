@@ -88,10 +88,12 @@ class Snapshot:
 
 
 @torch.no_grad()
-def snapshot(state) -> Snapshot:
+def snapshot(state, ef_rows=None) -> Snapshot:
     """Clone every tensor of ``state`` on the device, enqueued on the
-    current stream (the step's), and record an event after them."""
-    layout, tensors = train_state_tensors(state)
+    current stream (the step's), and record an event after them;
+    ``ef_rows``, every rank's residuals gathered for the save, are cloned
+    with them."""
+    layout, tensors = train_state_tensors(state, ef_rows)
     clones = {k: t.clone() for k, t in tensors.items()}
     event = None
     device = next(iter(tensors.values())).device
@@ -163,15 +165,18 @@ class AsyncCheckpointer:
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
         if self._host is None:
-            self._host = _pinned_like(train_state_tensors(state)[1])
+            # the residuals' rows are pinned at the first save (their
+            # replica count is the gather's)
+            self._host = _pinned_like(train_state_tensors(state, ())[1])
 
     def save(self, state, step: Optional[int] = None,
              retain_device_state: bool = False,
              data_state: Optional[dict] = None,
-             fault_plan=None) -> SaveHandle:
+             fault_plan=None, ef_rows=None) -> SaveHandle:
         """Hand one checkpoint of ``state`` to the writer. Blocks for a
         save still in flight (emitting ``ckpt_backpressure``) and for the
-        snapshot's enqueue; ``handle.stall_ms`` is that time."""
+        snapshot's enqueue; ``handle.stall_ms`` is that time. ``ef_rows``:
+        every rank's residuals, gathered (:func:`snapshot`)."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointer is closed")
         t0 = time.perf_counter()
@@ -179,7 +184,7 @@ class AsyncCheckpointer:
         self._wait_idle(next_step=step)
         self._raise_pending()
         self.warmup(state)
-        snap = snapshot(state)
+        snap = snapshot(state, ef_rows)
         handle = SaveHandle(int(state.step if step is None else step), snap,
                             retain_device_state=retain_device_state,
                             data_state=data_state, fault_plan=fault_plan)
@@ -310,11 +315,13 @@ class AsyncCheckpointer:
         writer's stream after the snapshot's event. They are this
         thread's alone and read only until the next fetch: the save is
         written before it."""
-        host = self._host
-        if host is None or any(
-                k not in host or host[k].shape != t.shape
-                or host[k].dtype != t.dtype for k, t in snap.tensors.items()):
-            host = self._host = _pinned_like(snap.tensors)
+        host = self._host = self._host or {}
+        # pinned once per key: the residuals' (n, ...) rows join at the
+        # first save that carries them
+        host.update(_pinned_like({
+            k: t for k, t in snap.tensors.items()
+            if k not in host or host[k].shape != t.shape
+            or host[k].dtype != t.dtype}))
         with torch.cuda.stream(self._stream):
             snap.wait(self._stream)
             for k, t in snap.tensors.items():

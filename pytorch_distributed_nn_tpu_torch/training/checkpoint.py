@@ -143,10 +143,12 @@ def default_geometry() -> dict:
 
 
 @torch.no_grad()
-def state_tree(state) -> dict:
+def state_tree(state, ef_rows=None) -> dict:
     """The JAX state dict of a port ``TrainState``, copied to the host (a
-    copy on the CPU too: the tree outlives the state's next step)."""
-    layout, tensors = train_state_tensors(state)
+    copy on the CPU too: the tree outlives the state's next step).
+    ``ef_rows``: every rank's residuals, gathered
+    (:func:`..models.convert.train_state_tensors`)."""
+    layout, tensors = train_state_tensors(state, ef_rows)
     return train_state_to_flax(
         layout, {k: v.to("cpu", copy=True) for k, v in tensors.items()})
 
@@ -156,7 +158,7 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
                     event_extra: Optional[dict] = None,
                     data_state: Optional[dict] = None,
                     geometry: Optional[dict] = None,
-                    fault_plan=None) -> str:
+                    fault_plan=None, ef_rows=None) -> str:
     """Write one atomic FILE checkpoint, its CRC32 manifest and, given
     ``data_state``, its iterator-state sidecar; emit ``checkpoint_write``.
 
@@ -165,6 +167,8 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     snapshot): both give the same bytes. ``write_ms`` is this call's
     time; ``stall_ms`` is what the training loop lost, the whole write
     here, which an overlapped caller overrides in ``event_extra``.
+    ``ef_rows``: a state of several ranks' residuals, gathered (see
+    :func:`state_tree`).
 
     ``fault_plan`` (:class:`..resilience.faults.FaultPlan`) is the
     injection hook: a ``flaky_io`` step fails its first publish attempt
@@ -173,7 +177,7 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     manifest then convicts on resume."""
     t0 = time.perf_counter()
     os.makedirs(directory, exist_ok=True)
-    tree = state if isinstance(state, dict) else state_tree(state)
+    tree = state if isinstance(state, dict) else state_tree(state, ef_rows)
     step = int(tree["step"]) if step is None else int(step)
     path = checkpoint_path(directory, step)
     tmp = path + ".tmp"
@@ -281,13 +285,18 @@ def load_raw(path: str) -> dict:
     return flax_msgpack.unpackb(_decode_payload(path, blob))
 
 
-def restore_checkpoint(path: str, state, params_only: bool = False):
+def restore_checkpoint(path: str, state, params_only: bool = False,
+                       ef: str = "raise", ef_rows: Optional[list] = None):
     """Restore checkpoint ``path`` into the port ``TrainState`` ``state``
     in place and return it. ``params_only`` restores the step, parameters
     and BatchNorm statistics and leaves the optimizer alone (the
-    evaluator's template need not match the trainer's optimizer).
-    Raises when the file's tree is not the state's."""
-    load_train_state(state, load_raw(path), params_only=params_only)
+    evaluator's template need not match the trainer's optimizer). ``ef``
+    and ``ef_rows``: the error-feedback residuals
+    (:func:`..models.convert.load_train_state`; by default residuals of
+    another replica count raise, naming both geometries). Raises when
+    the file's tree is not the state's."""
+    load_train_state(state, load_raw(path), params_only=params_only, ef=ef,
+                     ef_rows=ef_rows, where=path)
     return state
 
 

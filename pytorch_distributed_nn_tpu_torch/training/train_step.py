@@ -9,15 +9,24 @@ across ranks (``mean``: their average; ``rank0``: rank 0's), and the
 metrics averaged across ranks. Each rank holds the whole model and steps
 on its slice of the global batch.
 
-:func:`build_train_step` is the MLM step of the text models, on one
-device: the forward, the masked-mean MLM loss, the backward, the
-optimizer update and the metrics ``loss``/``acc1``/``acc5``. With
-``grad_accum = K`` the batch splits into K microbatches whose
-unnormalised sums (``ops.metrics.mlm_sums``: the masked cross-entropy
-sum and the masked count) accumulate, and the gradient and the metrics
-are divided once by the total count: the masked mean of the whole batch,
-exactly, as the JAX step's ``pair_accum_fn`` path does. On one replica
-the JAX package's data-parallel sync (``grad_sync``) is the identity.
+:func:`build_train_step` is the data-parallel MLM step of the text
+models (the same JAX step with the global masked-mean loss and metrics):
+the forward, the masked cross-entropy over the GLOBAL masked count
+(``ops.metrics.make_global_masked_cross_entropy``: this rank's sum over
+the mean count across ranks), the backward, the gradient sync, the
+optimizer update and the metrics ``loss``/``acc1``/``acc5`` averaged over
+the ranks. With ``grad_accum = K`` the batch splits into K microbatches
+whose unnormalised sums (``ops.metrics.mlm_sums``: the masked
+cross-entropy sum and the masked count) accumulate, and the gradient and
+the metrics are divided once by the mean accumulated count over the
+ranks: the masked mean of the whole global batch, exactly, as the JAX
+step's ``pair_accum_fn`` path does. Without a ``grad_sync`` it is the
+step of one device.
+
+Both steps give the sync the step's seed and its 1-indexed number (the
+straggler simulator's ``delay@N``), merge ``grad_sync.pop_report()``
+into the metrics, and carry this rank's topk error-feedback residuals in
+``TrainState.ef_state``.
 
 The state is the model, its optimizer and the step count; the step
 updates them in place (the JAX step returns a new state: PyTorch owns
@@ -34,8 +43,9 @@ generator in the checkpoint.
 the loss or a gradient (after the sync, so every rank decides alike) is
 not finite, the update is skipped: parameters, optimizer state and count,
 and BatchNorm statistics keep their values, the step count advances, and
-the metrics carry ``skipped_nonfinite`` 1 (else 0). The check reads one
-flag from the device each step.
+the metrics carry ``skipped_nonfinite`` 1 (else 0). The error-feedback
+residuals keep theirs too. The check reads one flag from the device each
+step.
 
 The image steps of a float32 model run with TF32 off
 (:func:`..utils.precision.no_tf32`): PyTorch's cuDNN default would run
@@ -47,15 +57,16 @@ them alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.ops.metrics import (
     cross_entropy_loss,
-    masked_cross_entropy,
-    mlm_metrics,
+    make_global_masked_cross_entropy,
+    make_global_mlm_metrics,
+    mean_count,
     mlm_sums,
     topk_accuracy,
 )
@@ -76,7 +87,11 @@ class TrainState:
     parameters and BatchNorm statistics), the optimizer (its state and
     update count, which a skipped step leaves alone) and the step count;
     and the dropout generator the model draws from, with the seed and
-    rank it is re-seeded from at every step."""
+    rank it is re-seeded from at every step. ``ef_state`` is this rank's
+    topk error-feedback residuals, one per parameter in
+    ``model.parameters()`` order (``None`` without topk): the JAX state's
+    ``ef_state`` row of this replica, of ``replicas`` (the data-parallel
+    degree; checkpoints stack every replica's row)."""
 
     model: torch.nn.Module
     optimizer: ScheduledOptimizer
@@ -84,19 +99,28 @@ class TrainState:
     dropout_generator: Optional[torch.Generator] = None
     seed: int = 0
     rank: int = 0
+    ef_state: Optional[List[torch.Tensor]] = None
+    replicas: int = 1
 
 
 def create_train_state(model: torch.nn.Module, build_opt: Callable,
-                       device, seed: int = 0, rank: int = 0) -> TrainState:
+                       device, seed: int = 0, rank: int = 0,
+                       grad_sync=None) -> TrainState:
     """Move ``model`` to ``device``, build its optimizer with
     ``build_opt(params)``, and give it a dropout generator on the device
-    that each step re-seeds from ``(seed, rank, step)``."""
+    that each step re-seeds from ``(seed, rank, step)``; and, given a
+    ``grad_sync`` with topk compression, zero residuals."""
     device = torch.device(device)
     model = model.to(device)
     gen = torch.Generator(device=device)
     model.set_dropout_generator(gen)
+    ef, replicas = None, 1
+    if grad_sync is not None:
+        ef = grad_sync.init_state(model.parameters())
+        replicas = world_size(grad_sync.group)
     return TrainState(model, build_opt(model.parameters()),
-                      dropout_generator=gen, seed=seed, rank=rank)
+                      dropout_generator=gen, seed=seed, rank=rank,
+                      ef_state=ef, replicas=replicas)
 
 
 def dropout_seed(seed: int, rank: int, step: int) -> int:
@@ -118,13 +142,20 @@ def param_count(model: torch.nn.Module) -> int:
     return int(sum(p.numel() for p in model.parameters()))
 
 
-def build_train_step(grad_accum: int = 1, nonfinite_guard: bool = False):
-    """``step(state, batch) -> metrics``: one update of ``state`` in
-    place from ``batch = (tokens, labels)``."""
+def build_train_step(grad_sync=None, grad_accum: int = 1,
+                     nonfinite_guard: bool = False):
+    """``step(state, batch, seed=0) -> metrics``: one update of ``state``
+    in place from this rank's ``batch = (tokens, labels)``, with the
+    step's sync ``seed`` (:func:`sync_seed`); without ``grad_sync``, one
+    device and no sync."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = None if grad_sync is None else grad_sync.group
+    loss_fn = make_global_masked_cross_entropy(group)
+    metrics_fn = make_global_mlm_metrics(group)
 
-    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, batch, seed: int = 0
+             ) -> Dict[str, torch.Tensor]:
         tokens, labels = batch
         model, opt = state.model, state.optimizer
         model.train()
@@ -132,14 +163,14 @@ def build_train_step(grad_accum: int = 1, nonfinite_guard: bool = False):
         opt.zero_grad()
         if grad_accum == 1:
             logits = model(tokens)
-            loss = masked_cross_entropy(logits, labels)
+            loss = loss_fn(logits, labels)
             loss.backward()
             metrics = {"loss": loss.detach(),
-                       **mlm_metrics(logits.detach(), labels)}
+                       **metrics_fn(logits.detach(), labels)}
         else:
             n = tokens.shape[0]
             if n % grad_accum:
-                raise ValueError(f"batch {n} not divisible by "
+                raise ValueError(f"per-replica batch {n} not divisible by "
                                  f"grad_accum={grad_accum}")
             sums: Dict[str, torch.Tensor] = {}
             for tok, lab in zip(tokens.chunk(grad_accum),
@@ -148,25 +179,55 @@ def build_train_step(grad_accum: int = 1, nonfinite_guard: bool = False):
                 s["loss_sum"].backward()
                 for k, v in s.items():
                     sums[k] = sums.get(k, 0) + v.detach()
-            denom = sums["count"].clamp_min(1.0)
+            # the mean accumulated count over the ranks: the mean of the
+            # ranks' gradients is then global sum / global count
+            denom = mean_count(sums["count"], group)
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(denom)
             metrics = {"loss": sums["loss_sum"] / denom,
                        **{k: v / denom for k, v in sums.items()
                           if k not in ("loss_sum", "count")}}
-        ok = True
-        if nonfinite_guard:
-            ok = all_finite([metrics["loss"]] + [
-                p.grad for p in model.parameters() if p.grad is not None])
-            metrics["skipped_nonfinite"] = torch.tensor(
-                0.0 if ok else 1.0, device=tokens.device)
+        metrics = _mean_over_ranks(metrics, group)
+        ok = _sync_and_check(state, grad_sync, seed, metrics,
+                             nonfinite_guard, tokens.device)
         if ok:
             opt.step()
         state.step += 1
         return metrics
 
     return step
+
+
+def _sync_and_check(state: TrainState, grad_sync, seed: int,
+                    metrics: Dict, nonfinite_guard: bool, device) -> bool:
+    """The shared tail of both steps: this rank's gradients (``p.grad``)
+    through ``grad_sync`` with its residuals, the step's number and seed;
+    the report merged into ``metrics``; and the non-finite guard over the
+    rank-mean loss and the synced gradients (every rank decides alike).
+    The residuals move on only when the update is taken. Returns whether
+    it is."""
+    params = list(state.model.parameters())
+    idx = [i for i, p in enumerate(params) if p.grad is not None]
+    new_ef = None
+    if grad_sync is not None:
+        ef = state.ef_state
+        synced, new_ef = grad_sync(
+            [params[i].grad for i in idx],
+            None if ef is None else [ef[i] for i in idx], seed,
+            step=state.step + 1)
+        for i, g in zip(idx, synced):
+            params[i].grad = g
+        metrics.update(grad_sync.pop_report())
+    ok = True
+    if nonfinite_guard:
+        ok = all_finite([metrics["loss"]] + [params[i].grad for i in idx])
+        metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0,
+                                                    device=device)
+    if ok and new_ef is not None:
+        for i, e in zip(idx, new_ef):
+            state.ef_state[i] = e
+    return ok
 
 
 def sync_seed(seed: int, step: int) -> int:
@@ -249,21 +310,14 @@ def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
             loss.backward()
             ms.append({"loss": loss.detach(),
                        **_classification_metrics(logits.detach(), lb)})
-        params = [p for p in model.parameters() if p.grad is not None]
-        grads = [p.grad for p in params]
         if grad_accum > 1:
-            grads = [g / grad_accum for g in grads]
-        for p, g in zip(params, grad_sync(grads, seed)):
-            p.grad = g
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad = p.grad / grad_accum
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         metrics = _mean_over_ranks(metrics, group)
-        ok = True
-        if nonfinite_guard:
-            # the synced gradients and the rank-mean loss: every rank
-            # takes the same branch
-            ok = all_finite([metrics["loss"]] + [p.grad for p in params])
-            metrics["skipped_nonfinite"] = torch.tensor(
-                0.0 if ok else 1.0, device=images.device)
+        ok = _sync_and_check(state, grad_sync, seed, metrics,
+                             nonfinite_guard, images.device)
         if ok:
             opt.step()
             bn_reduce(model, bn_stats_sync, group)
@@ -294,16 +348,20 @@ def build_image_eval_step(group):
     return eval_step
 
 
-def build_eval_step():
-    """``eval_step(state, batch) -> metrics`` without gradients."""
+def build_eval_step(group=None):
+    """``eval_step(state, batch) -> metrics`` of the text models without
+    gradients: this rank's share of the batch, the global masked mean
+    over the ranks of ``group`` (one device without one)."""
+    loss_fn = make_global_masked_cross_entropy(group)
+    metrics_fn = make_global_mlm_metrics(group)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         tokens, labels = batch
         state.model.eval()
         logits = state.model(tokens)
-        return {"loss": masked_cross_entropy(logits, labels),
-                **mlm_metrics(logits, labels)}
+        return _mean_over_ranks({"loss": loss_fn(logits, labels),
+                                 **metrics_fn(logits, labels)}, group)
 
     return eval_step
 

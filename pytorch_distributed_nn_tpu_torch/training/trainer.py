@@ -1,20 +1,25 @@
 """Training: the port of ``pytorch_distributed_nn_tpu/training/trainer.py``
 for two paths.
 
-- Image models (the CNN zoo on MNIST/CIFAR/SVHN): data-parallel over a
-  process group (:mod:`..parallel.mesh`; one rank per process, the
-  torchrun world or one rank), with the JAX package's gradient sync
-  (``sync_mode`` allreduce/ps/local, ``num_aggregate``, ``kill_ranks``,
-  ``compression`` none/int8: the int8 quantize kernel on the card),
-  ``bn_stats_sync`` and ``grad_accum``. Data: real files under
-  ``data_dir`` or the synthetic set; ``data_layout`` ``device`` keeps the
-  uint8 set on the card and builds batches there, ``host`` prepares them
-  on a thread, ``auto`` is device when the two splits take under 2 GiB.
+Both families train data-parallel over a process group
+(:mod:`..parallel.mesh`; one rank per process, the torchrun world or one
+rank), each rank on its slice of the global batch, with the JAX package's
+gradient sync (``sync_mode`` allreduce/ps/local, ``num_aggregate``,
+``kill_ranks``, ``compression`` none/int8/topk: the int8 quantize kernel
+on the card, topk with error feedback; ``bucket_bytes``; and the
+straggler simulator, ``straggler_deadline``/``straggler_min_keep``) and
+``grad_accum``.
+
+- Image models (the CNN zoo on MNIST/CIFAR/SVHN), with ``bn_stats_sync``.
+  Data: real files under ``data_dir`` or the synthetic set;
+  ``data_layout`` ``device`` keeps the uint8 set on the card and builds
+  batches there, ``host`` prepares them on a thread, ``auto`` is device
+  when the two splits take under 2 GiB.
 - Text models (the transformer family, dataset ``MLMSynth``): MLM
-  training on one device (``attn_impl="pallas"`` -> the hand-written
-  flash kernel, ``"full"`` -> plain attention in PyTorch; ``fused_ln`` is
-  accepted: the port's one LayerNorm is the kernel). Their gradient sync
-  over several ranks is not ported yet.
+  training, the JAX trainer's shard_map path at tp = sp = 1: the masked
+  mean over the global masked count (``attn_impl="pallas"`` -> the
+  hand-written flash kernel, ``"full"`` -> plain attention in PyTorch;
+  ``fused_ln`` is accepted: the port's one LayerNorm is the kernel).
 
 ``Trainer(config)`` validates the config as the JAX trainer does, for the
 subset the port runs, and builds the model, the optimizer with its
@@ -32,7 +37,14 @@ Checkpoints, resume and supervision, as the JAX trainer runs them:
   inline). ``keep_last`` deletes older verified steps after each publish;
   ``overlap_eval`` runs the eval pass on each checkpoint's device
   snapshot on a thread and its own stream (``eval_result`` events with
-  ``source="overlap"``). Rank 0 writes.
+  ``source="overlap"``): over several ranks every rank snapshots its own
+  state and scores its share of the eval batches on its thread, whose
+  collectives go over a second process group built at startup (two
+  threads never share a communicator); each rank joins its previous pass
+  at the same boundary. Rank 0 writes; a topk run's residuals are
+  gathered to it from every rank for each save, and scattered back from
+  the file it restores (another replica count resets them, with a
+  warning; an emergency save whose gather fails writes none).
 - ``resume`` restores the newest checkpoint that verifies, whichever
   package wrote it (corrupt newer ones are quarantined), the MLM batch
   stream from its ``.data.json`` sidecar (the image loaders restart, as
@@ -52,11 +64,15 @@ Checkpoints, resume and supervision, as the JAX trainer runs them:
 - ``skip_nonfinite``: the train step's guard (:mod:`.train_step`).
 - ``faults`` (:class:`..resilience.faults.FaultPlan`): ``delay``,
   ``crash`` and ``preempt`` fire entering their step (``delay@N:pK``
-  sleeps rank K only, an entry without a rank every rank; a crash writes
-  the emergency checkpoint and re-raises, a preempt takes the SIGTERM
-  path), ``nan_grad`` poisons the step's host batch before its copy to
-  the card (``data_layout="host"``; image models only), ``flaky_io`` and
-  ``torn_ckpt`` fire in the checkpoint writer.
+  sleeps rank K only, an entry without a rank every rank; with the
+  straggler simulator on, the delay is simulated instead: it enters the
+  step's arrival times and nothing sleeps; a crash writes the emergency
+  checkpoint and re-raises, a preempt takes the SIGTERM path),
+  ``nan_grad`` poisons the step's host batch before its copy to the card
+  (``data_layout="host"``; image models only), ``flaky_io`` and
+  ``torn_ckpt`` fire in the checkpoint writer. A step whose sync dropped
+  stragglers logs a warning and emits ``straggler_drop`` (the
+  ``straggler_burst`` detector's input).
 - ``profile_steps = N``: a ``torch.profiler`` trace of steps 2 to N + 1
   of the run (rank 0) into ``profile_dir`` (default
   ``<train_dir>/profile``), stopped also when the run ends inside it;
@@ -73,15 +89,14 @@ The run's telemetry stream (``metrics_path``, else
 supervised) starts with its ``manifest``; steps are ``kind: "step"``
 records and ``checkpoint_write``, ``checkpoint_gc``, ``eval_result``,
 ``preempt``, ``nonfinite_skip``, ``fault_injected``, ``retry``,
-``incident`` and ``elastic_resume`` are events with the JAX package's
-field names.
+``incident``, ``straggler_drop`` and ``elastic_resume`` are events with
+the JAX package's field names.
 
 Every flag the port cannot honour yet raises, naming the ROADMAP item
-that ports it (:data:`UNSUPPORTED`, :data:`TEXT_UNSUPPORTED`); none is
-silently ignored: the sharded and streaming paths (items 1 and 3) and
-the rest of the gradient sync (item 2, with ``straggler_deadline``). The
-trainer runs on the card unless ``device="cpu"`` is given; without a card
-it raises, it never falls back to the CPU.
+that ports it (:data:`UNSUPPORTED`); none is silently ignored: the
+sharded and streaming paths (items 1 and 3). The trainer runs on the card
+unless ``device="cpu"`` is given; without a card it raises, it never
+falls back to the CPU.
 
 Weights are initialised from ``seed`` with a ``torch.Generator``: the
 flax initialisation's scheme, not its numbers (JAX's PRNG differs).
@@ -127,11 +142,16 @@ from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
     all_reduce,
     env_ranks,
     init_group,
+    sibling_group,
 )
 from pytorch_distributed_nn_tpu_torch.resilience import elastic
 from pytorch_distributed_nn_tpu_torch.resilience.faults import (
     FaultPlan,
     InjectedCrash,
+)
+from pytorch_distributed_nn_tpu_torch.resilience.stragglers import (
+    dropped_ranks,
+    make_straggler_sim,
 )
 from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
 from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
@@ -155,15 +175,15 @@ from pytorch_distributed_nn_tpu_torch.utils.timing import (
 
 logger = logging.getLogger(__name__)
 
-_SYNC = "ROADMAP Queue 1 item 2 (gradient sync over torch.distributed)"
+#: seconds an emergency checkpoint waits for the other ranks' residuals
+EF_GATHER_TIMEOUT_S = 60.0
+
 _SPMD = "ROADMAP Queue 1 item 1 (dp x tp x sp training)"
 _DATA = "ROADMAP Queue 1 item 3 (data)"
 
 #: config field -> (the values the port runs, the ROADMAP item that ports
 #: the rest); any other value raises
 UNSUPPORTED = {
-    "bucket_bytes": ((None,), _SYNC),
-    "straggler_deadline": ((None,), _SYNC),
     "tensor_parallel": ((1,), _SPMD),
     "seq_parallel": ((1,), _SPMD),
     "remat": ((False,), _SPMD),
@@ -172,15 +192,6 @@ UNSUPPORTED = {
     "loader_workers": ((0,), _DATA),
 }
 
-#: what the text models' single-device MLM step does not run yet: their
-#: gradient sync over several ranks (the image path runs all of these)
-TEXT_UNSUPPORTED = {
-    "num_workers": ((None, 1), _SYNC),
-    "num_aggregate": ((None,), _SYNC),
-    "kill_ranks": (((),), _SYNC),
-    "compression": (("none",), _SYNC),
-    "sync_mode": (("allreduce", "local"), _SYNC),
-}
 
 
 def _check_unsupported(c: TrainConfig, table: dict) -> None:
@@ -197,7 +208,6 @@ def validate(c: TrainConfig) -> None:
     _check_unsupported(c, UNSUPPORTED)
     text = is_text_model(c.network)
     if text:
-        _check_unsupported(c, TEXT_UNSUPPORTED)
         if c.dataset != "MLMSynth":
             raise ValueError(f"text model {c.network!r} requires "
                              f"dataset='MLMSynth' (got {c.dataset!r})")
@@ -214,9 +224,6 @@ def validate(c: TrainConfig) -> None:
         if c.attn_impl != "full":
             raise ValueError(f"attn_impl={c.attn_impl!r} only applies to "
                              f"text models (got network={c.network!r})")
-        if c.compression == "topk":
-            raise NotImplementedError(
-                f"compression='topk' is not ported yet: {_SYNC}")
         if c.data_layout not in ("auto", "device", "host"):
             raise ValueError(f"unknown data_layout {c.data_layout!r}")
     if c.dtype not in ("float32", "bfloat16"):
@@ -258,12 +265,15 @@ def build_train_model(c: TrainConfig) -> torch.nn.Module:
 
 
 class Trainer:
-    """``Trainer(config, device=None, group=None)``: ``group`` is the
-    process group of the image path's ranks (default: the torchrun world,
-    :func:`..parallel.mesh.init_group`); the tests pass gloo groups of
-    ranks that run as threads."""
+    """``Trainer(config, device=None, group=None, multihost=False)``:
+    ``group`` is the process group of the ranks (default: the torchrun
+    world, :func:`..parallel.mesh.init_group`; the tests pass gloo groups
+    of ranks that run as threads, built by ``mesh.new_group``);
+    ``multihost`` requires the torchrun environment and retries its
+    rendezvous (``train --multihost``)."""
 
-    def __init__(self, config: TrainConfig, device=None, group=None):
+    def __init__(self, config: TrainConfig, device=None, group=None,
+                 multihost: bool = False):
         c = self.config = config
         validate(c)
         # a bad --flightrec or --faults spec fails before any model is
@@ -290,14 +300,15 @@ class Trainer:
                 c.optimizer, params, schedule, momentum=c.momentum,
                 weight_decay=c.weight_decay, nesterov=c.nesterov)
 
+        self._init_sync(group, multihost)
         if self.is_text:
             self._init_text(build_opt)
         else:
-            self._init_image(build_opt, group)
-        if c.overlap_eval and self.n_workers > 1:
-            raise NotImplementedError(
-                "overlap_eval over several ranks (an eval pass on a thread "
-                f"beside the training collectives) is not ported yet: {_SYNC}")
+            self._init_image(build_opt)
+        # the overlapped eval's collectives run on a thread: a group of
+        # their own, built by every rank here
+        self.eval_group = (sibling_group(self.group, "pdtn_eval")
+                           if c.overlap_eval else None)
         self._check_fault_plan()
         self._geometry = elastic.rank_geometry(self.n_workers)
         self.start_step = 0
@@ -306,7 +317,8 @@ class Trainer:
         self._init_telemetry()
         if self._elastic_plan is not None:
             self.telemetry.emit("elastic_resume", step=self.start_step,
-                                **self._elastic_plan.event_fields())
+                                **self._elastic_plan.event_fields(
+                                    self.state.ef_state is not None))
         # after the telemetry install, so that the detectors see every
         # record of the run; rank 0 only (bundles live in train_dir)
         self._flightrec = None
@@ -322,6 +334,11 @@ class Trainer:
         self._overlap_eval_thread: Optional[threading.Thread] = None
         self._eval_model = None
         self._eval_stream = None
+        self._overlap_eval_step = None
+        if self.eval_group is not None:
+            self._overlap_eval_step = (
+                build_eval_step(self.eval_group) if self.is_text
+                else build_image_eval_step(self.eval_group))
         if c.eval_freq and c.async_ckpt and self.rank == 0:
             from pytorch_distributed_nn_tpu_torch.training.async_ckpt import (
                 AsyncCheckpointer,
@@ -336,30 +353,75 @@ class Trainer:
                     "step %d", c.network, param_count(self.model), c.dtype,
                     self.device, self.rank, self.n_workers, self.start_step)
 
+    def _init_sync(self, group, multihost: bool = False) -> None:
+        """The process group, this rank, and the gradient sync with its
+        straggler simulator (both families)."""
+        c = self.config
+        if group is None:
+            self.group, self.device = init_group(self.device, c.num_workers,
+                                                 multihost=multihost)
+        else:
+            if c.num_workers is not None and c.num_workers != group.size():
+                raise ValueError(
+                    f"num_workers={c.num_workers} but the group has "
+                    f"{group.size()} rank(s)")
+            self.group = group
+        self.rank, self.n_workers = self.group.rank(), self.group.size()
+        n = self.n_workers
+        if c.batch_size % (n * c.grad_accum):
+            raise ValueError(
+                f"global batch {c.batch_size} not divisible by {n} workers "
+                f"x grad_accum={c.grad_accum} microbatches")
+        if c.sync_mode == "local" and n > 1:
+            raise ValueError("sync_mode='local' requires a single worker")
+        if c.kill_ranks:
+            bad = [k for k in c.kill_ranks if not 0 <= k < n]
+            if bad:
+                raise ValueError(f"kill_ranks {bad} out of range for {n} "
+                                 "data-parallel workers")
+            if len(set(c.kill_ranks)) >= n:
+                raise ValueError("kill_ranks names every data-parallel worker "
+                                 "— no gradients would ever be aggregated")
+        self._straggler_sim = None
+        if c.straggler_deadline is not None:
+            self._straggler_sim = make_straggler_sim(
+                c.straggler_deadline, min_keep=c.straggler_min_keep,
+                fault_plan=self.fault_plan)
+        self.grad_sync = make_grad_sync(
+            self.group, c.sync_mode, num_aggregate=c.num_aggregate,
+            compression=c.compression, topk_ratio=c.topk_ratio,
+            kill_ranks=tuple(c.kill_ranks), bucket_bytes=c.bucket_bytes,
+            straggler=self._straggler_sim)
+
     def _init_text(self, build_opt) -> None:
         c = self.config
-        self.group, self.rank, self.n_workers = None, 0, 1
+        n = self.n_workers
+        if c.test_batch_size % n:
+            raise ValueError(f"test batch {c.test_batch_size} not divisible "
+                             f"by {n} workers")
         self.model = build_train_model(c)
+        # one dropout stream per rank and step
         self.state = create_train_state(self.model, build_opt, self.device,
-                                        seed=c.seed + 1)
+                                        seed=c.seed + 1, rank=self.rank,
+                                        grad_sync=self.grad_sync)
         self.seq_len = c.seq_len or input_spec(c.network)[0]
         self.vocab_size = c.vocab_size or self.model.config.vocab_size
-        self.train_step = build_train_step(grad_accum=c.grad_accum,
-                                           nonfinite_guard=c.skip_nonfinite)
-        self.eval_step = build_eval_step()
+        self.train_step = build_train_step(
+            self.grad_sync, grad_accum=c.grad_accum,
+            nonfinite_guard=c.skip_nonfinite)
+        self.eval_step = build_eval_step(self.group)
+        kw = dict(rank=self.rank, world=n)
         self.train_loader = MLMLoader(
             MLMBatches(vocab_size=self.vocab_size, seq_len=self.seq_len,
                        batch_size=c.batch_size, seed=c.seed,
                        mask_prob=c.mask_prob, branching=c.corpus_branching),
-            self.device,
-        )
+            self.device, **kw)
         self.test_loader = MLMLoader(
             MLMBatches(vocab_size=self.vocab_size, seq_len=self.seq_len,
                        batch_size=c.test_batch_size, seed=c.seed + 10_000,
                        mask_prob=c.mask_prob, branching=c.corpus_branching,
                        corpus_seed=c.seed),  # same language as training
-            self.device, eval_batches=c.eval_batches,
-        )
+            self.device, eval_batches=c.eval_batches, **kw)
 
     def _plan_elastic(self, group) -> None:
         """The elastic resume plan, before the sync is built: the world
@@ -368,8 +430,7 @@ class Trainer:
         ``num_workers`` and ``grad_accum`` into the config, which the
         run's manifest then records."""
         c = self.config
-        world = 1 if self.is_text else (
-            group.size() if group is not None else env_ranks()[1])
+        world = group.size() if group is not None else env_ranks()[1]
         plan = elastic.plan_resume(
             c.train_dir, world, batch_size=c.batch_size,
             num_workers=c.num_workers, grad_accum=c.grad_accum,
@@ -385,8 +446,7 @@ class Trainer:
                 f"launch {plan.num_workers} rank(s)")
         impossible = c.num_workers is not None and c.num_workers != world
         if plan.changed or impossible:
-            if not self.is_text:
-                c.num_workers = plan.num_workers
+            c.num_workers = plan.num_workers
             c.grad_accum = plan.grad_accum
         if plan.changed:
             self._elastic_plan = plan
@@ -414,41 +474,15 @@ class Trainer:
                 lambda k, b: plan.poison_batch(self.start_step + k, b))
         logger.info("Fault plan: %s", plan.describe())
 
-    def _init_image(self, build_opt, group=None) -> None:
+    def _init_image(self, build_opt) -> None:
         c = self.config
-        if group is None:
-            self.group, self.device = init_group(self.device, c.num_workers)
-        else:
-            if c.num_workers is not None and c.num_workers != group.size():
-                raise ValueError(
-                    f"num_workers={c.num_workers} but the group has "
-                    f"{group.size()} rank(s)")
-            self.group = group
-        self.rank, self.n_workers = self.group.rank(), self.group.size()
         n = self.n_workers
-        if c.batch_size % (n * c.grad_accum):
-            raise ValueError(
-                f"global batch {c.batch_size} not divisible by {n} workers "
-                f"x grad_accum={c.grad_accum} microbatches")
-        if c.sync_mode == "local" and n > 1:
-            raise ValueError("sync_mode='local' requires a single worker")
-        if c.kill_ranks:
-            bad = [k for k in c.kill_ranks if not 0 <= k < n]
-            if bad:
-                raise ValueError(f"kill_ranks {bad} out of range for {n} "
-                                 "data-parallel workers")
-            if len(set(c.kill_ranks)) >= n:
-                raise ValueError("kill_ranks names every data-parallel worker "
-                                 "— no gradients would ever be aggregated")
-        self.grad_sync = make_grad_sync(
-            self.group, c.sync_mode, num_aggregate=c.num_aggregate,
-            compression=c.compression, topk_ratio=c.topk_ratio,
-            kill_ranks=tuple(c.kill_ranks), bucket_bytes=c.bucket_bytes)
         self.model = build_train_model(c)
         # one dropout stream per rank and step, as the JAX step folds the
         # dropout key with both
         self.state = create_train_state(self.model, build_opt, self.device,
-                                        seed=c.seed + 1, rank=self.rank)
+                                        seed=c.seed + 1, rank=self.rank,
+                                        grad_sync=self.grad_sync)
         self.train_step = build_image_train_step(
             self.grad_sync, bn_stats_sync=c.bn_stats_sync,
             grad_accum=c.grad_accum, nonfinite_guard=c.skip_nonfinite)
@@ -485,23 +519,32 @@ class Trainer:
     def _resume(self) -> None:
         """Restore the newest valid checkpoint of ``train_dir``: rank 0
         scans (verifying, quarantining what fails), the others restore the
-        step it found."""
+        step it found; a topk run's residuals come from rank 0's read, each
+        rank its row (:meth:`_scatter_ef`). Residuals of another replica
+        count reset to zero under an elastic plan, and raise without
+        one."""
         from pytorch_distributed_nn_tpu_torch.resilience.supervisor import (
             resume_latest_valid,
         )
 
         c = self.config
-        found = 0
+        found, rows = 0, []
         if self.rank == 0:
-            restored = resume_latest_valid(c.train_dir, self.state)
+            restored = resume_latest_valid(
+                c.train_dir, self.state, ef_rows=rows,
+                ef="raise" if self._elastic_plan is None else "reset")
             found = 0 if restored is None else self.state.step + 1
         if self.n_workers > 1:
-            flag = torch.tensor([found], dtype=torch.int64,
+            flag = torch.tensor([found, len(rows)], dtype=torch.int64,
                                 device=self.device)
-            found = int(all_reduce(flag, "sum", self.group).item())
+            found, n_rows = (int(v) for v in
+                             all_reduce(flag, "sum", self.group).tolist())
             if self.rank != 0 and found:
                 ckpt.restore_checkpoint(
-                    ckpt.checkpoint_path(c.train_dir, found - 1), self.state)
+                    ckpt.checkpoint_path(c.train_dir, found - 1), self.state,
+                    ef="skip")
+            if found and self.state.ef_state is not None:
+                self._scatter_ef(rows if n_rows == self.n_workers else None)
         if found:
             self.start_step = self.state.step
             logger.info("Resumed from step %d", self.start_step)
@@ -563,6 +606,83 @@ class Trainer:
                             mode="skip", batches=self.start_step)
         self.train_loader.skip(self.start_step)
 
+    # -- the residuals of topk error feedback across ranks -------------------
+
+    def _ef_flat(self) -> torch.Tensor:
+        return torch.cat([e.detach().reshape(-1).to(torch.float32)
+                          for e in self.state.ef_state])
+
+    def _ef_unflat(self, flat: torch.Tensor, n: int) -> list:
+        """(n, total) or (total,) -> one (n, *shape) or (*shape) tensor per
+        parameter, in the residuals' dtypes."""
+        out, off = [], 0
+        for e in self.state.ef_state:
+            k = e.numel()
+            part = flat[..., off:off + k]
+            out.append(part.reshape(*flat.shape[:-1], *e.shape).to(e.dtype))
+            off += k
+        return out
+
+    def _gather_ef(self, timeout_s: Optional[float] = None):
+        """Every rank's residuals on rank 0 for a save, one (n, *shape)
+        tensor per parameter (``None`` on the other ranks and without
+        topk): one gather of one flat f32 buffer a rank, which every rank
+        joins. With ``timeout_s`` a gather that does not complete in time
+        (a rank is gone) gives ``()`` on rank 0: the save then writes no
+        residuals."""
+        ef = self.state.ef_state
+        if ef is None:
+            return None
+        n = self.n_workers
+        if n == 1:
+            return [e.detach()[None] for e in ef]
+        import datetime
+
+        import torch.distributed as dist
+
+        flat = self._ef_flat()
+        out = ([[torch.empty_like(flat) for _ in range(n)]]
+               if self.rank == 0 else [])
+        opts = dist.GatherOptions()
+        opts.rootRank = 0
+        try:
+            work = self.group.gather(out, [flat], opts)
+            if timeout_s is None:
+                work.wait()
+            else:
+                work.wait(datetime.timedelta(seconds=timeout_s))
+        except Exception:
+            if timeout_s is None:
+                raise
+            logger.exception("residual gather for the emergency checkpoint "
+                             "failed: it is written without ef_state")
+            return ()
+        if self.rank != 0:
+            return None
+        return self._ef_unflat(torch.stack(out[0]), n)
+
+    def _scatter_ef(self, rows) -> None:
+        """Each rank's row of the residuals rank 0 restored (``rows``: a
+        list over ranks of ``{name: tensor}``, on rank 0; ``None`` when the
+        file held none of this replica count: every rank keeps zeros)."""
+        import torch.distributed as dist
+
+        if rows is None:
+            for e in self.state.ef_state:
+                e.zero_()
+            return
+        mine = torch.empty_like(self._ef_flat())
+        inputs = []
+        if self.rank == 0:
+            names = [n for n, _ in self.model.named_parameters()]
+            inputs = [[torch.cat([row[k].reshape(-1).to(torch.float32)
+                                  for k in names]).to(mine.device)
+                       for row in rows]]
+        opts = dist.ScatterOptions()
+        opts.rootRank = 0
+        self.group.scatter([mine], inputs, opts).wait()
+        self.state.ef_state = self._ef_unflat(mine, 1)
+
     def _loader_state(self) -> Optional[dict]:
         fn = getattr(self.train_loader, "state", None)
         return fn() if callable(fn) else None
@@ -578,8 +698,6 @@ class Trainer:
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One training step on ``batch`` (this rank's slice); metrics
         stay on the device."""
-        if self.is_text:
-            return self.train_step(self.state, batch)
         # the JAX trainer's step key is PRNGKey(seed + 1) folded with the
         # step: the same on every rank, another at every step
         return self.train_step(self.state, batch,
@@ -628,6 +746,8 @@ class Trainer:
                 rec[rate_key] = items / step_s
                 history.append(rec)
                 self.metrics.log(rec)
+                if rec.get("straggler_dropped", 0):
+                    self._straggler_event(rec)
                 if rec.get("skipped_nonfinite", 0):
                     self.telemetry.emit("nonfinite_skip", step=rec["step"])
             last = pending[-1]
@@ -671,7 +791,10 @@ class Trainer:
             with sup if sup is not None else contextlib.nullcontext():
                 for step in range(self.start_step, total):
                     if plan is not None:
-                        plan.pre_step(step + 1, rank=self.rank)
+                        # with the simulator on, a delay is simulated:
+                        # it enters the sync's arrival times, no sleep
+                        plan.pre_step(step + 1, rank=self.rank,
+                                      sleep_delays=self._straggler_sim is None)
                     if self._stop_requested(sup):
                         preempt_exit(step)
                         break
@@ -760,11 +883,39 @@ class Trainer:
                         logger.exception("stop_trace failed during shutdown")
         return history
 
+    def _straggler_event(self, rec: dict) -> None:
+        """The warning and the ``straggler_drop`` event of a step whose
+        sync dropped stragglers (after its step record)."""
+        ranks = (dropped_ranks(rec["straggler_dropped_mask"])
+                 if "straggler_dropped_mask" in rec else None)
+        logger.warning("Step %d: dropped %d straggler(s)%s, skew %.2fx",
+                       rec["step"], int(rec["straggler_dropped"]),
+                       f" (ranks {ranks})" if ranks is not None else "",
+                       rec.get("straggler_skew", float("nan")))
+        self.telemetry.emit(
+            "straggler_drop", step=rec["step"],
+            dropped=int(rec["straggler_dropped"]), ranks=ranks,
+            skew=rec.get("straggler_skew"),
+            slowest_rank=(int(rec["straggler_slowest_rank"])
+                          if "straggler_slowest_rank" in rec else None))
+
     def _save_periodic(self, step: int, timer: PhaseTimer) -> None:
-        """The checkpoint of ``step`` (rank 0): handed to the async writer
-        (the loop stalls for the snapshot), or written inline."""
+        """The checkpoint of ``step``: every rank joins the residuals'
+        gather (topk) and, with ``overlap_eval``, snapshots its state for
+        its eval thread; rank 0 hands the save to the async writer (the
+        loop stalls for the snapshot), or writes it inline."""
         c = self.config
+        ef_rows = None
+        if self.state.ef_state is not None:
+            with timer.phase("checkpoint"):
+                ef_rows = self._gather_ef()
         if self.rank != 0:
+            if c.overlap_eval:
+                from pytorch_distributed_nn_tpu_torch.training.async_ckpt \
+                    import snapshot
+
+                # this rank's own state, the residuals left out
+                self._start_overlap_eval(step, snapshot(self.state, ()))
             return
         data_state = self._loader_state()
         if self._async_ckpt is not None:
@@ -772,17 +923,19 @@ class Trainer:
                 handle = self._async_ckpt.save(
                     self.state, step=step,
                     retain_device_state=c.overlap_eval,
-                    data_state=data_state, fault_plan=self.fault_plan)
+                    data_state=data_state, fault_plan=self.fault_plan,
+                    ef_rows=ef_rows)
             logger.info("Checkpoint step %d handed to the async writer "
                         "(loop stalled %.1f ms)", step, handle.stall_ms)
             if c.overlap_eval:
-                self._start_overlap_eval(handle)
+                self._start_overlap_eval(step, handle.dev_state, handle)
             return
         with timer.phase("checkpoint"):
             path = ckpt.save_checkpoint(c.train_dir, self.state, step=step,
                                         data_state=data_state,
                                         geometry=self._geometry,
-                                        fault_plan=self.fault_plan)
+                                        fault_plan=self.fault_plan,
+                                        ef_rows=ef_rows)
         if c.keep_last is not None:
             ckpt.gc_checkpoints(c.train_dir, c.keep_last)
         logger.info("Checkpointed step %d to %s", step, path)
@@ -798,15 +951,17 @@ class Trainer:
         self._eval_model.load_state_dict(named, strict=True, assign=True)
         return TrainState(self._eval_model, None, step=snap.step)
 
-    def _start_overlap_eval(self, handle) -> None:
-        """The eval pass on ``handle``'s device snapshot, on a thread and
-        (on the card) its own stream, while training goes on; depth 1, as
-        the writer. Emits ``eval_result`` with ``source="overlap"``."""
+    def _start_overlap_eval(self, step: int, snap, handle=None) -> None:
+        """The eval pass on the device snapshot ``snap`` of ``step`` (the
+        async save ``handle``'s on rank 0), on a thread and (on the card)
+        its own stream, while training goes on; its collectives over the
+        eval group. Depth 1, as the writer: every rank joins its previous
+        pass here, at the same boundary. Emits ``eval_result`` with
+        ``source="overlap"``."""
         prev = self._overlap_eval_thread
         if prev is not None:
             prev.join()
         telemetry = self.telemetry
-        snap = handle.dev_state
         if self.device.type == "cuda" and self._eval_stream is None:
             self._eval_stream = torch.cuda.Stream(self.device)
 
@@ -816,22 +971,23 @@ class Trainer:
                         if self._eval_stream is not None \
                         else contextlib.nullcontext():
                     snap.wait(self._eval_stream)
-                    out = run_eval_pass(self.eval_step,
+                    out = run_eval_pass(self._overlap_eval_step,
                                         self._snapshot_state(snap),
                                         self.test_loader)
                 if out:
                     seqs = getattr(self.test_loader, "eval_sequences", None)
                     telemetry.emit(
-                        "eval_result", step=handle.step,
+                        "eval_result", step=step,
                         loss=out["loss"], acc1=out["acc1"], acc5=out["acc5"],
                         sequences=seqs, source="overlap")
                     logger.info("Overlapped eval @ step %d: loss %.4f, "
-                                "prec@1 %.4f, prec@5 %.4f", handle.step,
+                                "prec@1 %.4f, prec@5 %.4f", step,
                                 out["loss"], out["acc1"], out["acc5"])
             except Exception:
                 logger.exception("overlapped eval failed (non-fatal)")
             finally:
-                handle.dev_state = None
+                if handle is not None:
+                    handle.dev_state = None
 
         self._overlap_eval_thread = threading.Thread(
             target=_run, name="pdtn-overlap-eval", daemon=True)
@@ -850,20 +1006,24 @@ class Trainer:
     def _emergency_save(self) -> Optional[str]:
         """A synchronous checkpoint of the live state at the completed
         step (the preemption path), after draining the async writer so
-        the two never race on one path. Best effort: logged, not
-        raised."""
+        the two never race on one path. A topk run's residuals are
+        gathered from every rank within ``EF_GATHER_TIMEOUT_S``; when a
+        rank is gone the file holds none (a resume starts them at zero).
+        Best effort: logged, not raised."""
         c = self.config
         try:
             self._finish_background_io(raise_errors=False)
         except Exception:
             logger.exception("async drain before emergency save failed")
+        ef_rows = self._gather_ef(timeout_s=EF_GATHER_TIMEOUT_S)
         if self.rank != 0:
             return None
         try:
             path = ckpt.save_checkpoint(c.train_dir, self.state,
                                         data_state=self._loader_state(),
                                         geometry=self._geometry,
-                                        fault_plan=self.fault_plan)
+                                        fault_plan=self.fault_plan,
+                                        ef_rows=ef_rows)
             logger.info("Emergency checkpoint: %s", path)
             return path
         except Exception:

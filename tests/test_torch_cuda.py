@@ -662,11 +662,91 @@ def test_cuda_int8_sync_on_one_nccl_rank_equals_the_plain_quantizer(card):
              for s in ((512, 512, 3, 3), (64,), (100, 64), (256, 128, 3, 3))]
     sync = make_grad_sync(group, compression="int8")
     before = kernels.launch_counts()["quantize_int8_scaled"]
-    got = sync(grads, 123)
+    got, _ = sync(grads, None, 123)
     assert kernels.launch_counts()["quantize_int8_scaled"] == before + 1
     want = compression.int8_psum_mean(
         grads, compression.leaf_seeds(123, 2)[1], group,
         group_quantizer=reference.quantize_int8_scaled_group)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_masks_and_residuals(card):
+    """topk with error feedback on card tensors: each leaf's mask equals
+    the CPU's for the same values (the k-th magnitude is one value
+    whatever the selection), keeps at least k coordinates, and sent +
+    residual == gradient + old residual bit for bit."""
+    from pytorch_distributed_nn_tpu_torch.ops import compression as C
+
+    rng = np.random.RandomState(4)
+    shapes = ((30522, 768), (768,), (3072, 768), (2,))
+    grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+             for s in shapes]
+    ef = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+          for s in shapes]
+    # ties at the threshold: every magnitude repeated
+    grads[2] = grads[2].round()
+    ef[2] = torch.zeros_like(ef[2])
+    sent, resid = C.topk_compress_ef(grads, ef, 0.01)
+    for g, e, s_, r in zip(grads, ef, sent, resid):
+        acc = g + e
+        assert torch.equal(s_ + r, acc)
+        mask = C.topk_mask_leaf(acc, 0.01)
+        assert torch.equal(mask.cpu(), C.topk_mask_leaf(acc.cpu(), 0.01))
+        assert torch.equal(s_, acc * mask)
+        assert int(mask.sum()) >= max(1, int(acc.numel() * 0.01 + 0.999999))
+
+
+def _bucket_count(sizes, bucket_bytes):
+    from pytorch_distributed_nn_tpu_torch.ops import compression as C
+
+    total, per = sum(sizes), bucket_bytes // 4
+    big = sum(min(per, total - o) >= C.QUANT_KERNEL_MIN_SIZE
+              for o in range(0, total, per))
+    return -(-big // kernels.QUANT_GROUP_LEAVES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_kb", [None, 1024])
+def test_cuda_bertbase_int8_sync_launches_and_bits(card, bucket_kb):
+    """GradSync int8 over one NCCL rank on BertBase's 201 gradient leaves:
+    the grouped quantize launches ceil(76 / 64) = 2 times over the leaves
+    of 16384 elements or more, or once per 64 kernel-sized buckets of 1
+    MB (418 buckets: 7), and the synced gradient equals the plain
+    grouped quantizer's bit for bit."""
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.ops import compression as C
+    from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
+        make_grad_sync,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.mesh import init_group
+
+    group, dev = init_group(card)
+    sizes = [p.numel() for p in build_model("BertBase").parameters()]
+    big = sum(n >= C.QUANT_KERNEL_MIN_SIZE for n in sizes)
+    assert (len(sizes), big, sum(sizes)) == (201, 76, 109512762)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grads = [torch.randn(n, generator=gen, device=dev) * 1e-3
+             for n in sizes]
+    bucket = None if bucket_kb is None else bucket_kb * 1024
+    sync = make_grad_sync(group, compression="int8", bucket_bytes=bucket)
+    want_launches = (2 if bucket is None else _bucket_count(sizes, bucket))
+    if bucket is not None:
+        assert want_launches == 7
+    before = kernels.launch_counts()["quantize_int8_scaled"]
+    got, _ = sync(grads, None, 77)
+    assert kernels.launch_counts()["quantize_int8_scaled"] \
+        == before + want_launches
+    leaves, meta = grads, None
+    if bucket is not None:
+        leaves, meta = C.flatten_buckets(grads, bucket)
+    want = C.int8_psum_mean(
+        leaves, C.leaf_seeds(77, 2)[1], group,
+        group_quantizer=reference.quantize_int8_scaled_group)
+    if meta is not None:
+        want = C.unflatten_buckets(want, meta)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)

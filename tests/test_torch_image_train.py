@@ -61,10 +61,7 @@ from pytorch_distributed_nn_tpu_torch.training.train_step import (
     create_train_state,
     sync_seed,
 )
-from pytorch_distributed_nn_tpu_torch.training.trainer import (
-    TEXT_UNSUPPORTED,
-    Trainer,
-)
+from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
 from torch_ranks import run_ranks
 import torch_cpu  # one intra-op thread here and in subprocesses
 
@@ -216,20 +213,38 @@ _BASE = dict(network="LeNet", dataset="MNIST", batch_size=16,
 
 
 @pytest.mark.parametrize("field,value", [
-    ("num_workers", 2), ("compression", "topk"), ("bucket_bytes", 1024),
-    ("fused_ln", True), ("attn_impl", "pallas"), ("dataset", "MLMSynth"),
-    ("loader_workers", 2), ("kill_ranks", (0,)),
+    ("num_workers", 2), ("fused_ln", True), ("attn_impl", "pallas"),
+    ("dataset", "MLMSynth"), ("loader_workers", 2), ("kill_ranks", (0,)),
 ])
 def test_image_trainer_refuses_what_it_does_not_run(field, value):
     with pytest.raises((ValueError, NotImplementedError)):
         Trainer(TrainConfig(**{**_BASE, field: value}), device="cpu")
 
 
+@pytest.mark.parametrize("field,value", [("compression", "topk"),
+                                         ("bucket_bytes", 1024)])
+def test_image_trainer_runs_topk_and_buckets(field, value):
+    """topk with error feedback and bucketed collectives, which the image
+    trainer refused before they were ported, run."""
+    trainer = Trainer(TrainConfig(**{**_BASE, field: value}), device="cpu")
+    try:
+        history = trainer.train()
+    finally:
+        trainer.close()
+    assert [r["step"] for r in history] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in history)
+    assert (trainer.state.ef_state is not None) == (value == "topk")
+
+
 def test_text_models_keep_single_rank_sync():
-    """The MLM step is not data-parallel yet: its sync flags raise."""
-    assert set(TEXT_UNSUPPORTED) == {"num_workers", "num_aggregate",
-                                     "kill_ranks", "compression",
-                                     "sync_mode"}
+    """The text models take the image path's data-parallel sync: no
+    table of sync flags refused for them is left, and only items 1 and 3
+    still raise."""
+    from pytorch_distributed_nn_tpu_torch.training import trainer as mod
+
+    assert not hasattr(mod, "TEXT_UNSUPPORTED")
+    assert all("item 1" in item or "item 3" in item
+               for _, item in mod.UNSUPPORTED.values())
 
 
 @pytest.mark.parametrize("sync", [dict(), dict(sync_mode="local"),

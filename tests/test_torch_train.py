@@ -56,10 +56,10 @@ from pytorch_distributed_nn_tpu_torch.training.train_step import (
     create_train_state,
 )
 from pytorch_distributed_nn_tpu_torch.training.trainer import (
-    TEXT_UNSUPPORTED,
     UNSUPPORTED,
     Trainer,
 )
+from torch_ranks import run_ranks
 
 import torch_cpu  # one intra-op thread here and in subprocesses
 
@@ -326,16 +326,36 @@ _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sync_mode", "ps"), ("compression", "int8"), ("tensor_parallel", 2),
-    ("seq_parallel", 2), ("num_workers", 2), ("straggler_deadline", 1.0),
-    ("bucket_bytes", 1024), ("remat", True), ("loader_workers", 2),
-    ("warm_start", "ckpt"), ("data_path", "shards"), ("kill_ranks", (1,)),
+    ("tensor_parallel", 2), ("seq_parallel", 2), ("remat", True),
+    ("loader_workers", 2), ("warm_start", "ckpt"), ("data_path", "shards"),
 ])
 def test_unsupported_flags_raise_naming_their_roadmap_item(field, value):
-    assert field in UNSUPPORTED or field in TEXT_UNSUPPORTED
+    assert field in UNSUPPORTED
     cfg = TrainConfig(**{**_BASE, field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("sync_mode", "ps"), ("compression", "int8"), ("num_workers", 2),
+    ("straggler_deadline", 1.0), ("bucket_bytes", 1024), ("kill_ranks", (1,)),
+])
+def test_gradient_sync_flags_now_run_on_the_text_models(field, value):
+    """The flags the single-rank MLM step refused, each now one step of a
+    2-rank BertTiny run (every rank the same finite loss)."""
+    assert field not in UNSUPPORTED
+    cfg = TrainConfig(**{**_BASE, "num_workers": 2, field: value})
+
+    def one(rank, group):
+        trainer = Trainer(dataclasses.replace(cfg), device="cpu",
+                          group=group)
+        try:
+            return [r["loss"] for r in trainer.train()]
+        finally:
+            trainer.close()
+
+    losses = run_ranks(2, one)
+    assert losses[0] == losses[1] and np.isfinite(losses[0]).all()
 
 
 def test_trainer_runs_on_the_card_or_raises():
