@@ -7,7 +7,9 @@ single-pass serving (``POST /v1/infer``) of their checkpoints, the
 training path's faults, flight recorder, profiler and elastic resume,
 and the rest of the gradient sync (int8 and bucketed collectives on
 BertBase, topk with error feedback and its resume, the straggler
-simulator).
+simulator), and streaming input from ``.pdsr`` shards (``data export``,
+the checkpointable ``StreamingLoader``, the native augment engine and the
+loader's worker pool).
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
@@ -237,17 +239,36 @@ Phases, each printed on its own line:
    ResNet-18 with ``--straggler-deadline 1.0 --faults delay@3:p0:2.0s``:
    the delay simulated (``fault_injected`` with ``simulated: true``, no
    sleep, no rank dropped);
-15. one JSON line listing the kernels (launches on the driven paths of
-   phases 4, 5, 8, 9, 10 and 14, error against the plain version, times,
-   least possible time), then the result line ``{"ok": true, "device":
-   {...}}``.
+15. streaming input, each reading beside the card's name and power
+   limit: ``data export`` (two subprocesses at once) of the full-size
+   synthetic CIFAR-10 train split (50,000 records) into 8 shards and of
+   a token corpus (4096 sequences of 16-128 tokens), ``data info`` of
+   each, the export seconds; the native augment engine built and a
+   1024-image batch byte for byte the numpy gather's, and one batch's
+   input stages (read, transform, copy) timed; ResNet-18 as in phase 5 from
+   the shards (``--stream-prefetch 2 --loader-workers 4``) for 60 steps
+   across the epoch boundary at 48 (one quantize launch a step, finite
+   losses, step ms and ``input_wait_ms`` median and p90 beside phase 5's
+   device-layout step), 10 steps at ``--stream-prefetch 0``, and, with
+   cuDNN's deterministic algorithms, a checkpoint at step 30 resumed to
+   40: the restored loader state the uninterrupted run's at step 30 and
+   the resumed losses within ``FAULT_RESUME_TOL`` of it; BertBase as in
+   phase 5 from the token shards, 10 steps with phase 5's launch counts;
+   ResNet-18 with ``--data-layout host --loader-workers 4`` for 10 steps:
+   the first batch byte for byte ``_pool.make_batch`` computed in this
+   process, ``close()`` within ``POOL_CLOSE_S`` and no worker left
+   (``stream_phase(kernels, seed, smi, repo, root)``);
+16. one JSON line listing the kernels (launches on the driven paths of
+   phases 4, 5, 8, 9, 10, 14 and 15, error against the plain version,
+   times, least possible time), then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
 f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8, each training run of
-phases 9, 10 and 14) and read just after; the evaluator subprocess counts
-its own.
+phases 9, 10, 14 and 15) and read just after; the evaluator subprocess
+counts its own.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -3598,6 +3619,352 @@ def sync_phase(kernels, reference, seed, smi, root):
             "launches": launches}
 
 
+# -- phase 15: streaming input ------------------------------------------------
+
+#: phase 15's ResNet-18 runs from the CIFAR-10 shards: the main run (an
+#: epoch is 48 steps at B 1024 with drop-last, so 60 cross it and its
+#: shard reshuffle), the cold input path, and the mid-epoch checkpoint
+STREAM_STEPS = 60
+STREAM_COLD_STEPS = 10
+STREAM_SAVE_STEP = 30
+STREAM_RESUME_STEPS = 40
+STREAM_FLAGS = {"stream_prefetch": 2, "loader_workers": 4}
+STREAM_SHARDS = 8
+#: BertBase steps from the token shards, and the host layout's pool run
+STREAM_BERT_STEPS = 10
+POOL_STEPS = 10
+#: what close() of the pool may take
+POOL_CLOSE_S = 10.0
+#: the native augment check's batch
+AUGMENT_CHECK_B = 1024
+#: batches whose input stages are timed one by one
+STAGE_BATCHES = 5
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def stream_resnet_run(kernels, seed, cfg, what, hook=None):
+    """Train ``cfg`` (a ResNet-18 TrainConfig) with one grouped quantize
+    launch a step; ``hook(trainer)`` runs after each step. Returns the
+    history and the launches."""
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    if hook is not None:
+        inner = trainer.step
+
+        def step(batch):
+            m = inner(batch)
+            hook(trainer)
+            return m
+
+        trainer.step = step
+    start = trainer.start_step
+    restored = trainer.train_loader.state()
+    kernels.reset_launch_counts()
+    try:
+        history = trainer.train()
+    finally:
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        final = trainer.train_loader.state()
+        trainer.close()
+    losses = [r["loss"] for r in history]
+    if len(losses) != cfg.max_steps - start \
+            or not all(map(math.isfinite, losses)):
+        fail(f"phase 15 {what}: losses {losses}")
+    expect_launches(kernels, launches, {"quantize_int8_scaled": 1},
+                    len(losses), f"phase 15 {what}")
+    return {"history": history, "losses": losses, "launches": launches,
+            "start": start, "restored": restored, "final": final}
+
+
+def step_stats(history, skip=2):
+    ms = [r["step_ms"] for r in history[skip:]]
+    wait = [r["input_wait_ms"] for r in history[skip:]]
+    return {"step_ms": median(ms), "wait_ms": median(wait),
+            "wait_p90_ms": percentile(wait, 0.9), "all_wait_ms": wait}
+
+
+def stream_phase(kernels, seed, smi, repo, root, phase5_ms=None):
+    """Phase 15: ``data export`` of the full-size synthetic CIFAR-10 train
+    split and a token corpus; the native augment engine against the numpy
+    gather; ResNet-18 from the shards (the main run, the cold path, a
+    mid-epoch checkpoint and resume); BertBase from the token shards; and
+    ResNet-18 on the host layout with the worker pool. ``phase5_ms``:
+    phase 5's device-layout step ms of the same call. Returns the facts
+    and the launches of the driven paths."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.data import (
+        _pool,
+        datasets,
+        native_augment,
+    )
+    from pytorch_distributed_nn_tpu_torch.data.loader import DataLoader
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    # a. export: both subprocesses at once, each timed to its own end
+    from concurrent.futures import ThreadPoolExecutor
+
+    img_dir = os.path.join(root, "cifar10_shards")
+    tok_dir = os.path.join(root, "token_shards")
+
+    def export(args, what):
+        t0 = time.perf_counter()
+        out = finish_cli(run_cli(repo, ["data", "export", *args]), what)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        img = pool.submit(export, ["--out", img_dir, "--dataset", "Cifar10",
+                                   "--shards", str(STREAM_SHARDS)],
+                          "phase 15 data export (image)")
+        tok = pool.submit(export, ["--out", tok_dir, "--kind", "tokens"],
+                          "phase 15 data export (tokens)")
+        (out, img_s), (tok_out, tok_s) = img.result(), tok.result()
+    out += tok_out
+    infos = {}
+    for d in (img_dir, tok_dir):
+        infos[d] = json.loads(finish_cli(run_cli(repo, ["data", "info", d]),
+                                         "phase 15 data info"))
+    img_meta, tok_meta = infos[img_dir], infos[tok_dir]
+    img_bytes = sum(os.path.getsize(os.path.join(img_dir, s["file"]))
+                    for s in img_meta["shards"])
+    if img_meta["num_records"] != 50000 or tok_meta["num_records"] != 4096:
+        fail(f"phase 15 exported {img_meta['num_records']} images and "
+             f"{tok_meta['num_records']} sequences")
+    log(f"phase 15 data export ({smi}): {out.strip()!r}; CIFAR-10 train "
+        f"{img_meta['num_records']} records in {len(img_meta['shards'])} "
+        f"shards, {img_bytes} bytes, {img_s:.3f} s; tokens "
+        f"{tok_meta['num_records']} sequences, {tok_meta['num_tokens']} "
+        f"tokens, {tok_s:.3f} s (two `data export` subprocesses at once)")
+    for d, meta in infos.items():
+        log(f"phase 15 data info {os.path.basename(d)}: "
+            + json.dumps(meta, sort_keys=True))
+
+    # b. the native augment engine
+    if not native_augment.available():
+        fail("phase 15: native/libpdtn_augment.so did not build")
+    ds = datasets.load_dataset("Cifar10", True, synthetic_size=RESNET_DATA)
+    x = datasets.normalize(ds.raw_images[:AUGMENT_CHECK_B], ds.mean, ds.std)
+    ys, xs, flip = datasets.augment_draws(np.random.RandomState(seed),
+                                          AUGMENT_CHECK_B)
+    t0 = time.perf_counter()
+    native = native_augment.augment_f32(x, ys, xs, flip)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gather = datasets.augment_gather(x, ys, xs, flip)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    if native is None or native.tobytes() != gather.tobytes():
+        fail("phase 15: the native augment engine's bytes differ from the "
+             "numpy gather's")
+    log(f"phase 15 native augment ({smi}): a {AUGMENT_CHECK_B}-image f32 "
+        f"batch equals the numpy gather byte for byte; native "
+        f"{native_ms:.3f} ms, gather {gather_ms:.3f} ms (one call each, "
+        f"host clock)")
+
+    # the input pipeline's stages, one batch at a time on this thread
+    from pytorch_distributed_nn_tpu_torch.data.streaming import (
+        StreamingLoader,
+    )
+
+    loader = StreamingLoader(img_dir, RESNET_B, seed=seed, prefetch=0)
+    stages = {"read": [], "transform": [], "copy": []}
+    try:
+        for _ in range(STAGE_BATCHES):
+            t0 = time.perf_counter()
+            index, raw, _ = loader._next_raw()
+            t1 = time.perf_counter()
+            host = loader._transform(raw, index)
+            t2 = time.perf_counter()
+            loader._to_device(host)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, a, b in (("read", t0, t1), ("transform", t1, t2),
+                            ("copy", t2, t3)):
+                stages[k].append((b - a) * 1e3)
+    finally:
+        loader.close()
+    stage_ms = {k: median(v) for k, v in stages.items()}
+    log(f"phase 15 input stages of one B={RESNET_B} image batch ({smi}; "
+        f"median of {STAGE_BATCHES}, host clock, one thread): read "
+        f"{stage_ms['read']:.3f} ms, transform (normalise + native augment) "
+        f"{stage_ms['transform']:.3f} ms, copy to the card (pageable) "
+        f"{stage_ms['copy']:.3f} ms")
+
+    # c. ResNet-18 from the shards
+    base = dataclasses.replace(resnet_config("int8", STREAM_STEPS, seed),
+                               data_path=img_dir, **STREAM_FLAGS)
+    main = stream_resnet_run(kernels, seed, base, "ResNet18 from shards")
+    per_epoch = img_meta["num_records"] // RESNET_B  # drop-last
+    if main["final"]["epoch"] != STREAM_STEPS // per_epoch \
+            or main["final"]["consumed"] != STREAM_STEPS:
+        fail(f"phase 15 ResNet18 from shards: loader state after "
+             f"{STREAM_STEPS} steps {main['final']}")
+    torch.cuda.empty_cache()
+    hot = step_stats(main["history"])
+    cold_run = stream_resnet_run(
+        kernels, seed, dataclasses.replace(base, max_steps=STREAM_COLD_STEPS,
+                                           stream_prefetch=0),
+        "ResNet18 from shards, --stream-prefetch 0")
+    cold = step_stats(cold_run["history"])
+    torch.cuda.empty_cache()
+    p5 = "not run" if phase5_ms is None else f"{phase5_ms:.3f} ms"
+    log(f"phase 15 ResNet18 from shards ({smi}; B={RESNET_B}, bf16, int8 "
+        f"sync, one NCCL rank, --stream-prefetch 2 --loader-workers 4): "
+        f"losses {[round(v, 4) for v in main['losses']]}; launches "
+        f"{main['launches']} (one quantize_int8_scaled a step over "
+        f"{STREAM_STEPS} steps, across the epoch boundary at "
+        f"{per_epoch}); loader "
+        f"state at the end {main['final']}; step {hot['step_ms']:.3f} ms "
+        f"(median of steps 3-{STREAM_STEPS}), input_wait_ms median "
+        f"{hot['wait_ms']:.3f}, p90 {hot['wait_p90_ms']:.3f}; phase 5's "
+        f"device-layout step {p5}")
+    log(f"phase 15 ResNet18 from shards --stream-prefetch 0 ({smi}): "
+        f"step {cold['step_ms']:.3f} ms (median of steps "
+        f"3-{STREAM_COLD_STEPS}; the step time leaves the fetch out), "
+        f"input_wait_ms median {cold['wait_ms']:.3f}, p90 "
+        f"{cold['wait_p90_ms']:.3f}")
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = dataclasses.replace(base, max_steps=STREAM_RESUME_STEPS)
+        at_save = {}
+
+        def snap(trainer):
+            if trainer.state.step == STREAM_SAVE_STEP:
+                at_save.update(trainer.train_loader.state())
+
+        ref = stream_resnet_run(kernels, seed, det,
+                                "ResNet18 uninterrupted (cuDNN "
+                                "deterministic)", hook=snap)
+        d = os.path.join(root, "stream_resume")
+        first = stream_resnet_run(
+            kernels, seed, dataclasses.replace(
+                det, max_steps=STREAM_SAVE_STEP, eval_freq=STREAM_SAVE_STEP,
+                train_dir=d), "ResNet18 to the checkpoint")
+        resumed = stream_resnet_run(
+            kernels, seed, dataclasses.replace(det, resume=True, train_dir=d),
+            "ResNet18 resumed")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    if resumed["start"] != STREAM_SAVE_STEP \
+            or resumed["restored"] != at_save or not at_save \
+            or at_save["epoch"] != 0:
+        fail(f"phase 15 resume: start {resumed['start']}, restored loader "
+             f"state {resumed['restored']}, the uninterrupted run's at step "
+             f"{STREAM_SAVE_STEP} {at_save}")
+    want = ref["losses"][STREAM_SAVE_STEP:]
+    pre = max(abs(a - b) for a, b in zip(first["losses"],
+                                         ref["losses"][:STREAM_SAVE_STEP]))
+    err = max(abs(a - b) for a, b in zip(resumed["losses"], want))
+    if not err <= FAULT_RESUME_TOL or not pre <= FAULT_RESUME_TOL:
+        fail(f"phase 15 resumed losses {resumed['losses']} against the "
+             f"uninterrupted {want}: max abs diff {err}; steps "
+             f"1-{STREAM_SAVE_STEP} {pre} (tol {FAULT_RESUME_TOL})")
+    log(f"phase 15 ResNet18 mid-epoch resume ({smi}; cuDNN deterministic): "
+        f"checkpoint at step {STREAM_SAVE_STEP} (epoch 0, mid-epoch), "
+        f"--resume to {STREAM_RESUME_STEPS}: the restored loader state "
+        f"equals the uninterrupted run's at step {STREAM_SAVE_STEP} "
+        f"({at_save['consumed']} consumed, shard position "
+        f"{at_save['shard_pos']}, record {at_save['record_pos']}); resumed "
+        f"losses against the uninterrupted run max abs diff {err:.3e}, "
+        f"steps 1-{STREAM_SAVE_STEP} {pre:.3e} (tol {FAULT_RESUME_TOL})")
+
+    # d. BertBase from the token shards
+    bert = train_path(kernels, "BertBase", seed, STREAM_BERT_STEPS,
+                      must_learn=False, data_path=tok_dir, **STREAM_FLAGS)
+    bert.pop("trainer")
+    torch.cuda.empty_cache()
+    log(f"phase 15 BertBase from token shards ({smi}; B=16, L=512, bf16, "
+        f"adam, flash + fused LN, --stream-prefetch 2 --loader-workers 4): "
+        f"losses {[round(v, 4) for v in bert['losses']]}; launches per run "
+        f"of {STREAM_BERT_STEPS} steps {bert['launches']} (= "
+        f"{STREAM_BERT_STEPS} x {bert['per_step']}, phase 5's); eval "
+        f"launches {bert['eval_launches']}; step {bert['step_ms']:.3f} ms")
+
+    # e. the host layout with the worker pool
+    cfg = dataclasses.replace(resnet_config("int8", POOL_STEPS, seed),
+                              data_layout="host", loader_workers=4)
+    trainer = Trainer(cfg)
+    first_batch = []
+    inner = trainer.train_loader.next_batch
+
+    def next_batch():
+        batch = inner()
+        if not first_batch:
+            first_batch.extend(t.cpu() for t in batch)
+        return batch
+
+    trainer.train_loader.next_batch = next_batch
+    kernels.reset_launch_counts()
+    try:
+        history = trainer.train()
+    finally:
+        torch.cuda.synchronize()
+        pool_launches = kernels.launch_counts()
+        procs = list(trainer.train_loader._pool._processes.values())
+        workers = len(procs)
+        t0 = time.perf_counter()
+        trainer.close()
+        close_s = time.perf_counter() - t0
+    left = [p.pid for p in procs if p.is_alive()]
+    losses = [r["loss"] for r in history]
+    if len(losses) != POOL_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"phase 15 host layout with the pool: losses {losses}")
+    expect_launches(kernels, pool_launches, {"quantize_int8_scaled": 1},
+                    POOL_STEPS, "phase 15 host layout with the pool")
+    if not 1 <= workers <= 4 or left or not close_s <= POOL_CLOSE_S:
+        fail(f"phase 15 pool: {workers} workers while training, close() "
+             f"took {close_s:.3f} s, left {left}")
+    train_ds = datasets.load_dataset("Cifar10", True,
+                                     synthetic_size=RESNET_DATA)
+    idx = DataLoader(train_ds, RESNET_B, seed=seed, prefetch=0)._next_idx()
+    _pool._STATE = (None, train_ds.raw_images, train_ds.labels,
+                    train_ds.mean, train_ds.std, train_ds.augment)
+    try:
+        wx, wy = _pool.make_batch(idx, (seed, 1), (0, RESNET_B))
+    finally:
+        _pool._STATE = None
+    if first_batch[0].numpy().tobytes() != wx.tobytes() \
+            or not np.array_equal(first_batch[1].numpy(), wy):
+        fail("phase 15 pool: the first batch differs from the pool's "
+             "seeding computed in process")
+    pool_stats = step_stats(history)
+    log(f"phase 15 ResNet18 --data-layout host --loader-workers 4 ({smi}): "
+        f"losses {[round(v, 4) for v in losses]}; launches {pool_launches}; "
+        f"the first batch equals _pool.make_batch in process byte for byte; "
+        f"step {pool_stats['step_ms']:.3f} ms, input_wait_ms median "
+        f"{pool_stats['wait_ms']:.3f}, p90 {pool_stats['wait_p90_ms']:.3f}; "
+        f"{workers} worker processes; close() {close_s:.3f} s, none left")
+    runs = (main, cold_run, ref, first, resumed)
+    launches = {name: sum(r["launches"][name] for r in runs)
+                + bert["launches"][name] + bert["eval_launches"][name]
+                + pool_launches[name] for name in kernels.KERNELS}
+    return {"export_s": {"image": img_s, "tokens": tok_s},
+            "image_bytes": img_bytes, "tokens": tok_meta["num_tokens"],
+            "augment_ms": {"native": native_ms, "gather": gather_ms},
+            "stage_ms": stage_ms,
+            "resnet": {"losses": main["losses"], **hot},
+            "cold": cold, "resume_err": err, "pre_save_err": pre,
+            "restored": at_save, "bert": bert,
+            "pool": {"losses": losses, "close_s": close_s, **pool_stats},
+            "launches": launches}
+
+
 # -- --step-times: this checkout's training steps, nothing checked ---------
 
 STEP_TIMES_STEPS = 40
@@ -4393,10 +4760,13 @@ def main() -> int:
         elastic = elastic_phase(repo, root)
         # -- 14. the gradient sync ----------------------------------------
         sync = sync_phase(kernels, reference, args.seed, smi, root)
+        # -- 15. streaming input ------------------------------------------
+        stream = stream_phase(kernels, args.seed, smi, repo, root,
+                              phase5_ms=resnet["step_ms"])
     report["serving"] = serving
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
-                  tf32=tf32, elastic=elastic)
+                  tf32=tf32, elastic=elastic, stream=stream)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
@@ -4458,7 +4828,8 @@ def main() -> int:
     for e in entries:
         e["launches"] += (faults["launches"].get(e["name"], 0)
                           + prof["launches"].get(e["name"], 0)
-                          + sync["launches"].get(e["name"], 0))
+                          + sync["launches"].get(e["name"], 0)
+                          + stream["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(
@@ -4469,7 +4840,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2, default=str)
 
-    # -- 15. result lines -------------------------------------------------
+    # -- 16. result lines -------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

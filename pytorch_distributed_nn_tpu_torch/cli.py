@@ -11,10 +11,14 @@ package's gradient sync flags (``--sync-mode``, ``--num-aggregate``,
 ``--kill-ranks``, ``--compress-grad none|int8|topk``, ``--topk-ratio``,
 ``--bucket-kb``, ``--straggler-deadline``, ``--straggler-min-keep``,
 ``--bn-stats-sync``) and data flags (``--data-layout``, ``--data-dir``,
-``--synthetic-size``). ``--multihost`` requires the torchrun environment
-(``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-``MASTER_PORT``) and retries the rendezvous store, as the JAX CLI
-retries ``jax.distributed.initialize``.
+``--synthetic-size``, ``--loader-workers``: worker processes of the host
+layout's loader, or the streaming loader's transform threads;
+``--data-path DIR``: train from a shard directory of ``data export``,
+``--stream-prefetch N`` batches ready). ``--multihost`` requires the
+torchrun environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) and retries the rendezvous store, as
+the JAX CLI retries ``jax.distributed.initialize``; each node then reads
+its own shards of ``--data-path``.
 
     python -m pytorch_distributed_nn_tpu_torch train --network BertBase \
         --dataset MLMSynth --optimizer adam --learning-rate 1e-4 \
@@ -56,6 +60,15 @@ data flags (``--seed``, ``--seq-len``, ``--vocab-size``, ...) must match
 the trainer's, and so must the model flags the port adds (``--attn-impl``,
 ``--fused-ln``, ``--dtype``). It prints one JSON line at the end: each
 step's metrics and restore/eval times, and the kernel launch counts.
+
+    python -m pytorch_distributed_nn_tpu_torch data export --out DIR \
+        [--kind image|tokens] [--shards 8] [--dataset Cifar10] [...]
+    python -m pytorch_distributed_nn_tpu_torch data info DIR
+
+writes a shard directory (``dataset.json`` and ``shard-*.pdsr``, the JAX
+package's bytes for the same flags) from an image dataset or the
+synthetic token corpus, and prints a directory's manifest, with the JAX
+``data`` command's flags and output. Host-side only: no card.
 
     python -m pytorch_distributed_nn_tpu_torch serve export --train-dir D \
         --out A [--step N] [--quantize int8] [--network NAME]
@@ -618,6 +631,68 @@ def _evaluator(args) -> int:
     return 0
 
 
+def _add_data_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX ``data`` command's subcommands and flags."""
+    sub = p.add_subparsers(dest="data_cmd", required=True)
+    pe = sub.add_parser(
+        "export", help="write a shard directory from an in-memory dataset")
+    a = pe.add_argument
+    a("--out", required=True, metavar="DIR",
+      help="shard directory to write (dataset.json + shard-*.pdsr)")
+    a("--kind", choices=["image", "tokens"], default="image")
+    a("--shards", type=int, default=8,
+      help="number of shard files (>= the host count the training run "
+           "will use)")
+    a("--dataset", default="Cifar10",
+      choices=["MNIST", "Cifar10", "Cifar100", "SVHN"],
+      help="image kind: which dataset to export")
+    a("--data-dir", default="./data")
+    a("--synthetic-size", type=int, default=None,
+      help="image kind: force synthetic data of this size")
+    a("--split", choices=["train", "test"], default="train")
+    a("--sequences", type=int, default=4096,
+      help="tokens kind: number of sequences to draw")
+    a("--vocab-size", type=int, default=1024)
+    a("--corpus-branching", type=int, default=8)
+    a("--min-len", type=int, default=16)
+    a("--max-len", type=int, default=128)
+    a("--seed", type=int, default=0)
+    pi = sub.add_parser("info", help="print a shard directory's manifest")
+    pi.add_argument("path")
+
+
+def _data(args) -> int:
+    """``data export`` and ``data info``: host-side numpy, no card."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.data.streaming import (
+        export_image_dataset,
+        export_text_corpus,
+        load_meta,
+    )
+
+    if args.data_cmd == "info":
+        print(json.dumps(load_meta(args.path), indent=2, sort_keys=True))
+        return 0
+    if args.kind == "image":
+        from pytorch_distributed_nn_tpu_torch.data.datasets import (
+            load_dataset,
+        )
+
+        ds = load_dataset(args.dataset, train=args.split == "train",
+                          data_dir=args.data_dir,
+                          synthetic_size=args.synthetic_size)
+        meta = export_image_dataset(ds, args.out, shards=args.shards)
+    else:
+        meta = export_text_corpus(
+            args.out, shards=args.shards, sequences=args.sequences,
+            vocab_size=args.vocab_size, branching=args.corpus_branching,
+            min_len=args.min_len, max_len=args.max_len, seed=args.seed)
+    print(f"wrote {len(meta['shards'])} shard(s), "
+          f"{meta['num_records']} records to {args.out}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -629,6 +704,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_evaluator_flags(sub.add_parser(
         "evaluator", help="poll a train_dir's checkpoints and score each"))
     _add_serve_flags(sub.add_parser("serve", help="serving commands"))
+    _add_data_flags(sub.add_parser(
+        "data", help="streaming shard tooling: export, info (host-side)"))
     return p
 
 
@@ -638,4 +715,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _train(args)
     if args.cmd == "evaluator":
         return _evaluator(args)
+    if args.cmd == "data":
+        return _data(args)
     return _serve(args)

@@ -10,10 +10,12 @@ shapes and sizes stands in (byte for byte the JAX package's), and the
 returned dataset says so.
 
 Augmentation (the reference's CIFAR/SVHN transform): reflect-pad 4,
-random 32x32 crop, random horizontal flip. :func:`augment_batch` is the
-numpy gather of the JAX package's host path; the JAX package's threaded
-C++ engine for it (``data/native_augment.py``), which produces the same
-bytes, is not ported yet (ROADMAP Queue 1 item 3).
+random 32x32 crop, random horizontal flip. :func:`augment` (and
+:func:`augment_batch`, which draws for it) takes the threaded C++ engine
+(``data/native_augment.py``) when it built and the inputs are within its
+contract, else the numpy gather :func:`augment_gather`; both give the
+JAX package's bytes for the same draws. Nothing here imports torch: the
+loader's worker processes import this module.
 """
 
 from __future__ import annotations
@@ -73,8 +75,13 @@ def spec(name: str):
 
 
 def normalize(images_uint8: np.ndarray, mean, std) -> np.ndarray:
-    x = images_uint8.astype(np.float32) / 255.0
-    return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    """(x / 255 - mean) / std in f32, the JAX package's operations in its
+    order, in place on one new array."""
+    x = images_uint8.astype(np.float32)
+    x /= np.float32(255.0)
+    x -= np.asarray(mean, np.float32)
+    x /= np.asarray(std, np.float32)
+    return x
 
 
 def _read_idx(path: str) -> np.ndarray:
@@ -213,7 +220,16 @@ def augment_gather(images: np.ndarray, ys, xs, flip) -> np.ndarray:
     return out
 
 
+def augment(images: np.ndarray, ys, xs, flip) -> np.ndarray:
+    """:func:`augment_gather`'s result, from the native engine when it
+    takes the inputs."""
+    from pytorch_distributed_nn_tpu_torch.data import native_augment
+
+    out = native_augment.augment_f32(images, ys, xs, flip)
+    return augment_gather(images, ys, xs, flip) if out is None else out
+
+
 def augment_batch(images: np.ndarray,
                   rng: np.random.RandomState) -> np.ndarray:
     """The reference's train transform on a batch, with draws from rng."""
-    return augment_gather(images, *augment_draws(rng, len(images)))
+    return augment(images, *augment_draws(rng, len(images)))

@@ -9,10 +9,18 @@ B / world)``, which is what the JAX package's ``P("data")`` sharding of
 the global batch gives each replica. A batch is ``(images, labels)``:
 NHWC f32 normalised images and int64 labels on the loader's device.
 
-- :class:`DataLoader`: normalise + augment on the host (numpy, draws from
-  a ``RandomState`` in the JAX host loader's order, for the whole global
-  batch), one background thread keeps ``prefetch`` batches ready. The
-  JAX loader's worker-process pool is not ported (ROADMAP Queue 1 item 3).
+- :class:`DataLoader`: normalise + augment on the host (numpy and the
+  native engine, draws from a ``RandomState`` in the JAX host loader's
+  order, for the whole global batch), one background thread keeps
+  ``prefetch`` batches ready. ``workers=N`` runs the JAX loader's worker
+  pool instead: N spawned processes (``data/_pool.py``, numpy only) share
+  the uint8 set through ``SharedMemory``, and each batch is built as the
+  JAX ``_pool_make_batch`` builds it (normalise, then augment with the
+  draws of ``RandomState([seed, counter])`` for the global batch), the
+  rank's rows of it. Batches come back in the order they were submitted.
+  The pool shuts down without ``Pool.terminate``, whose shutdown can
+  deadlock under load: the executor is shut down, its workers get a
+  deadline to exit, and only one that misses it is killed.
 - :class:`DeviceDataLoader`: the uint8 dataset lives on the device; per
   batch the host sends the index slice and the device gathers, pads,
   crops, flips and normalises with torch ops. The crop and flip draws
@@ -23,19 +31,25 @@ NHWC f32 normalised images and int64 labels on the loader's device.
 
 from __future__ import annotations
 
+import concurrent.futures
+import multiprocessing as mp
 import queue
 import threading
 import time
+from collections import deque
+from concurrent.futures.process import BrokenProcessPool
+from multiprocessing import shared_memory
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pytorch_distributed_nn_tpu_torch.data import _pool
 from pytorch_distributed_nn_tpu_torch.data.datasets import (
     Dataset,
+    augment,
     augment_draws,
-    augment_gather,
 )
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
@@ -106,7 +120,8 @@ class _IndexedLoader:
 
 
 class DataLoader(_IndexedLoader):
-    """Host-side loader with one prefetch thread (module docstring).
+    """Host-side loader with one prefetch thread, or with ``workers``
+    processes (module docstring).
 
     ``host_transform(k, (x, y))`` (set before the first ``next_batch``),
     when given, is applied to the k-th batch ``next_batch`` returns
@@ -114,24 +129,39 @@ class DataLoader(_IndexedLoader):
     thread, before the copy to the device: the fault plan's ``nan_grad``
     hook."""
 
+    #: how long the pool's first batch (which pays the workers' start) and
+    #: each later one may take before the loader gives up on the pool
+    FIRST_BATCH_TIMEOUT_S = 600.0
+    BATCH_TIMEOUT_S = 120.0
+    #: how long close() waits for the workers to exit before killing them
+    CLOSE_TIMEOUT_S = 10.0
+
     def __init__(self, dataset: Dataset, batch_size: int, shuffle=True,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
-                 rank: int = 0, world: int = 1, device="cpu"):
+                 rank: int = 0, world: int = 1, device="cpu",
+                 workers: int = 0):
         super().__init__(dataset, batch_size, shuffle, seed, drop_last, rank,
                          world, device)
         self.prefetch = max(0, prefetch)
+        self.workers = max(0, workers)
+        self._seed = seed
         self._queue: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self.host_transform = None
         self._drawn = 0  # batches next_batch returned
+        self._pool: Optional[concurrent.futures.ProcessPoolExecutor] = None
+        self._shm: Optional[shared_memory.SharedMemory] = None
+        self._pending: deque = deque()
+        self._aug_counter = 0
+        self._pool_batches = 0  # batches the pool returned
 
     def _host_batch(self, idx: np.ndarray):
         local = self._local(len(idx))
         x = self.dataset.images[idx[local]]
         if self.dataset.augment:
             ys, xs, flip = augment_draws(self._rng, len(idx))
-            x = augment_gather(x, ys[local], xs[local], flip[local])
+            x = augment(x, ys[local], xs[local], flip[local])
         return np.ascontiguousarray(x), self.dataset.labels[idx[local]]
 
     def _to_device(self, host) -> Batch:
@@ -157,11 +187,86 @@ class DataLoader(_IndexedLoader):
                     return
             self._epoch += 1
 
+    # -- the worker pool (workers > 0) ------------------------------------
+
+    def _ensure_pool(self) -> None:
+        if self._pool is not None:
+            return
+        raw = self.dataset.raw_images
+        self._shm = shared_memory.SharedMemory(create=True, size=raw.nbytes)
+        np.ndarray(raw.shape, dtype=np.uint8, buffer=self._shm.buf)[:] = raw
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            self.workers, mp_context=mp.get_context("spawn"),
+            initializer=_pool.init,
+            initargs=(self._shm.name, raw.shape, self.dataset.labels,
+                      self.dataset.mean, self.dataset.std,
+                      self.dataset.augment))
+
+    def _submit_one(self) -> None:
+        self._aug_counter += 1
+        idx = self._next_idx()
+        local = self._local(len(idx))
+        self._pending.append(self._pool.submit(
+            _pool.make_batch, idx, (self._seed, self._aug_counter),
+            (local.start, local.stop)))
+
+    def _pool_next(self):
+        """The next host batch from the pool, in submission order."""
+        self._ensure_pool()
+        while len(self._pending) < max(self.prefetch, self.workers):
+            self._submit_one()
+        # the first batch also pays the workers' start (fresh interpreters
+        # importing numpy) and the shared copy of the dataset
+        timeout = (self.FIRST_BATCH_TIMEOUT_S if self._pool_batches == 0
+                   else self.BATCH_TIMEOUT_S)
+        try:
+            batch = self._pending.popleft().result(timeout=timeout)
+        except concurrent.futures.TimeoutError:
+            raise RuntimeError(
+                f"loader worker pool produced no batch for {timeout:g}s — a "
+                "worker process likely died (OOM-killed or crashed); rerun "
+                "with workers=0 to use the in-process loader") from None
+        except BrokenProcessPool as e:
+            raise RuntimeError(
+                f"loader worker pool lost a worker process ({e}); rerun "
+                "with workers=0 to use the in-process loader") from e
+        self._pool_batches += 1
+        return batch
+
+    def _close_pool(self) -> None:
+        """Shut the pool down within CLOSE_TIMEOUT_S: queued batches are
+        cancelled, each worker finishes its batch and exits, and one that
+        has not exited by the deadline is killed. Then the parent unlinks
+        the shared block."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            procs = list((getattr(pool, "_processes", None) or {}).values())
+            pool.shutdown(wait=False, cancel_futures=True)
+            deadline = time.monotonic() + self.CLOSE_TIMEOUT_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(1.0)
+            self._pending.clear()
+        if self._shm is not None:
+            self._shm.close()
+            try:
+                self._shm.unlink()
+            except FileNotFoundError:
+                pass
+            self._shm = None
+
     def next_batch(self) -> Batch:
         t0 = time.perf_counter()
         host = self.host_transform is not None
         try:
-            if self.prefetch == 0:
+            if self.workers > 0:
+                batch = self._pool_next()
+                if not host:
+                    batch = self._to_device(batch)
+            elif self.prefetch == 0:
                 batch = self._make_batch(self._next_idx(), host)
             else:
                 if self._thread is None:
@@ -188,6 +293,13 @@ class DataLoader(_IndexedLoader):
         if self._thread is not None:
             self._thread.join(timeout=2.0)
             self._thread = None
+        self._close_pool()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 def augment_on_device(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,

@@ -24,8 +24,13 @@ At resume time the trainer asks :func:`plan_resume` for an
 ``--strict-geometry`` keeps the exact-match contract: a changed geometry
 raises :func:`strict_geometry_error`, naming both. The port's state is
 replicated on every rank but the residuals, so a changed world size
-needs no reshard: the same file restores on any number of ranks. Sharded checkpoints (ROADMAP
-Queue 1 item 1) and streaming repartition (item 3) are not ported.
+needs no reshard: the same file restores on any number of ranks. The
+streaming input's state needs none either: every rank of a node reads
+the node's shards, so a resume on another world size sees the same
+shard list and takes the exact restore; a changed host count
+re-partitions the stream (``StreamingLoader.restore_repartitioned``, a
+``data_refastforward`` event). Sharded checkpoints (ROADMAP Queue 1
+item 1) are not ported.
 """
 
 from __future__ import annotations

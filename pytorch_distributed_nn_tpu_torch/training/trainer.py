@@ -13,13 +13,22 @@ straggler simulator, ``straggler_deadline``/``straggler_min_keep``) and
 - Image models (the CNN zoo on MNIST/CIFAR/SVHN), with ``bn_stats_sync``.
   Data: real files under ``data_dir`` or the synthetic set;
   ``data_layout`` ``device`` keeps the uint8 set on the card and builds
-  batches there, ``host`` prepares them on a thread, ``auto`` is device
-  when the two splits take under 2 GiB.
+  batches there, ``host`` prepares them on a thread (``loader_workers =
+  N``: in N worker processes), ``auto`` is device when the two splits
+  take under 2 GiB.
 - Text models (the transformer family, dataset ``MLMSynth``): MLM
   training, the JAX trainer's shard_map path at tp = sp = 1: the masked
   mean over the global masked count (``attn_impl="pallas"`` -> the
   hand-written flash kernel, ``"full"`` -> plain attention in PyTorch;
   ``fused_ln`` is accepted: the port's one LayerNorm is the kernel).
+- ``data_path``: a shard directory of ``data export``
+  (:mod:`..data.streaming`) feeds training through the
+  ``StreamingLoader`` (``stream_prefetch`` batches ready, the transform
+  on ``loader_workers`` threads); its kind must match the network. Image
+  models evaluate on the in-memory test split, text models on the fixed
+  eval set, as the JAX trainer does. One node is one JAX host: its
+  ranks read the same shards and each keeps its rows of the host batch
+  (under ``multihost`` each node reads its own shards).
 
 ``Trainer(config)`` validates the config as the JAX trainer does, for the
 subset the port runs, and builds the model, the optimizer with its
@@ -46,8 +55,10 @@ Checkpoints, resume and supervision, as the JAX trainer runs them:
   the file it restores (another replica count resets them, with a
   warning; an emergency save whose gather fails writes none).
 - ``resume`` restores the newest checkpoint that verifies, whichever
-  package wrote it (corrupt newer ones are quarantined), the MLM batch
-  stream from its ``.data.json`` sidecar (the image loaders restart, as
+  package wrote it (corrupt newer ones are quarantined), the MLM and
+  streaming batch streams from its ``.data.json`` sidecar (a streaming
+  state of another shard layout is re-partitioned; without a sidecar the
+  stream skips the steps done; the in-memory image loaders restart, as
   in the JAX package), and numbers the steps on from there. Dropout is
   re-seeded from (seed, rank, step) at each step, so a resumed run draws
   what an uninterrupted one draws. Resume is elastic
@@ -69,10 +80,10 @@ Checkpoints, resume and supervision, as the JAX trainer runs them:
   step's arrival times and nothing sleeps; a crash writes the emergency
   checkpoint and re-raises, a preempt takes the SIGTERM path),
   ``nan_grad`` poisons the step's host batch before its copy to the card
-  (``data_layout="host"``; image models only), ``flaky_io`` and
-  ``torn_ckpt`` fire in the checkpoint writer. A step whose sync dropped
-  stragglers logs a warning and emits ``straggler_drop`` (the
-  ``straggler_burst`` detector's input).
+  (``data_layout="host"`` or ``data_path``; image models only),
+  ``flaky_io`` and ``torn_ckpt`` fire in the checkpoint writer. A step
+  whose sync dropped stragglers logs a warning and emits
+  ``straggler_drop`` (the ``straggler_burst`` detector's input).
 - ``profile_steps = N``: a ``torch.profiler`` trace of steps 2 to N + 1
   of the run (rank 0) into ``profile_dir`` (default
   ``<train_dir>/profile``), stopped also when the run ends inside it;
@@ -94,7 +105,7 @@ the JAX package's field names.
 
 Every flag the port cannot honour yet raises, naming the ROADMAP item
 that ports it (:data:`UNSUPPORTED`); none is silently ignored: the
-sharded and streaming paths (items 1 and 3). The trainer runs on the card
+sharded path (item 1). The trainer runs on the card
 unless ``device="cpu"`` is given; without a card it raises, it never
 falls back to the CPU.
 
@@ -118,6 +129,10 @@ from pytorch_distributed_nn_tpu_torch.data.datasets import load_dataset
 from pytorch_distributed_nn_tpu_torch.data.loader import (
     DataLoader,
     DeviceDataLoader,
+)
+from pytorch_distributed_nn_tpu_torch.data.streaming import (
+    StreamingLoader,
+    load_meta,
 )
 from pytorch_distributed_nn_tpu_torch.data.text import MLMBatches, MLMLoader
 from pytorch_distributed_nn_tpu_torch.models import (
@@ -179,7 +194,6 @@ logger = logging.getLogger(__name__)
 EF_GATHER_TIMEOUT_S = 60.0
 
 _SPMD = "ROADMAP Queue 1 item 1 (dp x tp x sp training)"
-_DATA = "ROADMAP Queue 1 item 3 (data)"
 
 #: config field -> (the values the port runs, the ROADMAP item that ports
 #: the rest); any other value raises
@@ -188,8 +202,6 @@ UNSUPPORTED = {
     "seq_parallel": ((1,), _SPMD),
     "remat": ((False,), _SPMD),
     "warm_start": ((None,), _SPMD),
-    "data_path": ((None,), _DATA),
-    "loader_workers": ((0,), _DATA),
 }
 
 
@@ -289,6 +301,7 @@ class Trainer:
             raise ValueError(
                 "nan_grad faults poison the float image batch; text "
                 "batches are integer token ids (no NaN representation)")
+        self._multihost = multihost
         self._elastic_plan = None
         if c.resume:
             self._plan_elastic(group)
@@ -411,17 +424,57 @@ class Trainer:
             nonfinite_guard=c.skip_nonfinite)
         self.eval_step = build_eval_step(self.group)
         kw = dict(rank=self.rank, world=n)
-        self.train_loader = MLMLoader(
-            MLMBatches(vocab_size=self.vocab_size, seq_len=self.seq_len,
-                       batch_size=c.batch_size, seed=c.seed,
-                       mask_prob=c.mask_prob, branching=c.corpus_branching),
-            self.device, **kw)
+        meta = self._stream_meta()
+        if meta is not None:
+            if int(meta["vocab_size"]) > self.vocab_size:
+                raise ValueError(
+                    f"shard corpus vocab {meta['vocab_size']} exceeds the "
+                    f"model's vocab_size={self.vocab_size}; pass "
+                    "--vocab-size >= the exported corpus's")
+            self.train_loader = self._streaming_loader(
+                seq_len=self.seq_len, mask_prob=c.mask_prob,
+                vocab_size=self.vocab_size)
+        else:
+            self.train_loader = MLMLoader(
+                MLMBatches(vocab_size=self.vocab_size, seq_len=self.seq_len,
+                           batch_size=c.batch_size, seed=c.seed,
+                           mask_prob=c.mask_prob,
+                           branching=c.corpus_branching),
+                self.device, **kw)
         self.test_loader = MLMLoader(
             MLMBatches(vocab_size=self.vocab_size, seq_len=self.seq_len,
                        batch_size=c.test_batch_size, seed=c.seed + 10_000,
                        mask_prob=c.mask_prob, branching=c.corpus_branching,
                        corpus_seed=c.seed),  # same language as training
             self.device, eval_batches=c.eval_batches, **kw)
+
+    def _stream_meta(self) -> Optional[dict]:
+        """The manifest of ``data_path`` (None without one); its kind must
+        be the network's."""
+        c = self.config
+        if not c.data_path:
+            return None
+        meta = load_meta(c.data_path)
+        want = "tokens" if self.is_text else "image"
+        if meta["kind"] != want:
+            raise ValueError(f"{c.data_path} holds {meta['kind']!r} shards "
+                             f"but network {c.network!r} needs {want!r} data")
+        return meta
+
+    def _streaming_loader(self, **kw) -> StreamingLoader:
+        """The training stream of ``data_path``: one node is one JAX host
+        (module docstring)."""
+        c = self.config
+        host_index, host_count = 0, 1
+        if self._multihost:
+            local = int(os.environ.get("LOCAL_WORLD_SIZE", self.n_workers))
+            host_index, host_count = (self.rank // local,
+                                      max(1, self.n_workers // local))
+        return StreamingLoader(
+            c.data_path, c.batch_size, seed=c.seed,
+            prefetch=c.stream_prefetch, workers=c.loader_workers,
+            host_index=host_index, host_count=host_count, rank=self.rank,
+            world=self.n_workers, device=self.device, **kw)
 
     def _plan_elastic(self, group) -> None:
         """The elastic resume plan, before the sync is built: the world
@@ -463,7 +516,7 @@ class Trainer:
                 f"fault plan references rank p{bad_rank} but the run has "
                 f"{self.n_workers} data-parallel workers")
         if any(e.kind == "nan_grad" for e in plan.entries):
-            if not isinstance(self.train_loader, DataLoader):
+            if not hasattr(self.train_loader, "host_transform"):
                 raise ValueError(
                     "nan_grad faults poison the HOST batch, but data_layout "
                     "resolved to 'device' (batches are built on the card and "
@@ -488,19 +541,41 @@ class Trainer:
             grad_accum=c.grad_accum, nonfinite_guard=c.skip_nonfinite)
         self.eval_step = build_image_eval_step(self.group)
 
-        train_ds = load_dataset(c.dataset, train=True, data_dir=c.data_dir,
-                                synthetic_size=c.synthetic_size)
+        meta = self._stream_meta()
+        kw = dict(rank=self.rank, world=n)
         test_ds = load_dataset(c.dataset, train=False, data_dir=c.data_dir,
                                synthetic_size=c.synthetic_size)
+        # the test batch: at most the split, a multiple of the workers
+        test_bs = min(c.test_batch_size, (len(test_ds) // n) * n)
+        test_bs = max(n, test_bs - test_bs % n)
+        if meta is not None:
+            # the training set streams from its shards; the test split
+            # stays in memory for the eval pass
+            want = 100 if c.dataset == "Cifar100" else 10
+            got = int(meta.get("num_classes", 0))
+            if got and got != want:
+                raise ValueError(
+                    f"{c.data_path} was exported from a {got}-class dataset "
+                    f"({meta.get('name')!r}) but --dataset {c.dataset!r} "
+                    f"has {want} classes")
+            self.train_loader = self._streaming_loader()
+            self.test_loader = DataLoader(
+                test_ds, test_bs, shuffle=False, prefetch=0,
+                device=self.device, **kw)
+            return
+        train_ds = load_dataset(c.dataset, train=True, data_dir=c.data_dir,
+                                synthetic_size=c.synthetic_size)
         data_bytes = train_ds.raw_images.nbytes + test_ds.raw_images.nbytes
         self.data_layout = c.data_layout
         if c.data_layout == "auto":
             self.data_layout = "device" if data_bytes < 2 << 30 else "host"
-        # the test batch: at most the split, a multiple of the workers
-        test_bs = min(c.test_batch_size, (len(test_ds) // n) * n)
-        test_bs = max(n, test_bs - test_bs % n)
-        kw = dict(rank=self.rank, world=n)
         if self.data_layout == "device":
+            if c.loader_workers > 0:
+                logger.warning(
+                    "--loader-workers %d ignored: data_layout resolved to "
+                    "'device' (batches are built on-chip; there is no host "
+                    "loader to parallelize). Pass --data-layout host to use "
+                    "the worker pool.", c.loader_workers)
             self.train_loader = DeviceDataLoader(
                 train_ds, c.batch_size, self.device, shuffle=True,
                 seed=c.seed, **kw)
@@ -509,7 +584,7 @@ class Trainer:
         else:
             self.train_loader = DataLoader(
                 train_ds, c.batch_size, shuffle=True, seed=c.seed,
-                device=self.device, **kw)
+                device=self.device, workers=c.loader_workers, **kw)
             self.test_loader = DataLoader(
                 test_ds, test_bs, shuffle=False, prefetch=0,
                 device=self.device, **kw)
@@ -582,20 +657,39 @@ class Trainer:
         self.metrics = MetricsLogger(telemetry=self.telemetry)
 
     def _restore_data_stream(self) -> None:
-        """A resumed MLM run continues its batch stream from the
-        checkpoint's ``.data.json`` sidecar, else by skipping the steps
-        done; the image loaders restart their epoch (the JAX trainer's
-        semantics)."""
+        """A resumed MLM or streaming run continues its batch stream from
+        the checkpoint's ``.data.json`` sidecar (a streaming state of
+        another shard layout re-partitioned, with a ``data_refastforward``
+        event of ``mode="repartition"``), else by skipping the steps done;
+        the in-memory image loaders restart their epoch (the JAX
+        trainer's semantics)."""
         restore = getattr(self.train_loader, "restore", None)
         if restore is None:
             return
         data_state = ckpt.load_data_state(
             ckpt.checkpoint_path(self.config.train_dir, self.start_step))
+        repart = getattr(self.train_loader, "restore_repartitioned", None)
         if data_state is not None:
             try:
-                restore(data_state)
-                logger.info("Restored the input stream at step %d (%s)",
-                            self.start_step, data_state)
+                if repart is None:
+                    restore(data_state)
+                    logger.info("Restored the input stream at step %d (%s)",
+                                self.start_step, data_state)
+                    return
+                info = repart(data_state)
+                if info.get("repartitioned"):
+                    logger.warning(
+                        "Input-pipeline shard layout changed (%s -> %s host "
+                        "shards): re-partitioned at consumed=%s",
+                        info.get("saved_shards"), info.get("shards"),
+                        info.get("consumed"))
+                    self.telemetry.emit("data_refastforward",
+                                        step=self.start_step,
+                                        mode="repartition", **info)
+                else:
+                    logger.info("Restored the input stream at step %d "
+                                "(consumed=%s)", self.start_step,
+                                info.get("consumed"))
                 return
             except (ValueError, KeyError):
                 logger.exception("iterator-state restore failed; "

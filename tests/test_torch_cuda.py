@@ -1089,3 +1089,37 @@ def test_cuda_flight_recorder_bundle_holds_a_device_trace(card, tmp_path):
     assert summary and sum(r.count for rs in summary.values() for r in rs)
     with open(os.path.join(inc["path"], "report.md")) as f:
         assert "GPU 0 stream" in f.read()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,prefetch", [("image", 2), ("image", 0),
+                                           ("tokens", 2)])
+def test_cuda_streamed_batches_equal_the_cpu_loaders(card, tmp_path, kind,
+                                                     prefetch):
+    """The streaming loader's batches copied to the card (by its output
+    thread at prefetch 2, on the calling thread at 0) equal, bit for bit,
+    the same loader's on the CPU, across an epoch boundary."""
+    from pytorch_distributed_nn_tpu_torch.data import datasets, streaming
+
+    d = str(tmp_path / kind)
+    if kind == "image":
+        streaming.export_image_dataset(
+            datasets.load_dataset("Cifar10", True, synthetic_size=256), d,
+            shards=4)
+        kw = {}
+    else:
+        streaming.export_text_corpus(d, shards=4, sequences=128)
+        kw = {"seq_len": 64}
+    loaders = [streaming.StreamingLoader(d, 64, seed=1, prefetch=prefetch,
+                                         workers=2, device=dev, **kw)
+               for dev in (card, "cpu")]
+    try:
+        for _ in range(6):
+            got, want = (ld.next_batch() for ld in loaders)
+            for g, w in zip(got, want):
+                assert g.device.type == "cuda" and g.dtype == w.dtype
+                assert torch.equal(g.cpu(), w)
+        assert loaders[0].state() == loaders[1].state()
+    finally:
+        for ld in loaders:
+            ld.close()

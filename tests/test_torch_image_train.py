@@ -214,11 +214,53 @@ _BASE = dict(network="LeNet", dataset="MNIST", batch_size=16,
 
 @pytest.mark.parametrize("field,value", [
     ("num_workers", 2), ("fused_ln", True), ("attn_impl", "pallas"),
-    ("dataset", "MLMSynth"), ("loader_workers", 2), ("kill_ranks", (0,)),
+    ("dataset", "MLMSynth"), ("kill_ranks", (0,)),
 ])
 def test_image_trainer_refuses_what_it_does_not_run(field, value):
     with pytest.raises((ValueError, NotImplementedError)):
         Trainer(TrainConfig(**{**_BASE, field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("flags,loader", [
+    ({"data_layout": "host", "loader_workers": 2}, "DataLoader"),
+    ({"data_path": "shards"}, "StreamingLoader"),
+    ({"data_path": "shards", "loader_workers": 2}, "StreamingLoader"),
+])
+def test_image_trainer_runs_the_data_flags(tmp_path, flags, loader):
+    """``loader_workers`` and ``data_path``, which the image trainer
+    refused before streaming input was ported, run: the host layout's
+    worker pool, and training from an image shard directory (its
+    transform on 0 or 2 threads)."""
+    from pytorch_distributed_nn_tpu_torch.data.streaming import (
+        export_image_dataset,
+    )
+
+    if "data_path" in flags:
+        flags = {**flags, "data_path": str(tmp_path / "shards")}
+        export_image_dataset(datasets.load_dataset("MNIST", True,
+                                                   synthetic_size=64),
+                             flags["data_path"], shards=4)
+    trainer = Trainer(TrainConfig(**{**_BASE, **flags}), device="cpu")
+    try:
+        history = trainer.train()
+        assert type(trainer.train_loader).__name__ == loader
+    finally:
+        trainer.close()
+    assert [r["step"] for r in history] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in history)
+
+
+def test_loader_workers_on_the_device_layout_warns_as_jax_does(caplog):
+    with caplog.at_level("WARNING"):
+        trainer = Trainer(TrainConfig(**{**_BASE, "data_layout": "device",
+                                         "loader_workers": 2}),
+                          device="cpu")
+    try:
+        assert isinstance(trainer.train_loader, DeviceDataLoader)
+    finally:
+        trainer.close()
+    assert "--loader-workers 2 ignored: data_layout resolved to 'device'" \
+        in caplog.text
 
 
 @pytest.mark.parametrize("field,value", [("compression", "topk"),

@@ -327,13 +327,53 @@ _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
 
 @pytest.mark.parametrize("field,value", [
     ("tensor_parallel", 2), ("seq_parallel", 2), ("remat", True),
-    ("loader_workers", 2), ("warm_start", "ckpt"), ("data_path", "shards"),
+    ("warm_start", "ckpt"),
 ])
 def test_unsupported_flags_raise_naming_their_roadmap_item(field, value):
     assert field in UNSUPPORTED
     cfg = TrainConfig(**{**_BASE, field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Trainer(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def token_shards(tmp_path_factory):
+    from pytorch_distributed_nn_tpu_torch.data.streaming import (
+        export_text_corpus,
+    )
+
+    d = str(tmp_path_factory.mktemp("tokens"))
+    export_text_corpus(d, shards=2, sequences=32, vocab_size=64,
+                       min_len=8, max_len=40)
+    return d
+
+
+@pytest.mark.parametrize("flags", [
+    {"loader_workers": 0}, {"loader_workers": 2},
+    {"loader_workers": 2, "stream_prefetch": 0},
+])
+def test_data_flags_now_run_on_the_text_models(token_shards, flags):
+    """``data_path`` and ``loader_workers``, which the text trainer
+    refused before streaming input was ported: two steps from a token
+    shard directory, with the transform on 0 or 2 threads, prefetched
+    or not."""
+    from pytorch_distributed_nn_tpu_torch.data.streaming import (
+        StreamingLoader,
+    )
+
+    assert "data_path" not in UNSUPPORTED
+    assert "loader_workers" not in UNSUPPORTED
+    cfg = TrainConfig(**{**_BASE, "vocab_size": 64, "max_steps": 2,
+                         "data_path": token_shards, **flags})
+    trainer = Trainer(cfg, device="cpu")
+    try:
+        history = trainer.train()
+        assert isinstance(trainer.train_loader, StreamingLoader)
+        assert trainer.train_loader.state()["consumed"] == 2
+    finally:
+        trainer.close()
+    assert [r["step"] for r in history] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in history)
 
 
 @pytest.mark.parametrize("field,value", [
