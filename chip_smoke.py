@@ -16,14 +16,16 @@ loader's worker pool).
     python3 chip_smoke.py --serve-bench 2
     python3 chip_smoke.py --ln-times
     python3 chip_smoke.py --flash-times
+    python3 chip_smoke.py --int8-times
 
 The second form only times the training steps of the checkout beside
 the script (``step_times``), the third only runs that checkout's
 ``serve bench`` in fresh processes on a random-init ResNet-18 artifact
 (``serve_bench_runs``), the fourth only times its LayerNorm forward
-(``ln_times``) and the fifth its flash kernels at BertBase's f32 and
-bf16 shapes (``flash_times``), each for comparing two commits in one
-call.
+(``ln_times``), the fifth its flash kernels at BertBase's f32 and
+bf16 shapes (``flash_times``) and the sixth its grouped int8 quantize
+over a ResNet-18 step's kernel-sized leaves (``int8_times``), each for
+comparing two commits in one call.
 
 Phases, each printed on its own line:
 
@@ -258,16 +260,40 @@ Phases, each printed on its own line:
    the first batch byte for byte ``_pool.make_batch`` computed in this
    process, ``close()`` within ``POOL_CLOSE_S`` and no worker left
    (``stream_phase(kernels, seed, smi, repo, root)``);
-16. one JSON line listing the kernels (launches on the driven paths of
-   phases 4, 5, 8, 9, 10, 14 and 15, error against the plain version,
-   times, least possible time), then the result line ``{"ok": true,
-   "device": {...}}``.
+16. dp x tp x sp training, world size 1 on the card (NCCL runs one rank
+   a card; the tp and sp collectives are checked over gloo ranks on the
+   CPU), each reading beside the card's name and power limit: (a) the
+   flash kernels at the head shards tp ranks of BertBase launch (B 16,
+   L 512, H 6 and 3, D 64, bf16 and f32), forward, dq and dk/dv against
+   the plain version, timed beside their bounds; (b) the spmd step
+   (``training/spmd.py``) of BertBase bf16 at full width on a 1 x 1 x 1
+   mesh with ``make_tp_flash_attn``, dense and int8, exact launches a
+   step (12 + 12 + 12 flash, 26 + 26 LayerNorm, 2 grouped quantizes under
+   int8) and one step's int8 sync through the kernel bit for bit the
+   plain grouped quantizer's, its step ms beside phase 5's;
+   ``grad_accum`` 2 against the full batch in f32, each leaf within
+   ``SPMD_ACCUM_RTOL`` of its own largest gradient plus
+   ``SPMD_ACCUM_ATOL``; ring and Ulysses at sp = 1 against full attention;
+   (c) ``train --remat`` against the run without it (losses within
+   ``REMAT_RTOL``, the peak of ``torch.cuda.max_memory_allocated``);
+   (d) ``train --warm-start`` at vocabulary 30522 from a vocab-1024
+   checkpoint, with its merge report; (e) ``torch.distributed.run`` on
+   the CPU, 4 gloo ranks each, writes sharded directories at step 2
+   (BertTiny at tp 2 sp 2, ring and Ulysses; BertBase at tp 2, B 4, L
+   64), each resumed with ``--resume`` on the card at world size 1: the
+   ``elastic_resume`` event, every restored leaf bit for bit the
+   directory's, finite losses, and the evaluator's score of the directory
+   on the card (``spmd_phase(kernels, reference, seed, smi, repo, root,
+   phase5_ms)``). Then one JSON line listing the kernels (launches on the
+   driven paths of phases 4, 5, 8, 9, 10, 14, 15 and 16, error against
+   the plain version, times, least possible time), and the result line
+   ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
 f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8, each training run of
-phases 9, 10, 14 and 15) and read just after; the evaluator subprocess
+phases 9, 10, 14, 15 and 16) and read just after; the evaluator subprocess
 counts its own.
 
 It needs one card and exits non-zero, printing no result, without one,
@@ -390,6 +416,15 @@ RESNET_DATA = 10240
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the script's start, for the elapsed-time marks between phases
+T0 = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """Log the seconds since the script started, entering ``phase``."""
+    log(f"elapsed {time.perf_counter() - T0:.1f} s entering phase {phase}")
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -719,6 +754,35 @@ def ln_times(kernels, reference, F, seed):
                               + (", with mu/rs" if stats else ""),
                      **ln_fwd_times(kernels, reference, F, x, g, b, stats)})
     return rows + ln_sweep(kernels, reference, F, 128, gen)
+
+
+def int8_times(kernels, reference, seed):
+    """``--int8-times``: the grouped quantize of the checkout beside the
+    script over a ResNet-18 step's leaves of 16384 elements or more (one
+    launch, CUDA-graph replay) beside its bound, and ``ptxas -v`` of
+    ``quant_group_kernel``; only ``int8_quant.cu`` is built, nothing
+    checked but finite outputs."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.utils.native_build import (
+        build_kernels,
+        ptxas_usage,
+    )
+
+    build_kernels(["int8_quant"])
+    gen = torch.Generator().manual_seed(seed)
+    sizes = [p.numel() for p in resnet_leaves(build_model("ResNet18"))]
+    xs = [(torch.randn(n, generator=gen) * 0.01).cuda() for n in sizes]
+    scales = [x.abs().amax() * reference.RECIP127 for x in xs]
+    seeds = list(range(len(xs)))
+    n = sum(sizes)
+    return {"leaves": len(sizes), "elements": n,
+            "ms": time_ms(lambda: kernels.quantize_int8_scaled_group(
+                xs, scales, seeds)[0]),
+            "bound_ms": bound_ms(5 * n, 0)[0],
+            "ptxas": {k: u for k, u in ptxas_usage("int8_quant").items()
+                      if k.startswith("quant_group_kernel")}}
 
 
 def flash_times(kernels, reference, F, seed):
@@ -3965,6 +4029,614 @@ def stream_phase(kernels, seed, smi, repo, root, phase5_ms=None):
             "launches": launches}
 
 
+# -- phase 16: dp x tp x sp training, world size 1 on the card --------------
+
+#: the head shards a tp rank of BertBase launches the flash kernels on
+#: (12 heads over tp = 2 and 4), at its training shape
+SPMD_FLASH_HEADS = (6, 3)
+#: spmd steps at mesh 1 x 1 x 1 (the first two left out of the step time)
+SPMD_STEPS = 6
+#: grad_accum 2 against the full batch, f32 (3xTF32 flash kernels, TF32
+#: matmuls off), each leaf on its own: max |g_accum - g| <= rtol * (max
+#: |g| of the leaf) + atol, the CPU test's rtol and an absolute floor for
+#: the leaves whose gradient is 0 up to rounding (the key projection's
+#: bias); the two differ by the order of the f32 sums over the batch only
+SPMD_ACCUM_RTOL = 1e-5
+SPMD_ACCUM_ATOL = 1e-7
+#: ring and Ulysses at sp = 1 against full attention, f32: forward and
+#: gradients (atol, rtol), the JAX suite's bounds
+SPMD_SEQ_TOL = {"fwd": (2e-5, 2e-5), "grad": (1e-4, 1e-4)}
+#: remat against the run without, BertBase bf16: the same kernels on the
+#: same inputs and dropout masks, in the same order
+REMAT_STEPS = 4
+REMAT_RTOL = 1e-6
+#: the directories of phase 16(e): (label, network, flags), written by 4
+#: gloo ranks on the CPU at step 2
+SPMD_CPU_DIRS = (
+    ("BertTiny tp2 sp2 ring", "BertTiny",
+     ["--tensor-parallel", "2", "--seq-parallel", "2", "--seq-attn", "ring",
+      "--batch-size", "8", "--test-batch-size", "8", "--seq-len", "128"]),
+    ("BertTiny tp2 sp2 ulysses", "BertTiny",
+     ["--tensor-parallel", "2", "--seq-parallel", "2", "--seq-attn",
+      "ulysses", "--batch-size", "8", "--test-batch-size", "8",
+      "--seq-len", "128"]),
+    ("BertBase tp2 (dp2)", "BertBase",
+     ["--tensor-parallel", "2", "--attn-impl", "pallas", "--batch-size",
+      "4", "--test-batch-size", "4", "--seq-len", "64"]),
+)
+
+
+def spmd_flash_checks(kernels, reference, gen):
+    """16(a): the flash kernels at the head shards tp ranks launch for
+    BertBase (B 16, L 512, D 64, H 6 and 3), bf16 and f32: forward, dq and
+    dk/dv against the plain version, then timed. Returns the rows."""
+    import torch
+
+    rows = []
+    for H in SPMD_FLASH_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            tol = FLASH_TOL[dname]
+            bwd_tol = tol if dtype == torch.float32 else FLASH_BWD_TOL_BF16
+            q, k, v, do = (torch.randn((16, 512, H, 64), generator=gen)
+                           .to("cuda", dtype) for _ in range(4))
+            w_out, w_lse = reference.flash_attention_fwd(q, k, v, None)
+            delta = reference.flash_attention_delta(w_out, do)
+            out, lse = kernels.flash_attention_fwd(q, k, v, None)
+            dq = kernels.flash_attention_dq(q, k, v, None, w_lse, delta, do)
+            dk, dv = kernels.flash_attention_dkv(q, k, v, None, w_lse, delta,
+                                                 do)
+            w_dq = reference.flash_attention_dq(q, k, v, None, w_lse, delta,
+                                                do)
+            w_dk, w_dv = reference.flash_attention_dkv(q, k, v, None, w_lse,
+                                                       delta, do)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w, t in (("fwd", out, w_out, tol),
+                                  ("dq", dq, w_dq, bwd_tol),
+                                  ("dk", dk, w_dk, bwd_tol),
+                                  ("dv", dv, w_dv, bwd_tol)):
+                over, err = excess(g, w, *t)
+                errs[name] = err
+                if not over <= 0:
+                    fail(f"phase 16 flash {name} B=16 L=512 H={H} D=64 "
+                         f"{dname}: max abs err {err} past tolerance {t}")
+            costs = flash_costs(16, 512, H, 64, dname)
+            ms = {
+                "fwd": time_ms(lambda: kernels.flash_attention_fwd(
+                    q, k, v, None)[0], n=N_TIMED_TRAIN),
+                "dq": time_ms(lambda: kernels.flash_attention_dq(
+                    q, k, v, None, w_lse, delta, do), n=N_TIMED_TRAIN),
+                "dkv": time_ms(lambda: kernels.flash_attention_dkv(
+                    q, k, v, None, w_lse, delta, do)[0], n=N_TIMED_TRAIN),
+            }
+            bounds = {k_: bound_ms(*costs[f"flash_attention_{k_}"])[0]
+                      for k_ in ("fwd", "dq", "dkv")}
+            rows.append({"H": H, "dtype": dname, "errs": errs, "ms": ms,
+                         "bound_ms": bounds})
+            del q, k, v, do, w_out, w_lse, delta, out, lse, dq, dk, dv
+            del w_dq, w_dk, w_dv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def spmd_int8_regions(kernels, reference, gen):
+    """16(a): quant_group_kernel on tp regions of BertBase's vocabulary
+    leaves (its (30522, 768) embedding and (30522,) bias over tp = 2 and
+    4: element offsets that are and are not multiples of 4) against the
+    plain version, and each region's int8 equal to the whole leaf's at its
+    elements, bit for bit. Returns the number of regions checked."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.parallel.partitioning import block
+
+    n = 0
+    for cols in (768, 1):
+        whole = (torch.randn(30522 * cols, generator=gen) * 0.01).cuda()
+        scale = whole.abs().amax() * reference.RECIP127
+        full = kernels.quantize_int8_scaled_group([whole], [scale], [91])[0]
+        for tp in (2, 4):
+            spans = [block(30522, tp, m) for m in range(tp)]
+            firsts = [a * cols for a, _ in spans]
+            xs = [whole[a * cols:b * cols] for a, b in spans]
+            got = kernels.quantize_int8_scaled_group(
+                xs, [scale] * tp, [91] * tp, firsts=firsts)
+            want = reference.quantize_int8_scaled_group(
+                xs, [scale] * tp, [91] * tp, firsts=firsts)
+            torch.cuda.synchronize()
+            for x, f, a, b in zip(xs, firsts, got, want):
+                if not torch.equal(a, b) or not torch.equal(
+                        a, full[f:f + x.numel()]):
+                    fail(f"phase 16 int8 region at offset {f} of a "
+                         f"{30522 * cols}-element leaf (tp {tp}): the "
+                         "kernel, the plain version and the whole leaf "
+                         "disagree")
+                n += 1
+    return n
+
+
+def spmd_bert(dtype, attn="pallas", seed=0, **model_kw):
+    """BertBase at full width on a 1 x 1 x 1 mesh on the card: its model
+    with ``make_tp_flash_attn`` (the rank's 12 heads), the spmd state."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import (
+        build_optimizer,
+        make_schedule,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_nn_tpu_torch.parallel.ring_attention import (
+        make_tp_flash_attn,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import spmd
+
+    mesh = make_mesh(None)
+    full = build_model("BertBase", dtype=dtype, **model_kw).init_weights(
+        torch.Generator().manual_seed(seed))
+    local = build_model("BertBase", dtype=dtype, mesh=mesh,
+                        attn_fn=make_tp_flash_attn(mesh)
+                        if attn == "pallas" else None, **model_kw)
+    spmd.shard_model(full, local, mesh)
+    del full
+    sched = make_schedule(1e-4)
+    state = spmd.create_spmd_state(
+        local, lambda p: build_optimizer("adam", p, sched), mesh, "cuda",
+        seed=seed + 1)
+    return mesh, state
+
+
+def spmd_batches(n, seed, B=16, L=512):
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.data.text import MLMBatches
+
+    data = MLMBatches(vocab_size=30522, seq_len=L, batch_size=B, seed=seed)
+    return [tuple(torch.from_numpy(a).long().cuda() for a in next(data))
+            for _ in range(n)]
+
+
+def spmd_step_run(kernels, reference, seed, compression):
+    """16(b): SPMD_STEPS spmd steps of BertBase bf16 with
+    ``compression``: exact launches a step, finite losses; under int8 one
+    step's sync through the kernel and through the plain grouped quantizer
+    at the same gradients and seed, bit for bit."""
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.ops import compression as C
+    from pytorch_distributed_nn_tpu_torch.ops.metrics import (
+        vocab_parallel_sums,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import spmd
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        sync_seed,
+    )
+
+    mesh, state = spmd_bert("bfloat16", seed=seed)
+    model = state.model
+    step = spmd.build_spmd_train_step(mesh, compression=compression)
+    sizes = [p.numel() for p in model.parameters()]
+    L = model.config.num_layers
+    per_step = {"flash_attention_fwd": L, "flash_attention_dq": L,
+                "flash_attention_dkv": L, "layer_norm": 2 * L + 2,
+                "layer_norm_bwd": 2 * L + 2,
+                "quantize_int8_scaled": quant_launches(sizes)
+                if compression == "int8" else 0}
+    batches = spmd_batches(SPMD_STEPS + 1, seed)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, ms = [], []
+    for i in range(SPMD_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batches[i], sync_seed(seed + 1, i))
+        losses.append(float(m["loss"]))  # one read a step: its sync
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    expect_launches(kernels, launches, per_step, SPMD_STEPS,
+                    f"phase 16 spmd BertBase {compression}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"phase 16 spmd BertBase {compression}: losses {losses}")
+    out = {"losses": losses, "per_step": per_step, "launches": launches,
+           "step_ms": sorted(ms[2:])[len(ms[2:]) // 2], "step_ms_all": ms}
+    if compression == "int8":
+        model.train()
+        model.zero_grad(set_to_none=True)
+        tokens, labels = batches[-1]
+        sums = vocab_parallel_sums(model(tokens), labels)
+        sums["loss_sum"].backward()
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        model.zero_grad(set_to_none=True)
+        regions = spmd.param_regions(model)
+        seed_ = sync_seed(12345, 0)
+        got = C.int8_psum_mean(grads, seed_, None, denom=sums["count"],
+                               regions=regions)
+        want = C.int8_psum_mean(
+            grads, seed_, None, denom=sums["count"], regions=regions,
+            group_quantizer=reference.quantize_int8_scaled_group)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                fail(f"phase 16 spmd int8 sync: leaf {i} ({tuple(a.shape)}) "
+                     f"differs between the kernel and the plain quantizer "
+                     f"in {int((a != b).sum())} elements")
+        out["synced"] = len(grads)
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def spmd_accum_check(seed):
+    """16(b): grad_accum 2 against the full batch, one spmd step of f32
+    BertBase from the same weights and batch, dropout off (the two draw
+    their masks over other shapes): every leaf's max |g_2 - g_1| within
+    SPMD_ACCUM_RTOL of its own max |g_1| plus SPMD_ACCUM_ATOL, and the
+    losses within SPMD_ACCUM_RTOL."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training import spmd
+
+    batch = spmd_batches(1, seed + 7)[0]
+    grads, losses = [], []
+    for accum in (1, 2):
+        mesh, state = spmd_bert("float32", seed=seed, dropout_rate=0.0)
+        step = spmd.build_spmd_train_step(mesh, grad_accum=accum)
+        losses.append(float(step(state, batch, 0)["loss"]))
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in state.model.named_parameters()})
+        del state, step
+        torch.cuda.empty_cache()
+    leaves = {n: (float((grads[1][n] - g).abs().max()), float(g.abs().max()))
+              for n, g in grads[0].items()}
+    # each leaf's error over its bound; the worst leaf, and the worst
+    # relative error of a leaf whose gradient is above the floor
+    over = {n: e / (SPMD_ACCUM_RTOL * m + SPMD_ACCUM_ATOL)
+            for n, (e, m) in leaves.items()}
+    worst = max(over, key=over.get)
+    small = SPMD_ACCUM_ATOL / SPMD_ACCUM_RTOL
+    rel = max(((e / m, n) for n, (e, m) in leaves.items() if m > small),
+              default=(0.0, None))
+    floor = max(((e, n) for n, (e, m) in leaves.items() if m <= small),
+                default=(0.0, None))
+    out = {"worst_leaf": worst, "worst_err": leaves[worst][0],
+           "worst_max": leaves[worst][1], "worst_of_bound": over[worst],
+           "max_rel": rel, "floor_leaves_max_err": floor,
+           "losses": losses}
+    if not over[worst] <= 1.0 or not abs(losses[1] - losses[0]) <= \
+            SPMD_ACCUM_RTOL * abs(losses[0]):
+        fail(f"phase 16 grad_accum 2 vs the full batch: {out} (rtol "
+             f"{SPMD_ACCUM_RTOL}, atol {SPMD_ACCUM_ATOL} a leaf)")
+    del grads
+    return out
+
+
+def spmd_seq_attn_check(gen):
+    """16(b): ring and Ulysses attention at sp = 1 (no seq group) on the
+    card against full attention, f32 at BertBase's head shapes, forward
+    and gradients."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models.transformer import (
+        full_attention,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel import ring_attention
+
+    shape = (4, 512, 12, 64)
+    base = [torch.randn(shape, generator=gen).cuda() for _ in range(4)]
+    mask = torch.ones(shape[:2], device="cuda")
+    mask[-1, -37:] = 0
+
+    def run(fn, causal):
+        ts = [t.clone().requires_grad_(True) for t in base[:3]]
+        out = fn(*ts, mask, causal=causal)
+        (out * base[3]).sum().backward()
+        return [out.detach()] + [t.grad for t in ts]
+
+    errs = {}
+    for impl in ("ring", "ulysses"):
+        fn = ring_attention.make_seq_attn(impl, None)
+        for causal in (False, True):
+            got, want = run(fn, causal), run(full_attention, causal)
+            for i, (g, w) in enumerate(zip(got, want)):
+                tol = SPMD_SEQ_TOL["fwd" if i == 0 else "grad"]
+                over, err = excess(g, w, *tol)
+                key = f"{impl} {'fwd' if i == 0 else 'grad'}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                if not over <= 0:
+                    fail(f"phase 16 {impl} causal={causal} output {i}: max "
+                         f"abs err {err} past {tol}")
+    del base
+    return errs
+
+
+def remat_runs(kernels, seed):
+    """16(c): ``train --remat`` on BertBase bf16 at world size 1 against
+    the same run without it: losses within REMAT_RTOL, the peak of
+    ``torch.cuda.max_memory_allocated`` of each."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trainer = Trainer(train_config("BertBase", REMAT_STEPS, seed=seed,
+                                       remat=remat))
+        try:
+            kernels.reset_launch_counts()
+            history = trainer.train()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            trainer.close()
+            del trainer
+        out[remat] = {"losses": [r["loss"] for r in history],
+                      "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                      / 2 ** 30,
+                      "step_ms": [r["step_ms"] for r in history],
+                      "launches": launches}
+    a, b = out[False]["losses"], out[True]["losses"]
+    diff = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    if not diff <= REMAT_RTOL:
+        fail(f"phase 16 remat losses {b} against {a}: {diff:.3e} > "
+             f"{REMAT_RTOL}")
+    out["rel_diff"] = diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def warm_start_run(kernels, seed, root):
+    """16(d): ``train --warm-start``: a BertBase of vocabulary 1024 takes
+    a step and is saved (a raw FILE checkpoint); a BertBase run at
+    vocabulary 30522 starts from it and trains."""
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    d = os.path.join(root, "warm_src")
+    src = Trainer(train_config("BertBase", 1, seed=seed, vocab_size=1024,
+                               optimizer="sgd", momentum=0.0))
+    try:
+        src.train()
+        path = ckpt.save_checkpoint(d, src.state, compress=False)
+    finally:
+        src.close()
+        del src
+    torch.cuda.empty_cache()
+    t = Trainer(train_config("BertBase", 2, seed=seed + 1, warm_start=path))
+    try:
+        emb = t.model.encoder.token_embed.weight[:1024].detach().cpu()
+        raw = ckpt.load_raw(path)["params"]["encoder"]["token_embed"]
+        if not torch.equal(emb, torch.tensor(raw["embedding"])):
+            fail("phase 16 warm start: the first 1024 embedding rows are "
+                 "not the checkpoint's")
+        kernels.reset_launch_counts()
+        losses = [r["loss"] for r in t.train()]
+        launches = kernels.launch_counts()
+        report = t.warm_start_report
+    finally:
+        t.close()
+        del t
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses)) or report["sliced_paths"] != [
+            "encoder/token_embed/embedding", "mlm_bias"] or report["unused"]:
+        fail(f"phase 16 warm start: losses {losses}, report {report}")
+    return {"losses": losses, "report": report, "launches": launches}
+
+
+def cpu_dirs(repo, root):
+    """16(e): torch.distributed.run on the CPU, 4 gloo ranks each, writes
+    the directories of SPMD_CPU_DIRS at step 2 (the three runs at once).
+    Returns {label: (train_dir, flags, seconds)}."""
+    import socket
+
+    procs = {}
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    for label, network, flags in SPMD_CPU_DIRS:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        d = os.path.join(root, "spmd_" + label.split()[0] + "_"
+                         + "_".join(label.split()[1:]))
+        args = ["--network", network, "--dataset", "MLMSynth",
+                "--optimizer", "adam", "--learning-rate", "1e-3",
+                "--eval-batches", "1", *flags]
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", "4", "--master-addr", "127.0.0.1",
+               "--master-port", str(port), "-m",
+               "pytorch_distributed_nn_tpu_torch", "train", "--device",
+               "cpu", *args, "--max-steps", "2", "--eval-freq", "2",
+               "--train-dir", d]
+        procs[label] = (subprocess.Popen(
+            cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), d, args, time.perf_counter())
+    out = {}
+    for label, (proc, d, args, t0) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for p_, *_ in procs.values():
+                p_.kill()
+            fail(f"phase 16 torchrun {label}: no exit in 600 s")
+        if proc.returncode != 0:
+            fail(f"phase 16 torchrun {label} exited {proc.returncode}: "
+                 f"{err[-4000:]}")
+        out[label] = (d, args, time.perf_counter() - t0)
+    return out
+
+
+def resume_dir(kernels, label, d, args):
+    """16(e): ``--resume`` of a CPU-written directory on the card at world
+    size 1: the ``elastic_resume`` event, the restored state bit for bit
+    the directory's assembled leaves, finite losses of 2 more steps, and
+    the evaluator's score of the directory on the card."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch import cli
+    from pytorch_distributed_nn_tpu_torch.models.convert import state_leaves
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.evaluator import Evaluator
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    flags = [a for a in args]
+    for opt in ("--tensor-parallel", "--seq-parallel", "--seq-attn"):
+        if opt in flags:
+            i = flags.index(opt)
+            del flags[i:i + 2]
+    parsed = cli.build_parser().parse_args(
+        ["train", *flags, "--max-steps", "4", "--eval-freq", "0",
+         "--train-dir", d, "--resume", "--metrics-path",
+         os.path.join(d, "resume.jsonl")])
+    cfg = cli.train_config(parsed)
+    path = ckpt.checkpoint_path(d, 2)
+    whole = {k: np.asarray(a) for k, _, a in state_leaves(ckpt.load_tree(path))}
+    trainer = Trainer(cfg)
+    try:
+        if trainer.start_step != 2:
+            fail(f"phase 16 {label}: resumed at {trainer.start_step}")
+        mine = {k: np.asarray(a) for k, _, a in
+                state_leaves(ckpt.state_tree(trainer.state))}
+        if set(mine) != set(whole) or not all(
+                np.array_equal(mine[k], whole[k]) for k in whole):
+            bad = [k for k in whole if k not in mine
+                   or not np.array_equal(mine[k], whole[k])]
+            fail(f"phase 16 {label}: restored state differs from the "
+                 f"directory at {bad[:4]}")
+        kernels.reset_launch_counts()
+        losses = [r["loss"] for r in trainer.train()]
+        stream = read_stream(os.path.join(d, "resume.jsonl"))
+        events = [r for r in stream if r.get("type") == "elastic_resume"]
+        ev_model = Trainer(cli.train_config(cli.build_parser().parse_args(
+            ["train", *flags, "--max-steps", "1", "--eval-freq", "0",
+             "--train-dir", os.path.join(d, "eval")])))
+        try:
+            ev = Evaluator(ev_model.state, ev_model.test_loader, d,
+                           eval_freq=2)
+            scored = ev.evaluate_checkpoint(2)
+            launches = kernels.launch_counts()  # training and the scoring
+        finally:
+            ev_model.close()
+    finally:
+        trainer.close()
+        del trainer
+    torch.cuda.empty_cache()
+    if not events or not all(map(math.isfinite, losses)) or not scored \
+            or not math.isfinite(scored["loss"]):
+        fail(f"phase 16 {label}: events {events}, losses {losses}, "
+             f"evaluator {scored}")
+    return {"event": events[-1], "losses": losses, "leaves": len(whole),
+            "eval": scored, "launches": launches}
+
+
+def spmd_phase(kernels, reference, seed, smi, repo, root, phase5_ms):
+    """Phase 16: dp x tp x sp training at world size 1 on the card, and
+    directories of 4 CPU ranks resumed here. Returns the facts and the
+    launches of its driven paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    # the CPU ranks write their directories while the card works
+    dirs_box = {}
+
+    def write_dirs():
+        try:
+            dirs_box["dirs"] = cpu_dirs(repo, root)
+        except BaseException as e:  # fail() in the thread: reported below
+            dirs_box["error"] = repr(e)
+
+    cpu = threading.Thread(target=write_dirs, daemon=True)
+    cpu.start()
+    gen = torch.Generator().manual_seed(seed + 16)
+    flash = spmd_flash_checks(kernels, reference, gen)
+    for r in flash:
+        log(f"phase 16 flash at a tp head shard B=16 L=512 H={r['H']} D=64 "
+            f"{r['dtype']} ({smi}): max abs err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in r["errs"].items())
+            + "; ms " + ", ".join(f"{k} {v:.6f} (bound "
+                                  f"{r['bound_ms'][k]:.6f})"
+                                  for k, v in r["ms"].items()))
+    regions = spmd_int8_regions(kernels, reference, gen)
+    log(f"phase 16 quant_group_kernel on {regions} tp regions of BertBase's "
+        f"vocabulary leaves (offsets 7631 x 768 ... and 7631, 15262, 22893 "
+        f"elements): bit for bit the plain version and the whole leaf's "
+        f"int8 at their elements")
+    warm = warm_start_run(kernels, seed, root)
+    log(f"phase 16 train --warm-start ({smi}): BertBase vocab 30522 from a "
+        f"vocab-1024 checkpoint: report {warm['report']}; losses "
+        f"{warm['losses']}")
+    # the timed runs after the CPU ranks are done with the host's cores
+    cpu.join(timeout=900)
+    if "dirs" not in dirs_box:
+        fail("phase 16: the CPU ranks' directories were not written: "
+             f"{dirs_box.get('error')}")
+    runs = {c: spmd_step_run(kernels, reference, seed, c)
+            for c in ("none", "int8")}
+    for c, r in runs.items():
+        log(f"phase 16 spmd step BertBase mesh 1x1x1 {c} ({smi}; B=16, "
+            f"L=512, bf16, adam, make_tp_flash_attn): losses "
+            f"{[round(x, 4) for x in r['losses']]}; launches per step "
+            f"{r['per_step']} (exact over {SPMD_STEPS} steps); step "
+            f"{r['step_ms']:.3f} ms (median of steps 3-{SPMD_STEPS}) "
+            f"against phase 5's {phase5_ms:.3f} ms"
+            + (f"; one step's sync over {r['synced']} leaves through the "
+               "kernel and the plain grouped quantizer: bit for bit equal"
+               if "synced" in r else ""))
+    accum = spmd_accum_check(seed)
+    log(f"phase 16 spmd grad_accum 2 vs the full batch ({smi}; BertBase "
+        f"f32, B=16, L=512, dropout off; each leaf within rtol "
+        f"{SPMD_ACCUM_RTOL} of its max |g| + atol {SPMD_ACCUM_ATOL}): "
+        f"worst leaf {accum['worst_leaf']} max |diff| "
+        f"{accum['worst_err']:.3e} at max |g| {accum['worst_max']:.3e} "
+        f"({accum['worst_of_bound']:.3f} of its bound); the largest "
+        f"max |diff| / max |g| of a leaf above the floor "
+        f"{accum['max_rel'][0]:.3e} ({accum['max_rel'][1]}); the largest "
+        f"max |diff| of a leaf below it "
+        f"{accum['floor_leaves_max_err'][0]:.3e} "
+        f"({accum['floor_leaves_max_err'][1]}); losses {accum['losses']}")
+    seq = spmd_seq_attn_check(gen)
+    log(f"phase 16 ring and Ulysses at sp=1 vs full attention ({smi}; f32, "
+        f"B=4, L=512, H=12, D=64, causal and not, a pad mask): max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in seq.items())
+        + f" (tol {SPMD_SEQ_TOL})")
+    remat = remat_runs(kernels, seed)
+    log(f"phase 16 train --remat BertBase bf16 ({smi}; B=16, L=512, "
+        f"{REMAT_STEPS} steps): losses {remat[True]['losses']} against "
+        f"{remat[False]['losses']} without (max rel diff "
+        f"{remat['rel_diff']:.3e}); peak memory allocated "
+        f"{remat[True]['peak_gib']:.3f} GiB against "
+        f"{remat[False]['peak_gib']:.3f} GiB; step ms "
+        f"{[round(x, 3) for x in remat[True]['step_ms']]} against "
+        f"{[round(x, 3) for x in remat[False]['step_ms']]}")
+    resumed = {}
+    for label, (d, args, secs) in dirs_box["dirs"].items():
+        r = resume_dir(kernels, label, d, args)
+        resumed[label] = r
+        log(f"phase 16 {label} written by 4 gloo ranks on the CPU "
+            f"({secs:.1f} s, step 2) resumed on the card ({smi}): "
+            f"elastic_resume {r['event']['old']} -> {r['event']['new']}; "
+            f"{r['leaves']} leaves bit for bit the directory's; losses "
+            f"{r['losses']}; the evaluator on the card: {r['eval']}")
+    launches = {name: sum(r["launches"][name] for r in runs.values())
+                + remat[False]["launches"][name]
+                + remat[True]["launches"][name] + warm["launches"][name]
+                + sum(r["launches"][name] for r in resumed.values())
+                for name in kernels.KERNELS}
+    secs = time.perf_counter() - t0
+    log(f"phase 16 ({smi}): {secs:.1f} s")
+    return {"flash": flash, "runs": runs, "accum": accum, "seq": seq,
+            "remat": {str(k): v for k, v in remat.items()}, "warm": warm,
+            "resumed": resumed, "launches": launches, "seconds": secs}
+
+
 # -- --step-times: this checkout's training steps, nothing checked ---------
 
 STEP_TIMES_STEPS = 40
@@ -4167,6 +4839,10 @@ def main() -> int:
                     help="only time the flash kernels at BertBase's f32 and "
                          "bf16 training shapes and print the rows as one "
                          "JSON line (nothing checked)")
+    ap.add_argument("--int8-times", action="store_true",
+                    help="only time the grouped int8 quantize over a "
+                         "ResNet-18 step's kernel-sized leaves and print "
+                         "it as one JSON line (nothing checked)")
     ap.add_argument("--serve-bench", type=int, default=0, metavar="RUNS",
                     help="only run serve bench RUNS times on a random-init "
                          "ResNet-18 artifact and print the runs as one JSON "
@@ -4226,6 +4902,10 @@ def main() -> int:
         print(json.dumps(ln_times(kernels, reference, F, args.seed)),
               flush=True)
         return 0
+    if args.int8_times:
+        print(json.dumps(int8_times(kernels, reference, args.seed)),
+              flush=True)
+        return 0
     if args.flash_times:
         print(json.dumps(flash_times(kernels, reference, F, args.seed)),
               flush=True)
@@ -4281,6 +4961,7 @@ def main() -> int:
     report["ptxas"] = {**usage, **redesigned}
 
     # -- 3. kernels vs plain versions at GptMini shapes -------------------
+    mark("3")
     gen = torch.Generator().manual_seed(args.seed)
     cfg = build_model("GptMini").config
     H, Dh, d_model = cfg.num_heads, cfg.d_model // cfg.num_heads, cfg.d_model
@@ -4363,6 +5044,7 @@ def main() -> int:
     report["int8_stats"] = int8_stats
 
     # -- 4. the main path: serve a GptMini artifact -----------------------
+    mark("4")
     workdir = tempfile.mkdtemp(prefix="pdtn-chip-smoke-")
     model = build_model("GptMini", fused_ln=True).init_weights(
         torch.Generator().manual_seed(args.seed)
@@ -4457,6 +5139,7 @@ def main() -> int:
         f"plain full recompute max abs err {logit_err:.3e} (tol {LOGITS_TOL})")
 
     # -- 5. the training path: BertBase, then GptMini ---------------------
+    mark("5")
     serve_launches = launches
     bert = train_path(kernels, "BertBase", args.seed, TRAIN_STEPS)
     log(f"phase 5 train BertBase ({bert['params']} params, B=16, L=512, "
@@ -4561,6 +5244,7 @@ def main() -> int:
     report["training"]["gpt"].pop("trainer", None)
 
     # -- 6. timings -------------------------------------------------------
+    mark("6")
     B, S = engine.batch_buckets[-1], engine.seq_buckets[-1]
     slots = [engine.pools[S].alloc(engine.epoch) for _ in range(B)]
     for s in slots:
@@ -4747,26 +5431,35 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as root:
         # -- 7. checkpoints, resume, the evaluator, SIGTERM ---------------
+        mark("7")
         report["checkpoints"] = checkpoint_phase(kernels, args.seed, smi,
                                                  repo, root)
         # -- 8. single-pass serving of phase 7's checkpoints --------------
+        mark("8")
         serving = serving_phase(kernels, reference, F, args.seed, smi, repo,
                                 root)
         # -- 9-13. faults, the flight recorder, the profiler, TF32, elastic
+        mark("9")
         serve_faults = serve_fault_phase(repo, root)
         faults = fault_phase(kernels, args.seed, root)
         prof = profile_phase(kernels, args.seed, root)
         tf32 = tf32_phase(repo, root)
         elastic = elastic_phase(repo, root)
         # -- 14. the gradient sync ----------------------------------------
+        mark("14")
         sync = sync_phase(kernels, reference, args.seed, smi, root)
         # -- 15. streaming input ------------------------------------------
+        mark("15")
         stream = stream_phase(kernels, args.seed, smi, repo, root,
                               phase5_ms=resnet["step_ms"])
+        # -- 16. dp x tp x sp training ------------------------------------
+        mark("16")
+        spmd_run = spmd_phase(kernels, reference, args.seed, smi, repo,
+                              root, bert["step_ms"])
     report["serving"] = serving
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
-                  tf32=tf32, elastic=elastic, stream=stream)
+                  tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
@@ -4829,7 +5522,8 @@ def main() -> int:
         e["launches"] += (faults["launches"].get(e["name"], 0)
                           + prof["launches"].get(e["name"], 0)
                           + sync["launches"].get(e["name"], 0)
-                          + stream["launches"].get(e["name"], 0))
+                          + stream["launches"].get(e["name"], 0)
+                          + spmd_run["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(
@@ -4840,7 +5534,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2, default=str)
 
-    # -- 16. result lines -------------------------------------------------
+    # -- result lines -----------------------------------------------------
+    mark("the result lines")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -329,8 +329,13 @@ def train_state_tensors(state, ef_rows=None):
         if layout["amsgrad"]:
             slot("nu_max", "v_max")
     layout["cnn"] = is_cnn(model)
-    layout["num_heads"] = None if layout["cnn"] else model.config.num_heads
+    layout["num_heads"] = None if layout["cnn"] else local_heads(model)
     layout["ef"] = None
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None:  # a tp/sp state: what its regions need
+        layout["mesh"] = mesh
+        layout["config"] = model.config
+        layout["tp"] = model.config.num_heads // layout["num_heads"]
     ef = getattr(state, "ef_state", None)
     if ef is not None:
         if ef_rows is None:
@@ -539,3 +544,161 @@ def load_train_state(state, tree: dict, params_only: bool = False,
         opt.state.clear()
         opt.state.update(new_opt_state)
         sched.count = count
+
+
+
+# -- tensor-parallel shards ------------------------------------------------
+#
+# Under tensor parallelism a rank's model holds its region of each split
+# leaf (``parallel.partitioning.leaf_region``, on the JAX shape). The
+# converters above are shape-generic: with the rank's number of heads they
+# map its state_dict onto the regions of the JAX tree, leaf for leaf, and
+# back. These functions carry whole JAX trees (params, or a whole
+# ``TrainState`` state dict of numpy leaves) to one rank's regions, and
+# give each leaf's JAX key and full shape.
+
+
+def local_heads(model) -> int:
+    """The attention heads this rank's transformer holds."""
+    par = getattr(model, "par", None)
+    return model.config.num_heads // (par.tp if par is not None else 1)
+
+
+def tree_leaves(tree, path=()):
+    """(path, leaf) of a nested dict of arrays in key order (``None``
+    subtrees have none)."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (str(k),))
+    else:
+        yield path, tree
+
+
+def _set_path(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _slots(opt_state: dict):
+    """The optimizer state's per-parameter trees, by name."""
+    return [(k, v) for k, v in opt_state.items()
+            if k != "count" and v is not None]
+
+
+def full_leaf_shape(path, shape, config, tp: int):
+    """The JAX leaf's whole shape from a rank's region ``shape`` of it:
+    each axis split over the model group takes its full extent from the
+    config (vocab, heads, mlp)."""
+    from pytorch_distributed_nn_tpu_torch.parallel.partitioning import (
+        HEADS,
+        MLP,
+        VOCAB,
+        logical_axes,
+    )
+
+    if tp == 1:
+        return tuple(int(n) for n in shape)
+    full = {VOCAB: config.vocab_size, HEADS: config.num_heads,
+            MLP: config.d_ff}
+    axes = logical_axes(path)
+    return tuple(full.get(axes[i], int(n)) if i < len(axes) else int(n)
+                 for i, n in enumerate(shape))
+
+
+def region_of(path, arr, mesh_shape, coords):
+    """Rank ``coords``'s region of the whole JAX leaf ``arr`` at ``path``
+    (numpy, a view)."""
+    from pytorch_distributed_nn_tpu_torch.parallel.partitioning import (
+        leaf_region,
+    )
+
+    arr = np.asarray(arr)
+    region = leaf_region(path, arr.shape, mesh_shape, coords)
+    return arr[tuple(slice(a, b) for a, b in region)]
+
+
+def shard_params(params: dict, mesh_shape, coords) -> dict:
+    """A whole JAX params tree -> rank ``coords``'s region tree."""
+    out: dict = {}
+    for path, a in tree_leaves(params):
+        _set_path(out, path, region_of(path, a, mesh_shape, coords))
+    return out
+
+
+def shard_state_tree(tree: dict, mesh_shape, coords) -> dict:
+    """A whole JAX ``TrainState`` state dict (a FILE checkpoint's tree,
+    or a sharded directory's, assembled) -> rank ``coords``'s regions:
+    the params and every optimizer slot tree split, the step and the
+    optimizer count as they are."""
+    opt = dict(tree["opt_state"])
+    for role, sub in _slots(opt):
+        opt[role] = shard_params(sub, mesh_shape, coords)
+    return {**tree, "params": shard_params(tree["params"], mesh_shape,
+                                           coords),
+            "opt_state": opt}
+
+
+def local_state_dict(params: dict, mesh_shape, coords
+                     ) -> Dict[str, torch.Tensor]:
+    """A whole JAX params tree (a transformer's) -> the state_dict of the
+    rank at ``coords``'s model."""
+    return flax_to_state_dict(shard_params(params, mesh_shape, coords))
+
+
+def jax_key(field: str, path=()) -> str:
+    """The JAX ``keystr`` of a ``TrainState`` leaf: ``.params['a']['b']``,
+    ``.opt_state.mu['a']``, ``.step``."""
+    return "." + field + "".join(f"['{k}']" for k in path)
+
+
+def state_leaves(tree: dict):
+    """(JAX key, params path or ``None``, array) of every leaf of a
+    ``TrainState`` state dict in the JAX flatten order, the residuals left
+    out (sharded checkpoints carry none): ``path`` places a leaf of the
+    params or of an optimizer slot in the params tree."""
+    yield jax_key("step"), None, tree["step"]
+    for path, a in tree_leaves(tree["params"]):
+        yield jax_key("params", path), path, a
+    opt = tree["opt_state"]
+    yield jax_key("opt_state.count"), None, opt["count"]
+    for role, sub in _slots(opt):
+        for path, a in tree_leaves(sub):
+            yield jax_key("opt_state." + role, path), path, a
+    for path, a in tree_leaves(tree["batch_stats"]):
+        yield jax_key("batch_stats", path), path, a
+
+
+_KEY_TOKEN = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
+
+
+def parse_jax_key(key: str):
+    """The inverse of :func:`jax_key`: the tuple of names."""
+    out, pos = [], 0
+    while pos < len(key):
+        m = _KEY_TOKEN.match(key, pos)
+        if m is None:
+            raise ValueError(f"unparseable checkpoint key {key!r}")
+        out.append(next(g for g in m.groups() if g is not None))
+        pos = m.end()
+    return tuple(out)
+
+
+def state_tree_from_leaves(leaves: dict) -> dict:
+    """``{JAX key: array}`` of a ``TrainState`` -> its state dict, with
+    the empty fields filled as a FILE checkpoint holds them (no
+    ``batch_stats``: ``{}``; no residuals, ``nu_max`` or momentum:
+    ``None``)."""
+    tree: dict = {}
+    for key, a in leaves.items():
+        _set_path(tree, parse_jax_key(key), a)
+    tree.setdefault("batch_stats", {})
+    tree.setdefault("ef_state", None)
+    opt = tree.setdefault("opt_state", {})
+    if "mu" in opt:
+        opt.setdefault("nu_max", None)
+    else:
+        opt.setdefault("momentum_buf", None)
+    return tree

@@ -40,6 +40,31 @@ attention use the plain versions on any device: the reference that
 overrides the decode attention alone. Projections, the MLP and the head
 are plain PyTorch, as they were plain XLA (no Pallas kernel).
 
+Tensor and sequence parallelism (``mesh``, a
+:class:`..parallel.mesh.Mesh`; the JAX model's logical-axis annotations
+applied by hand, :mod:`..parallel.partitioning`): each rank holds its
+region of every split leaf. Under tp the q/k/v projections and
+``mlp_in`` are column-parallel (the rank's ``H / tp`` heads and its
+``mlp`` columns), the attention output and ``mlp_out`` row-parallel (a
+sum over the model group, then the replicated bias), the token embedding
+vocab-parallel (a masked lookup of the rank's rows, then a sum over the
+model group) and the tied head gives the rank's vocabulary slice of the
+logits, plus its slice of the head bias (:attr:`_Model.vocab_start` is
+its first id; the loss is :func:`..ops.metrics.vocab_parallel_sums`).
+Under sp each seq rank runs its chunk of the sequence and adds
+``pos_embed[s * Lc:(s + 1) * Lc]``; ``attn_fn`` is then ring or Ulysses
+attention over the seq group (:mod:`..parallel.ring_attention`). The
+sums of tp are :mod:`..parallel.tensor_parallel`'s autograd functions.
+Without a mesh (or at 1 x 1 x 1) the model is the one-device model,
+operation for operation.
+
+``remat`` (the JAX ``nn.remat`` of each block): each encoder or decoder
+block runs under ``torch.utils.checkpoint`` in training, its activations
+recomputed in the backward. The dropout generator's state is saved
+before the block's forward and put back for the recompute (the
+checkpoint restores only the global RNGs), so the recompute draws the
+forward's masks.
+
 Dropout draws from an explicit ``torch.Generator``
 (:meth:`set_dropout_generator`; the trainer seeds it from ``--seed``),
 never from the global RNG; a model in training mode with a non-zero rate
@@ -54,9 +79,19 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from pytorch_distributed_nn_tpu_torch.ops import kernels, reference
+from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    SEQ_AXIS,
+)
+from pytorch_distributed_nn_tpu_torch.parallel.partitioning import block
+from pytorch_distributed_nn_tpu_torch.parallel.tensor_parallel import (
+    copy_to_group,
+    reduce_from_group,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -80,6 +115,40 @@ class TransformerConfig:
     # nn.LayerNorm without it; the port has one LayerNorm, the kernel, and
     # keeps the field so manifests written for either load unchanged.
     fused_ln: bool = False
+    # rematerialize each block in the backward (torch.utils.checkpoint)
+    remat: bool = False
+
+
+class Parallel:
+    """A model's place on the mesh: the model group and this rank's
+    coordinate and extent on the model and seq axes (all one without a
+    mesh)."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        shape = mesh.shape if mesh is not None else {}
+        coords = mesh.coords if mesh is not None else {}
+        self.tp = shape.get(MODEL_AXIS, 1)
+        self.m = coords.get(MODEL_AXIS, 0)
+        self.sp = shape.get(SEQ_AXIS, 1)
+        self.s = coords.get(SEQ_AXIS, 0)
+        self.model_group = mesh.group(MODEL_AXIS) if mesh is not None \
+            else None
+
+    def split(self, n: int):
+        """[start, stop) of this rank's block of an axis of ``n`` split
+        over the model group."""
+        return block(n, self.tp, self.m)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype,
+                 par: Parallel) -> torch.Tensor:
+    """A row-parallel ``dense``: this rank's partial product, the sum over
+    the model group, then the (replicated) bias."""
+    if par.tp == 1:
+        return dense(x, layer, dtype)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return reduce_from_group(y, par.model_group) + layer.bias.to(dtype)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,10 +220,14 @@ class MultiHeadAttention(nn.Module):
     """Multi-head self-attention over a whole sequence through
     ``attn_fn`` (default :func:`full_attention`)."""
 
-    def __init__(self, cfg: TransformerConfig, attn_fn=None):
+    def __init__(self, cfg: TransformerConfig, attn_fn=None,
+                 par: Optional[Parallel] = None):
         super().__init__()
         self.cfg = cfg
-        H, D = cfg.num_heads, cfg.d_model // cfg.num_heads
+        self.par = par or Parallel()
+        # this rank's heads (all of them without tp)
+        self.heads = cfg.num_heads // self.par.tp
+        H, D = self.heads, cfg.d_model // cfg.num_heads
         self.query = nn.Linear(cfg.d_model, H * D)
         self.key = nn.Linear(cfg.d_model, H * D)
         self.value = nn.Linear(cfg.d_model, H * D)
@@ -165,14 +238,15 @@ class MultiHeadAttention(nn.Module):
 
     def _qkv(self, x):
         B, L, _ = x.shape
-        H, D = self.cfg.num_heads, self.cfg.d_model // self.cfg.num_heads
+        H, D = self.heads, self.cfg.d_model // self.cfg.num_heads
+        x = copy_to_group(x, self.par.model_group)
         return tuple(dense(x, layer, self.cfg.dtype).view(B, L, H, D)
                      for layer in (self.query, self.key, self.value))
 
     def _out(self, o):
         B, L = o.shape[:2]
-        return self.dropout(dense(o.reshape(B, L, -1), self.out,
-                                   self.cfg.dtype))
+        return self.dropout(row_parallel(o.reshape(B, L, -1), self.out,
+                                         self.cfg.dtype, self.par))
 
     def forward(self, x, mask=None):
         q, k, v = self._qkv(x)
@@ -183,8 +257,9 @@ class CausalSelfAttention(MultiHeadAttention):
     """Causal attention with the decoder's KV-cache decode mode."""
 
     def __init__(self, cfg: TransformerConfig, use_kernels: bool = True,
-                 decode_attn_fn=None, attn_fn=None):
-        super().__init__(cfg, attn_fn)
+                 decode_attn_fn=None, attn_fn=None,
+                 par: Optional[Parallel] = None):
+        super().__init__(cfg, attn_fn, par)
         self.causal = True
         self._decode_attn = decode_attn_fn or (
             kernels.decode_attention if use_kernels
@@ -208,24 +283,28 @@ class EncoderBlock(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(self, cfg: TransformerConfig, use_kernels: bool = True,
-                 attn_fn=None, attn: Optional[nn.Module] = None):
+                 attn_fn=None, attn: Optional[nn.Module] = None,
+                 par: Optional[Parallel] = None):
         super().__init__()
         self.cfg = cfg
+        self.par = par or Parallel()
         self.ln_attn = LayerNorm(cfg.d_model, cfg.ln_dtype,
                                  use_kernels=use_kernels)
         self.attn = attn if attn is not None \
-            else MultiHeadAttention(cfg, attn_fn)
+            else MultiHeadAttention(cfg, attn_fn, self.par)
         self.ln_mlp = LayerNorm(cfg.d_model, cfg.ln_dtype,
                                 use_kernels=use_kernels)
-        self.mlp_in = nn.Linear(cfg.d_model, cfg.d_ff)
-        self.mlp_out = nn.Linear(cfg.d_ff, cfg.d_model)
+        a, b = self.par.split(cfg.d_ff)  # this rank's mlp columns
+        self.mlp_in = nn.Linear(cfg.d_model, b - a)
+        self.mlp_out = nn.Linear(b - a, cfg.d_model)
         self.dropout = Dropout(cfg.dropout_rate)
 
     def _mlp(self, x):
         dtype = self.cfg.dtype
-        h = F.gelu(dense(self.ln_mlp(x), self.mlp_in, dtype),
-                   approximate="tanh")
-        return x + self.dropout(dense(h, self.mlp_out, dtype))
+        h = copy_to_group(self.ln_mlp(x), self.par.model_group)
+        h = F.gelu(dense(h, self.mlp_in, dtype), approximate="tanh")
+        return x + self.dropout(row_parallel(h, self.mlp_out, dtype,
+                                             self.par))
 
     def forward(self, x, mask=None):
         x = x + self.attn(self.ln_attn(x).to(self.cfg.dtype), mask)
@@ -236,14 +315,38 @@ class DecoderBlock(EncoderBlock):
     """Pre-LN causal block with K/V threading."""
 
     def __init__(self, cfg: TransformerConfig, use_kernels: bool = True,
-                 decode_attn_fn=None, attn_fn=None):
+                 decode_attn_fn=None, attn_fn=None,
+                 par: Optional[Parallel] = None):
         super().__init__(cfg, use_kernels, attn=CausalSelfAttention(
-            cfg, use_kernels, decode_attn_fn, attn_fn))
+            cfg, use_kernels, decode_attn_fn, attn_fn, par), par=par)
 
     def forward(self, x, mask=None, cache=None, positions=None):
         h, new_kv = self.attn(self.ln_attn(x).to(self.cfg.dtype), mask,
                               cache=cache, positions=positions)
         return self._mlp(x + h), new_kv
+
+
+def _remat(blk: nn.Module, generator: Optional[torch.Generator], *args,
+           **kw):
+    """``blk(*args, **kw)`` under ``torch.utils.checkpoint``, the dropout
+    generator's state saved before the forward and put back for the
+    recompute (then restored to where the backward found it)."""
+    saved = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if saved is None or calls[0] == 1:
+            return blk(*a, **kw)
+        now = generator.get_state()
+        generator.set_state(saved)
+        try:
+            return blk(*a, **kw)
+        finally:
+            generator.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 class _Model(nn.Module):
@@ -263,47 +366,90 @@ class _Model(nn.Module):
     def set_dropout_generator(self, generator: Optional[torch.Generator]):
         """Every dropout of the model draws from ``generator`` (on the
         model's device)."""
+        self._dropout_generator = generator
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = generator
         return self
 
+    def _init_parallel(self, cfg: TransformerConfig, mesh) -> None:
+        self.par = Parallel(mesh)
+        if cfg.num_heads % self.par.tp:
+            raise ValueError(
+                f"num_heads={cfg.num_heads} not divisible by "
+                f"tensor_parallel={self.par.tp} (heads shard over the model "
+                "axis)")
+        #: the first vocabulary id of this rank's rows (0 without tp)
+        self.vocab_start, stop = self.par.split(cfg.vocab_size)
+        self.vocab_local = stop - self.vocab_start
+        self._dropout_generator = None
+
+    def _lookup(self, tokens):
+        """The token embedding in f32: under tp the rank's rows, masked,
+        summed over the model group."""
+        if self.par.tp == 1:
+            return self.token_embed(tokens)
+        local = tokens - self.vocab_start
+        hit = (local >= 0) & (local < self.vocab_local)
+        x = F.embedding(torch.where(hit, local, torch.zeros_like(local)),
+                        self.token_embed.weight)
+        x = x.masked_fill(~hit[..., None], 0.0)
+        return reduce_from_group(x, self.par.model_group)
+
     def _embed(self, tokens, positions=None):
         cfg = self.config
-        x = self.token_embed(tokens).to(cfg.dtype)
+        x = self._lookup(tokens).to(cfg.dtype)
         if positions is not None:
             x = x + self.pos_embed[positions][:, None].to(cfg.dtype)
         else:
-            x = x + self.pos_embed[: tokens.shape[1]].to(cfg.dtype)
+            L = tokens.shape[1]
+            start = self.par.s * L  # this seq rank's chunk
+            x = x + self.pos_embed[start:start + L].to(cfg.dtype)
         return self.dropout(x)
 
     def _tied_logits(self, x, bias):
         dtype = self.config.dtype
+        x = copy_to_group(x, self.par.model_group)
         logits = x.to(dtype) @ self.token_embed.weight.to(dtype).T
         return logits.float() + bias
+
+    def _run_blocks(self, x, mask, **kw):
+        """Every block, each under ``torch.utils.checkpoint`` with
+        ``remat`` in training."""
+        out = []
+        for i, blk in enumerate(self.blocks):
+            args = {k: (v[i] if k == "cache" and v is not None else v)
+                    for k, v in kw.items()}
+            if self.config.remat and self.training and \
+                    torch.is_grad_enabled():
+                y = _remat(blk, self._dropout_generator, x, mask, **args)
+            else:
+                y = blk(x, mask, **args)
+            x, kv = (y, None) if torch.is_tensor(y) else y
+            out.append(kv)
+        return x, out
 
 
 class TransformerEncoder(_Model):
     """Token + position embeddings -> pre-LN blocks -> final LayerNorm."""
 
     def __init__(self, cfg: TransformerConfig, use_kernels: bool = True,
-                 attn_fn=None):
+                 attn_fn=None, mesh=None):
         super().__init__()
         self.config = cfg
-        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self._init_parallel(cfg, mesh)
+        self.token_embed = nn.Embedding(self.vocab_local, cfg.d_model)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_len, cfg.d_model))
         self.dropout = Dropout(cfg.dropout_rate)
         self.blocks = nn.ModuleList(
-            EncoderBlock(cfg, use_kernels, attn_fn)
+            EncoderBlock(cfg, use_kernels, attn_fn, par=self.par)
             for _ in range(cfg.num_layers)
         )
         self.ln_final = LayerNorm(cfg.d_model, cfg.ln_dtype,
                                   use_kernels=use_kernels)
 
     def forward(self, tokens, mask=None):
-        x = self._embed(tokens)
-        for block in self.blocks:
-            x = block(x, mask)
+        x, _ = self._run_blocks(self._embed(tokens), mask)
         return self.ln_final(x)
 
 
@@ -311,16 +457,26 @@ class BertMLM(_Model):
     """BERT-style masked LM: tokens (B, L) -> (B, L, vocab) f32 logits."""
 
     def __init__(self, cfg: TransformerConfig, use_kernels: bool = True,
-                 attn_fn=None):
+                 attn_fn=None, mesh=None):
         super().__init__()
         self.config = cfg
-        self.encoder = TransformerEncoder(cfg, use_kernels, attn_fn)
+        self.encoder = TransformerEncoder(cfg, use_kernels, attn_fn, mesh)
+        self.par = self.encoder.par
+        self.vocab_start = self.encoder.vocab_start
+        self.vocab_local = self.encoder.vocab_local
         self.mlm_transform = nn.Linear(cfg.d_model, cfg.d_model)
         self.mlm_ln = LayerNorm(cfg.d_model, torch.float32,
                                 use_kernels=use_kernels)
         if not cfg.tie_embeddings:
+            if self.par.tp > 1:
+                raise ValueError("an untied head (tie_embeddings=False) is "
+                                 "not split under tensor parallelism")
             self.mlm_out = nn.Linear(cfg.d_model, cfg.vocab_size)
-        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        self.mlm_bias = nn.Parameter(torch.zeros(self.vocab_local))
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]):
+        self.encoder.set_dropout_generator(generator)
+        return super().set_dropout_generator(generator)
 
     def forward(self, tokens, mask=None):
         cfg = self.config
@@ -337,29 +493,26 @@ class CausalLM(_Model):
     """GPT-style decoder-only LM; see the module docstring for its modes."""
 
     def __init__(self, cfg: TransformerConfig, use_kernels: bool = True,
-                 decode_attn_fn=None, attn_fn=None):
+                 decode_attn_fn=None, attn_fn=None, mesh=None):
         super().__init__()
         self.config = cfg
-        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self._init_parallel(cfg, mesh)
+        self.token_embed = nn.Embedding(self.vocab_local, cfg.d_model)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_len, cfg.d_model))
         self.dropout = Dropout(cfg.dropout_rate)
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, use_kernels, decode_attn_fn, attn_fn)
+            DecoderBlock(cfg, use_kernels, decode_attn_fn, attn_fn, self.par)
             for _ in range(cfg.num_layers)
         )
         self.ln_final = LayerNorm(cfg.d_model, cfg.ln_dtype,
                                   use_kernels=use_kernels)
-        self.lm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        self.lm_bias = nn.Parameter(torch.zeros(self.vocab_local))
 
     def forward(self, tokens, mask=None, cache=None, positions=None,
                 return_kv: bool = False):
         decode = cache is not None
         x = self._embed(tokens, positions if decode else None)
-        kvs = []
-        for i, block in enumerate(self.blocks):
-            x, kv = block(x, mask, cache=cache[i] if decode else None,
-                          positions=positions)
-            kvs.append(kv)
+        x, kvs = self._run_blocks(x, mask, cache=cache, positions=positions)
         logits = self._tied_logits(self.ln_final(x), self.lm_bias)
         if decode:
             return logits[:, 0], tuple(kvs)
@@ -384,36 +537,36 @@ def _config(defaults: dict, kw: dict) -> TransformerConfig:
 
 
 def gpt_tiny(num_classes: int = 0, use_kernels: bool = True,
-             decode_attn_fn=None, attn_fn=None, **kw) -> CausalLM:
+             decode_attn_fn=None, attn_fn=None, mesh=None, **kw) -> CausalLM:
     """2-layer/64-wide causal decoder for tests and smoke runs."""
     del num_classes
     cfg = _config(dict(vocab_size=256, max_len=64, d_model=64, num_heads=4,
                        num_layers=2, d_ff=256, dtype=torch.float32,
                        causal=True), kw)
-    return CausalLM(cfg, use_kernels, decode_attn_fn, attn_fn)
+    return CausalLM(cfg, use_kernels, decode_attn_fn, attn_fn, mesh)
 
 
 def gpt_mini(num_classes: int = 0, use_kernels: bool = True,
-             decode_attn_fn=None, attn_fn=None, **kw) -> CausalLM:
+             decode_attn_fn=None, attn_fn=None, mesh=None, **kw) -> CausalLM:
     """bert_tiny-sized decoder (4 layers / 128 wide, 1k vocab)."""
     del num_classes
     cfg = _config(dict(vocab_size=1024, max_len=128, d_model=128,
                        num_heads=4, num_layers=4, d_ff=512,
                        dtype=torch.float32, causal=True), kw)
-    return CausalLM(cfg, use_kernels, decode_attn_fn, attn_fn)
+    return CausalLM(cfg, use_kernels, decode_attn_fn, attn_fn, mesh)
 
 
 def bert_base(num_classes: int = 0, use_kernels: bool = True, attn_fn=None,
-              **kw) -> BertMLM:
+              mesh=None, **kw) -> BertMLM:
     """BERT-base MLM (110M params): the config's defaults."""
     del num_classes
-    return BertMLM(_config({}, kw), use_kernels, attn_fn)
+    return BertMLM(_config({}, kw), use_kernels, attn_fn, mesh)
 
 
 def bert_tiny(num_classes: int = 0, use_kernels: bool = True, attn_fn=None,
-              **kw) -> BertMLM:
+              mesh=None, **kw) -> BertMLM:
     """4-layer/128-wide variant for tests and CPU smoke runs."""
     del num_classes
     cfg = _config(dict(vocab_size=1024, max_len=128, d_model=128,
                        num_heads=4, num_layers=4, d_ff=512), kw)
-    return BertMLM(cfg, use_kernels, attn_fn)
+    return BertMLM(cfg, use_kernels, attn_fn, mesh)

@@ -44,6 +44,7 @@ single-contributor mode: the same codec arithmetic with no collective.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -111,8 +112,9 @@ def quantize_small_leaf(g: torch.Tensor, amax: torch.Tensor,
 
 
 def quantize_leaves(grads: Sequence[torch.Tensor], seeds: Sequence[int],
-                    amax: torch.Tensor,
-                    group_quantizer=None) -> List[torch.Tensor]:
+                    amax: torch.Tensor, group_quantizer=None,
+                    regions: Optional[Sequence["LeafRegion"]] = None
+                    ) -> List[torch.Tensor]:
     """``_int8_quantize_leaf`` of every leaf: g_i -> int8 of g_i's shape,
     ``amax`` a (k,) f32 vector on the leaves' device with amax[i] >=
     max|g_i|. The leaves of at least :data:`QUANT_KERNEL_MIN_SIZE` elements
@@ -120,22 +122,65 @@ def quantize_leaves(grads: Sequence[torch.Tensor], seeds: Sequence[int],
     :func:`.kernels.quantize_int8_scaled_group`: one launch on the card)
     with scale amax / 127 (as ``amax * f32(1/127)``; 1 when amax is 0,
     where g is all zero and q is 0 either way); the others take the
-    small-leaf formula."""
+    small-leaf formula. With ``regions`` each g_i is the canonical view
+    of a region of a larger leaf (:class:`LeafRegion`): the size that
+    picks the formula is the whole leaf's, and the noise is the whole
+    leaf's draw at the region's elements."""
+    n = len(grads)
+    regions = [None] * n if regions is None else list(regions)
     scales = torch.where(amax > 0, amax * RECIP127, torch.ones_like(amax))
-    big = [i for i, g in enumerate(grads)
-           if g.numel() >= QUANT_KERNEL_MIN_SIZE]
-    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    # a region's view is (local rows, cols)
+    whole = [g.numel() if r is None else r.rows * g.shape[1]
+             for g, r in zip(grads, regions)]
+    firsts = [0 if r is None else r.row0 * g.shape[1]
+              for g, r in zip(grads, regions)]
+    big = [i for i in range(n) if whole[i] >= QUANT_KERNEL_MIN_SIZE]
+    out: List[Optional[torch.Tensor]] = [None] * n
     if big:
         quantizer = group_quantizer or kernels.quantize_int8_scaled_group
+        kw = ({"firsts": [firsts[i] for i in big]}
+              if any(firsts[i] for i in big) else {})
         qs = quantizer([grads[i].float() for i in big],
-                       [scales[i] for i in big], [seeds[i] for i in big])
+                       [scales[i] for i in big], [seeds[i] for i in big],
+                       **kw)
         for i, q in zip(big, qs):
             out[i] = q
     for i, g in enumerate(grads):
-        if out[i] is None:
-            out[i] = quantize_small_leaf(
-                g, amax[i], leaf_noise(g.shape, seeds[i], g.device))
+        if out[i] is not None:
+            continue
+        r = regions[i]
+        if r is None:
+            u = leaf_noise(g.shape, seeds[i], g.device)
+        else:
+            u = leaf_noise((r.rows, g.shape[1]), seeds[i], g.device)
+            u = u[r.row0:r.row0 + g.shape[0]].reshape(g.shape)
+        out[i] = quantize_small_leaf(g, amax[i], u)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafRegion:
+    """A tensor-parallel region of a gradient leaf in the leaf's canonical
+    numbering: the leaf as ``(rows, cols)`` with its split axis outermost
+    (a port weight split on its input dimension is transposed first,
+    ``transpose``), this region its rows ``[row0, row0 + local rows)``. A
+    replicated leaf is one region of all its rows. The numbering is the
+    same at every tp degree, so the int8 result of a leaf does not depend
+    on the degree."""
+
+    rows: int
+    row0: int = 0
+    transpose: bool = False
+
+    def view(self, g: torch.Tensor) -> torch.Tensor:
+        """``g`` as its canonical (local rows, cols) view."""
+        g = g.t() if self.transpose else g
+        return g.reshape(g.shape[0], -1).contiguous()
+
+    def unview(self, c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        if self.transpose:
+            return c.reshape(like.shape[1], like.shape[0]).t().contiguous()
+        return c.reshape(like.shape)
 
 
 def leaf_seeds(seed: int, count: int) -> List[int]:
@@ -147,8 +192,9 @@ def leaf_seeds(seed: int, count: int) -> List[int]:
 
 def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
                    mask: Optional[float] = None,
-                   denom: Optional[float] = None,
-                   group_quantizer=None) -> List[torch.Tensor]:
+                   denom=None, group_quantizer=None,
+                   regions: Optional[Sequence[LeafRegion]] = None,
+                   amax_groups: Sequence = ()) -> List[torch.Tensor]:
     """Quantized allreduce: int8 payloads, int32 accumulation.
 
     The scale of each leaf is shared across ranks by one
@@ -160,10 +206,28 @@ def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
     a mask. ``group=None``: one contributor, no collectives. ``seed`` must
     be the same on every rank. ``group_quantizer``: the grouped hook of
     :func:`quantize_leaves` (the card's sync check passes the plain
-    ``reference.quantize_int8_scaled_group``).
+    ``reference.quantize_int8_scaled_group``). A tensor ``denom`` (the
+    tp/sp step's global masked count, on the device) divides, as the JAX
+    step divides by its traced count.
+
+    Tensor parallelism: ``regions`` (one :class:`LeafRegion` a leaf) makes
+    each gradient a region of its leaf, quantized in the leaf's canonical
+    numbering; ``amax_groups`` (the model group) join the amax MAX, so
+    the scale is the whole logical leaf's.
     """
     if not grads:
         return []
+    if regions is not None:
+        views = [r.view(g) for g, r in zip(grads, regions)]
+        outs = _int8_psum_mean(views, seed, group, mask, denom,
+                               group_quantizer, regions, amax_groups)
+        return [r.unview(o, g) for o, g, r in zip(outs, grads, regions)]
+    return _int8_psum_mean(grads, seed, group, mask, denom, group_quantizer,
+                           None, amax_groups)
+
+
+def _int8_psum_mean(grads, seed, group, mask, denom, group_quantizer,
+                    regions, amax_groups) -> List[torch.Tensor]:
     count = None
     if denom is None and mask is not None:
         # the live contributor count, as a device value (no host sync)
@@ -174,16 +238,20 @@ def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
         count = count.clamp_min(1.0)
     # a divisor known when the program is built: XLA turns the JAX
     # package's division by it into a product with its f32 reciprocal
-    recip = f32_reciprocal(max(
+    divide = torch.is_tensor(denom)
+    if divide:
+        denom = denom.clamp_min(1.0)
+    recip = None if divide else f32_reciprocal(max(
         float(world_size(group) if denom is None else denom), 1.0))
     # every leaf's amax in one vector, shared across ranks by one
     # all_reduce(MAX): max is free of order, so this is the per-leaf pmax
     amax = torch.stack([g.detach().abs().amax().to(torch.float32)
                         for g in grads])
-    if group is not None:
-        all_reduce(amax, "max", group)
+    for g in (group, *amax_groups):
+        if g is not None:
+            all_reduce(amax, "max", g)
     qs = quantize_leaves(grads, leaf_seeds(seed, len(grads)), amax,
-                         group_quantizer)
+                         group_quantizer, regions)
     scales = torch.where(amax > 0, amax * RECIP127, torch.zeros_like(amax))
     # q * mask, with this rank's 0/1 mask; int32 sums of every leaf in
     # one collective (exact in any order)
@@ -194,7 +262,10 @@ def int8_psum_mean(grads: Sequence[torch.Tensor], seed: int, group,
     out = []
     for i, (g, total) in enumerate(zip(grads, totals)):
         dequant = total.to(torch.float32) * scales[i]
-        avg = dequant / count if count is not None else dequant * recip
+        if divide:
+            avg = dequant / denom
+        else:
+            avg = dequant / count if count is not None else dequant * recip
         out.append(avg.to(g.dtype))
     return out
 

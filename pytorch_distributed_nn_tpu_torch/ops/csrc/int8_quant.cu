@@ -23,6 +23,14 @@
 // [0, 1). The plain version (ops/reference.py) runs the same generator in
 // integer torch arithmetic, so kernel and plain version agree bit for bit.
 // x / scale is IEEE division (__fdiv_rn; the build has no fast-math flag).
+// A leaf of the group may be a region of a larger one (a tensor-parallel
+// shard of a gradient): its `first` element offset, a multiple of 4,
+// numbers its elements from there, so that each region draws the whole
+// leaf's noise at its elements and the quantized leaf does not depend on
+// how it is split. The wrapper pads a region whose offset is not a
+// multiple of 4 (kernels.py): a quad then never straddles two Philox
+// draws, and no path holds two (it took the kernel from 71 to 92
+// registers, 2 blocks an SM instead of 3).
 //
 // What bounds them: bytes. Each element is read once as f32 and written
 // once as int8 (5 bytes), against 10 Philox rounds per 4 elements, about
@@ -51,7 +59,8 @@
 // launch's ramp and tail (1.65 us at 36,864 elements, whose bytes take
 // 0.055 us). So one launch covers the group:
 //   - a descriptor table (x, q, scale pointer, element count, first quad,
-//     seed, alignment of each leaf; 48 bytes a leaf, 64 leaves, 3 KB) is
+//     noise offset, seed, alignment of each leaf; 56 bytes a leaf, 64
+//     leaves, 3.5 KB) is
 //     passed by value as the kernel's parameter (`__grid_constant__`, read
 //     in place from the constant bank); no copy to the card, no host sync
 //     (the scales stay on the card). Larger groups take one launch per 64;
@@ -170,6 +179,7 @@ struct Leaf {
   const float* scale;     // one f32 on the card
   long long n;            // elements, > 0
   long long quad_begin;   // the leaf's first quad in the group's numbering
+  long long first;        // element 0's index in the noise numbering, % 4 == 0
   uint32_t seed;
   int aligned;            // x 16-byte and q 4-byte aligned
 };
@@ -206,6 +216,7 @@ __device__ __forceinline__ void whole_tile(const Leaf& f, long long u0,
   char4* q4 = reinterpret_cast<char4*>(f.q) + u0;
   const float scale = *f.scale;
   const uint32_t seed = f.seed;
+  const long long q0 = f.first >> 2;
   float4 v[kQuadsPerThread];
 #pragma unroll
   for (int k = 0; k < kQuadsPerThread; ++k) {
@@ -215,7 +226,8 @@ __device__ __forceinline__ void whole_tile(const Leaf& f, long long u0,
 #pragma unroll
   for (int k = 0; k < kQuadsPerThread; ++k) {
     const int i = k * kThreads + threadIdx.x;
-    if (i < count) q4[i] = round_quad(v[k], scale, leaf_noise(u0 + i, seed));
+    if (i < count)
+      q4[i] = round_quad(v[k], scale, leaf_noise(q0 + u0 + i, seed));
   }
 }
 
@@ -250,7 +262,7 @@ __device__ __forceinline__ void mixed_tile(const LeafGroup& g, int lo,
     if (which[k] < 0) continue;
     const Leaf& f = g.leaf[which[k]];
     const long long u = quad[k], i0 = u << 2;
-    const U4 r = leaf_noise(u, f.seed);
+    const U4 r = leaf_noise((f.first >> 2) + u, f.seed);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (i0 + j < f.n)
@@ -437,17 +449,19 @@ extern "C" {
 // wrapper checks). The arrays are host memory; one launch.
 int pdtn_quantize_int8_scaled_group(int k, void* const* x, void* const* q,
                                     void* const* scale, const long long* n,
+                                    const long long* first,
                                     const unsigned int* seed,
                                     const int* aligned, void* stream) {
   if (k < 1 || k > kGroupLeaves) return static_cast<int>(cudaErrorInvalidValue);
   LeafGroup g;
   long long quads = 0;
   for (int i = 0; i < k; ++i) {
-    if (n[i] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (n[i] <= 0 || first[i] < 0 || (first[i] & 3))
+      return static_cast<int>(cudaErrorInvalidValue);
     g.leaf[i] = Leaf{static_cast<const float*>(x[i]),
                      static_cast<int8_t*>(q[i]),
                      static_cast<const float*>(scale[i]), n[i], quads,
-                     seed[i], aligned[i]};
+                     first[i], seed[i], aligned[i]};
     quads += (n[i] + 3) >> 2;
   }
   g.quads = quads;

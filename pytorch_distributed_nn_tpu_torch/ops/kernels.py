@@ -125,8 +125,8 @@ _SIGNATURES = {
     },
     "int8_quant": {
         "pdtn_quantize_int8_scaled_group": [
-            _I, _PP, _PP, _PP, ctypes.POINTER(_LL), ctypes.POINTER(_U),
-            ctypes.POINTER(_I), _P],
+            _I, _PP, _PP, _PP, ctypes.POINTER(_LL), ctypes.POINTER(_LL),
+            ctypes.POINTER(_U), ctypes.POINTER(_I), _P],
         "pdtn_quantize_int8_blocks": [_LL],
         "pdtn_quantize_int8_register_elements": [],
         "pdtn_quantize_int8": [_P, _P, _P, _P, _LL, _U, _I, _I, _P],
@@ -647,30 +647,49 @@ def _aligned(*pairs) -> int:
 
 
 def quantize_int8_scaled_group(xs: Sequence[torch.Tensor], scales,
-                               seeds: Sequence[int]) -> List[torch.Tensor]:
+                               seeds: Sequence[int],
+                               firsts: Optional[Sequence[int]] = None
+                               ) -> List[torch.Tensor]:
     """Stochastic int8 rounding of a group of leaves, each with its given
     scale: ``q_i = clip(floor(x_i / scale_i + u_i), -127, 127)``, x_i f32
     of any shape -> int8 of x_i's shape. ``scales`` holds one f32 value per
     leaf: a (k,) tensor, or a sequence of one-value tensors (read on the
     device, no host sync) or numbers; ``u_i`` comes from Philox4x32-10
     keyed by the 32-bit ``seeds[i]`` (:func:`.reference.philox_uniform`),
-    numbered within the leaf. One launch, counted once, covers up to
+    numbered within the leaf from ``firsts[i]`` (default 0: a region of a
+    larger leaf gives its first element's index there, and draws that
+    leaf's noise at its elements). One launch, counted once, covers up to
     :data:`QUANT_GROUP_LEAVES` non-empty leaves."""
     xs, seeds = list(xs), list(seeds)
+    firsts = [0] * len(xs) if firsts is None else [int(f) for f in firsts]
     if torch.is_tensor(scales):
         scales = scales.reshape(-1).unbind()
     scales = list(scales)
-    if not len(xs) == len(scales) == len(seeds):
+    if not len(xs) == len(scales) == len(seeds) == len(firsts):
         raise ValueError(f"quantize_int8_scaled_group: {len(xs)} leaves, "
                          f"{len(scales)} scales, {len(seeds)} seeds")
     if not xs:
         return []
     if _on_cpu(*xs, *(s for s in scales if torch.is_tensor(s))):
-        return reference.quantize_int8_scaled_group(xs, scales, seeds)
+        return reference.quantize_int8_scaled_group(xs, scales, seeds,
+                                                    firsts=firsts)
     device = xs[0].device
     xs = [_int8_operands(x, "quantize_int8_scaled") for x in xs]
     scales = [_scale_tensor(s, device) for s in scales]
     qs = [torch.empty(x.shape, dtype=torch.int8, device=device) for x in xs]
+    # the kernel numbers noise from an offset that is a multiple of 4: a
+    # region starting elsewhere goes in zero-padded in front, and its q is
+    # the padded result past the pad
+    shifted = {}
+    for i, f in enumerate(firsts):
+        sh = f & 3
+        if sh and xs[i].numel():
+            xp = torch.zeros(xs[i].numel() + sh, dtype=torch.float32,
+                             device=device)
+            xp[sh:].copy_(xs[i].reshape(-1))
+            shifted[i] = (sh, qs[i])
+            xs[i], firsts[i] = xp, f - sh
+            qs[i] = torch.empty(xp.shape, dtype=torch.int8, device=device)
     live = [i for i, x in enumerate(xs) if x.numel()]
     lib = _lib("int8_quant")
     for start in range(0, len(live), QUANT_GROUP_LEAVES):
@@ -680,10 +699,14 @@ def quantize_int8_scaled_group(xs: Sequence[torch.Tensor], scales,
                 for t in (xs, qs, scales)]
         rc = lib.pdtn_quantize_int8_scaled_group(
             k, *ptrs, (_LL * k)(*(xs[i].numel() for i in idx)),
+            (_LL * k)(*(firsts[i] for i in idx)),
             (_U * k)(*(int(seeds[i]) & 0xFFFFFFFF for i in idx)),
             (_I * k)(*(_aligned((xs[i], 16), (qs[i], 4)) for i in idx)),
             _stream(xs[0]))
         _check(lib, "quantize_int8_scaled", rc)
+    for i, (sh, q) in shifted.items():
+        q.copy_(qs[i][sh:].view(q.shape))
+        qs[i] = q
     return qs
 
 

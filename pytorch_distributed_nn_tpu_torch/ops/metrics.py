@@ -8,6 +8,15 @@ masked count over the ranks of a process group (one ``all_reduce`` of the
 count), so that the mean over the ranks of their values, and of their
 gradients, is the global masked mean. On one rank they are the local
 forms.
+
+:func:`vocab_parallel_sums` is :func:`mlm_sums` of logits split over
+the vocabulary across the model group (tensor parallelism), without
+gathering the ``(B * L, V)`` f32 logits, the step's largest tensor:
+Megatron's vocab-parallel cross-entropy (the row max, the sum of
+exponentials and the target's logit each reduced over the group), and
+top-k hits by rank counting (the number of logits at or above the
+label's, summed over the group): the tie conventions of
+:func:`in_top_k`, exactly.
 """
 
 from __future__ import annotations
@@ -21,6 +30,10 @@ from pytorch_distributed_nn_tpu_torch.ops.reference import f32_reciprocal
 from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
     all_reduce,
     world_size,
+)
+from pytorch_distributed_nn_tpu_torch.parallel.tensor_parallel import (
+    max_from_group,
+    reduce_from_group,
 )
 
 #: label sentinel for positions outside the masked objective
@@ -138,4 +151,40 @@ def mlm_sums(logits: torch.Tensor, labels: torch.Tensor,
     with torch.no_grad():
         for k in (1, 5):
             out[f"acc{k}"] = (in_top_k(logits, safe, k) * mask).sum()
+    return out
+
+
+def vocab_parallel_sums(logits: torch.Tensor, labels: torch.Tensor,
+                        vocab_start: int = 0, group=None,
+                        ignore_index: int = IGNORE_INDEX
+                        ) -> Dict[str, torch.Tensor]:
+    """:func:`mlm_sums` of ``logits`` (B, L, V_local), this rank's slice
+    of the vocabulary from id ``vocab_start``, over the model ``group``
+    (``None``: the whole vocabulary is here, :func:`mlm_sums`). Every
+    rank of the group gets the same sums; ``loss_sum``'s gradient reaches
+    this rank's logits only."""
+    if group is None:
+        return mlm_sums(logits, labels, ignore_index)
+    mask, safe = _mask_and_safe(labels, ignore_index)
+    lf = logits.float()
+    local = safe.long() - vocab_start
+    hit = (local >= 0) & (local < lf.shape[-1])
+    idx = torch.where(hit, local, torch.zeros_like(local))[..., None]
+    shifted = lf - max_from_group(lf.amax(dim=-1), group)[..., None]
+    zero = torch.zeros((), dtype=lf.dtype, device=lf.device)
+    target = reduce_from_group(
+        torch.where(hit, torch.gather(shifted, -1, idx)[..., 0], zero), group)
+    sumexp = reduce_from_group(torch.exp(shifted).sum(dim=-1), group)
+    out = {"loss_sum": ((torch.log(sumexp) - target) * mask).sum(),
+           "count": mask.sum()}
+    with torch.no_grad():
+        label_logit = all_reduce(
+            torch.where(hit, torch.gather(lf, -1, idx)[..., 0], zero),
+            "sum", group)
+        above = all_reduce((lf >= label_logit[..., None]).sum(dim=-1)
+                           .to(torch.float32), "sum", group) - 1
+        finite = torch.isfinite(label_logit)
+        for k in (1, 5):
+            out[f"acc{k}"] = (((above < k) & finite).to(torch.float32)
+                              * mask).sum()
     return out

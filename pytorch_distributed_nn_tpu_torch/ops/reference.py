@@ -248,16 +248,21 @@ def philox4x32(counter, key):
     return c
 
 
-def philox_uniform(seed: int, n: int, device=None) -> torch.Tensor:
-    """The int8 kernels' noise: u[i] in [0, 1) f32 from word (i & 3) of
-    Philox4x32-10 at counter (i >> 2, i >> 34, 0, 0), key (seed, 0),
-    mapped as ``(bits >> 8) * 2^-24`` (the TPU kernel's mapping)."""
-    quads = -(-n // 4)
-    t = torch.arange(quads, dtype=torch.int64, device=device)
+def philox_uniform(seed: int, n: int, device=None,
+                   first: int = 0) -> torch.Tensor:
+    """The int8 kernels' noise: u[i] in [0, 1) f32 from word (e & 3) of
+    Philox4x32-10 at counter (e >> 2, e >> 34, 0, 0), key (seed, 0), for
+    e = first + i, mapped as ``(bits >> 8) * 2^-24`` (the TPU kernel's
+    mapping)."""
+    first = int(first)
+    lo, skip = first >> 2, first & 3
+    quads = -(-(n + skip) // 4)
+    t = lo + torch.arange(quads, dtype=torch.int64, device=device)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     words = philox4x32((t & _MASK32, t >> 32, zero, zero),
                        (int(seed) & _MASK32, 0))
-    bits = torch.stack(torch.broadcast_tensors(*words), dim=1).reshape(-1)[:n]
+    bits = torch.stack(torch.broadcast_tensors(*words),
+                       dim=1).reshape(-1)[skip:skip + n]
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -267,37 +272,44 @@ def _round_stochastic(x: torch.Tensor, scale: torch.Tensor,
     return q.clamp(-127, 127).to(torch.int8)
 
 
-def _noise(x: torch.Tensor, seed: Optional[int], u: Optional[torch.Tensor]):
+def _noise(x: torch.Tensor, seed: Optional[int], u: Optional[torch.Tensor],
+           first: int = 0):
     if (seed is None) == (u is None):
         raise ValueError("give the noise either as a seed or as u")
     if u is None:
-        return philox_uniform(seed, x.numel(), x.device).reshape(x.shape)
+        return philox_uniform(seed, x.numel(), x.device,
+                              first).reshape(x.shape)
     return u.to(device=x.device, dtype=torch.float32).reshape(x.shape)
 
 
 def quantize_int8_scaled(x: torch.Tensor, scale, seed: Optional[int] = None,
-                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         u: Optional[torch.Tensor] = None,
+                         first: int = 0) -> torch.Tensor:
     """``quantize_int8_scaled``: ``clip(floor(x / scale + u), -127, 127)``
     as int8, x's shape, scale a given f32 (0-d tensor or number). The noise
-    ``u`` is given, or drawn from ``seed`` as the kernel draws it."""
+    ``u`` is given, or drawn from ``seed`` as the kernel draws it, x's
+    element 0 at index ``first``."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-    return _round_stochastic(x, scale, _noise(x, seed, u))
+    return _round_stochastic(x, scale, _noise(x, seed, u, first))
 
 
 def quantize_int8_scaled_group(xs: Sequence[torch.Tensor], scales,
                                seeds: Optional[Sequence[int]] = None,
-                               us: Optional[Sequence[torch.Tensor]] = None
+                               us: Optional[Sequence[torch.Tensor]] = None,
+                               firsts: Optional[Sequence[int]] = None
                                ) -> List[torch.Tensor]:
     """The grouped ``quantize_int8_scaled``: :func:`quantize_int8_scaled`
     of each leaf with its scale (``scales`` a (k,) tensor or a sequence of
-    one value each) and its seed, or its given noise ``us[i]``."""
+    one value each) and its seed (its element 0 at index ``firsts[i]``),
+    or its given noise ``us[i]``."""
     if torch.is_tensor(scales):
         scales = scales.reshape(-1).unbind()
     n = len(xs)
     seeds = [None] * n if seeds is None else seeds
     us = [None] * n if us is None else us
-    return [quantize_int8_scaled(x, s, seed=k, u=u)
-            for x, s, k, u in zip(xs, scales, seeds, us)]
+    firsts = [0] * n if firsts is None else firsts
+    return [quantize_int8_scaled(x, s, seed=k, u=u, first=f)
+            for x, s, k, u, f in zip(xs, scales, seeds, us, firsts)]
 
 
 def quantize_int8(x: torch.Tensor, seed: Optional[int] = None,

@@ -19,6 +19,16 @@ eval): two threads never share one communicator. At world size 1 the
 collectives are still called. A group that cannot be built raises;
 nothing falls back to running without one.
 
+The (data, seq, model) mesh of the tp/sp path (:func:`make_mesh`, the
+JAX ``make_mesh``/``axis_sizes``): a world of ``dp * sp * tp`` ranks,
+rank ``r`` at coordinate ``(d, s, m)`` with ``r = (d * sp + s) * tp + m``
+(the JAX ``reshape(num_data, num_seq, num_model)`` order). Each rank
+builds one group per axis of extent above one, over the ranks that share
+its other two coordinates, on the world group's store under a key prefix
+of its own (as :func:`sibling_group` does); their ranks are the
+coordinates on that axis. None of them is the default group: collectives
+and ring hops go through these ``ProcessGroup`` objects.
+
 ``multihost=True`` (``train --multihost``, the JAX CLI's
 ``jax.distributed.initialize``) requires the whole torchrun environment
 and builds the rendezvous store under
@@ -29,11 +39,12 @@ other hosts' start.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import time
 import weakref
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,6 +58,11 @@ TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
 #: group -> what built it (store, rank, world, device, timeout), for
 #: :func:`sibling_group`
 _ORIGINS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+#: group -> how many meshes were built over it: each mesh's groups take
+#: their own store prefix (NCCL reads a communicator's id from the store
+#: under a key every group reuses, so a second mesh's group on a shared
+#: prefix could read the first one's stale id)
+_MESHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def env_ranks() -> Tuple[int, int, int]:
@@ -159,3 +175,98 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     opts.reduceOp = _OPS[op]
     group.allreduce([t], opts).wait()
     return t
+
+
+# -- the (data, seq, model) mesh -------------------------------------------
+
+DATA_AXIS = "data"
+SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+#: the mesh's axes, outermost first
+AXES = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
+
+
+@dataclasses.dataclass
+class Mesh:
+    """One rank's view of the (data, seq, model) mesh: the extents
+    (``shape``), this rank's coordinates (``coords``), and the group of
+    each axis (``groups``; ``None`` for an axis of extent one: its
+    collectives are the identity). ``world`` is the group of all ranks
+    (``None`` for a mesh of one rank)."""
+
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    groups: Dict[str, object]
+    world: object = None
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def size(self) -> int:
+        return self.shape[DATA_AXIS] * self.shape[SEQ_AXIS] \
+            * self.shape[MODEL_AXIS]
+
+    @property
+    def rank(self) -> int:
+        return mesh_rank(self.shape, self.coords)
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+
+def mesh_rank(shape: Dict[str, int], coords: Dict[str, int]) -> int:
+    """The world rank of mesh coordinates: ``(d * sp + s) * tp + m``."""
+    return ((coords[DATA_AXIS] * shape[SEQ_AXIS] + coords[SEQ_AXIS])
+            * shape[MODEL_AXIS] + coords[MODEL_AXIS])
+
+
+def mesh_coords(shape: Dict[str, int], r: int) -> Dict[str, int]:
+    """The coordinates of world rank ``r`` (the inverse of
+    :func:`mesh_rank`)."""
+    tp, sp = shape[MODEL_AXIS], shape[SEQ_AXIS]
+    return {DATA_AXIS: r // (sp * tp), SEQ_AXIS: (r // tp) % sp,
+            MODEL_AXIS: r % tp}
+
+
+def make_mesh(group, num_data: Optional[int] = None, num_model: int = 1,
+              num_seq: int = 1) -> Mesh:
+    """The (data, seq, model) mesh over the ranks of ``group`` (built by
+    :func:`new_group`, or ``None`` for one rank): the JAX ``make_mesh``,
+    with its argument order. ``num_data=None`` takes the world over
+    ``num_model * num_seq``. Every rank of the world calls this at the
+    same point, and builds its meshes over ``group`` in the same order."""
+    world = world_size(group)
+    per_replica = num_model * num_seq
+    if num_data is None:
+        if world % per_replica:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"num_model*num_seq={per_replica}")
+        num_data = world // per_replica
+    if num_data * per_replica != world:
+        raise ValueError(f"requested {num_data}x{num_seq}x{num_model} mesh "
+                         f"but the world has {world} rank(s)")
+    shape = {DATA_AXIS: num_data, SEQ_AXIS: num_seq, MODEL_AXIS: num_model}
+    coords = mesh_coords(shape, rank(group))
+    device = torch.device("cpu")
+    groups: Dict[str, object] = {a: None for a in AXES}
+    if group is not None:
+        try:
+            store, _, _, device, timeout_s = _ORIGINS[group]
+        except KeyError:
+            raise ValueError("make_mesh: the group was not built by "
+                             "parallel.mesh.new_group") from None
+        n = _MESHES.get(group, 0)
+        _MESHES[group] = n + 1
+        for axis in AXES:
+            if shape[axis] == 1:
+                continue
+            others = ",".join(f"{a}{coords[a]}" for a in AXES if a != axis)
+            groups[axis] = new_group(
+                dist.PrefixStore(f"pdtn_mesh{n}/{axis}/{others}", store),
+                coords[axis], shape[axis], device, timeout_s)
+    return Mesh(shape, coords, groups, group, device)
+
+
+def axis_sizes(mesh: Mesh) -> dict:
+    """``{axis name: extent}`` in mesh order: the shape record of run and
+    checkpoint manifests."""
+    return {a: int(mesh.shape[a]) for a in AXES}

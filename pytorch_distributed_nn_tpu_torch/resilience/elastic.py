@@ -29,8 +29,10 @@ streaming input's state needs none either: every rank of a node reads
 the node's shards, so a resume on another world size sees the same
 shard list and takes the exact restore; a changed host count
 re-partitions the stream (``StreamingLoader.restore_repartitioned``, a
-``data_refastforward`` event). Sharded checkpoints (ROADMAP Queue 1
-item 1) are not ported.
+``data_refastforward`` event). A tp/sp run's world is ``dp * tp * sp``
+ranks: the plan derives dp from the world over ``tp * sp``, and its
+sharded directories restore on any mesh (each rank assembles the leaves
+and takes its regions, ``training.checkpoint.restore_resharded``).
 """
 
 from __future__ import annotations
@@ -90,12 +92,13 @@ class Geometry:
         return True
 
 
-def rank_geometry(world: int) -> dict:
+def rank_geometry(world: int, mesh: Optional[dict] = None) -> dict:
     """The geometry record of a port run of ``world`` ranks (one process
-    and one device each, data parallel only)."""
+    and one device each): data parallel only, or the tp/sp run's
+    ``mesh`` extents (``{"data", "seq", "model"}``)."""
     return Geometry(devices=int(world), processes=int(world),
-                    mesh={"data": int(world), "seq": 1,
-                          "model": 1}).to_dict()
+                    mesh=dict(mesh) if mesh is not None else
+                    {"data": int(world), "seq": 1, "model": 1}).to_dict()
 
 
 @dataclasses.dataclass
@@ -267,7 +270,8 @@ def plan_resume(
     accum = rescale_grad_accum(batch_size, dp, grad_accum)
     new = Geometry(
         devices=dp * tensor_parallel * seq_parallel,
-        processes=dp,
+        # the port runs one process a device
+        processes=dp * tensor_parallel * seq_parallel,
         mesh={"data": dp, "seq": seq_parallel, "model": tensor_parallel},
     )
     plan = ElasticPlan(

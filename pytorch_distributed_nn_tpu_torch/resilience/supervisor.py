@@ -208,7 +208,8 @@ def resume_latest_valid(directory: str, state, params_only: bool = False,
                 if ok:
                     return restore_fn(path, state)
             else:
-                load_train_state(state, ckpt.load_verified(path),
+                load_train_state(state, ckpt.state_tree_for(
+                                     state, ckpt.load_verified(path)),
                                  params_only=params_only, where=path,
                                  **restore_kw)
                 return state

@@ -39,6 +39,16 @@ Contracts:
 
 ``checkpoint_write`` events carry ``async``, ``stall_ms``, ``queued_ms``
 and ``fetch_ms`` besides the sync fields.
+
+Sharded directories (a tp/sp state: every rank runs a writer): the
+writer thread takes the rank's regions from the host copy
+(:func:`.checkpoint.shards_of`) and writes its shard file into the
+staging directory; the commit (the CRC32s, ``meta.json`` and the rename,
+on rank 0) needs every rank's file, a collective, so over several ranks
+it runs on the training thread at the next ``save``, ``wait``, ``drain``
+or ``close``, as the JAX writer defers it; on one rank the writer
+publishes at once. The directory's bytes are the synchronous
+:func:`.checkpoint.save_sharded`'s.
 """
 
 from __future__ import annotations
@@ -134,10 +144,14 @@ class AsyncCheckpointer:
     daemon thread copies, serialises and publishes."""
 
     def __init__(self, directory: str, *, keep_last: Optional[int] = None,
-                 write_fn=None, geometry: Optional[dict] = None):
+                 write_fn=None, geometry: Optional[dict] = None,
+                 mesh=None):
         if keep_last is not None and keep_last < 1:
             raise ValueError(f"keep_last must be >= 1, got {keep_last}")
         self.directory = directory
+        # a tp/sp run's mesh: the saves are sharded directories
+        self.mesh = mesh
+        self._pending_commit = None
         self.keep_last = keep_last
         self.geometry = geometry
         # test seam: stands in for checkpoint.save_checkpoint
@@ -183,6 +197,10 @@ class AsyncCheckpointer:
         self._raise_pending()
         self._wait_idle(next_step=step)
         self._raise_pending()
+        self._commit_pending()
+        if self.mesh is not None:
+            ckpt.refuse_file(ckpt.checkpoint_path(
+                self.directory, int(state.step if step is None else step)))
         self.warmup(state)
         snap = snapshot(state, ef_rows)
         handle = SaveHandle(int(state.step if step is None else step), snap,
@@ -205,6 +223,7 @@ class AsyncCheckpointer:
         writer error."""
         self._wait_idle(emit=False)
         self._raise_pending()
+        self._commit_pending()
 
     def drain(self, raise_errors: bool = True) -> None:
         """``wait``, with errors logged instead of raised when
@@ -228,6 +247,55 @@ class AsyncCheckpointer:
         self._host = None
 
     # -- internals -----------------------------------------------------------
+
+    def _commit_pending(self) -> None:
+        """The training thread's commit of a sharded save of several ranks
+        (every rank's file is written once each rank's writer is idle)."""
+        pending, self._pending_commit = self._pending_commit, None
+        if pending is None:
+            return
+        tmp, final, step, shapes, fields, data_state = pending
+        mesh = self.mesh
+        ckpt.barrier(mesh)
+        if mesh.rank == 0:
+            ckpt.publish_sharded(tmp, final, step, shapes, mesh.size,
+                                 self.geometry)
+            if data_state is not None:
+                ckpt.save_data_state(final, data_state)
+        ckpt.barrier(mesh)
+        get_telemetry().emit("checkpoint_write", step=step, **fields)
+        self._gc()
+
+    def _gc(self) -> None:
+        if self.keep_last is not None and (self.mesh is None
+                                           or self.mesh.rank == 0):
+            try:
+                ckpt.gc_checkpoints(self.directory, self.keep_last)
+            except Exception:
+                logger.exception("checkpoint GC failed (non-fatal)")
+
+    def _write_sharded(self, item: SaveHandle, layout: dict, host: dict,
+                       fields: dict) -> None:
+        t0 = time.perf_counter()
+        shards, shapes = ckpt.shards_of(layout, host)
+        final = ckpt.checkpoint_path(self.directory, item.step)
+        tmp = final + ".tmp"
+        ckpt.write_sharded_local(tmp, shards, self.mesh.rank)
+        fields = {"path": final, "format": "sharded",
+                  "process": self.mesh.rank,
+                  "bytes": sum(int(v.nbytes) for v in shards.values()),
+                  "write_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                  **fields}
+        if self.mesh.size > 1:
+            self._pending_commit = (tmp, final, item.step, shapes, fields,
+                                    item.data_state)
+            return
+        ckpt.publish_sharded(tmp, final, item.step, shapes, 1,
+                             self.geometry)
+        if item.data_state is not None:
+            ckpt.save_data_state(final, item.data_state)
+        get_telemetry().emit("checkpoint_write", step=item.step, **fields)
+        self._gc()
 
     def _raise_pending(self) -> None:
         with self._cv:
@@ -296,19 +364,20 @@ class AsyncCheckpointer:
         if not item.retain_device_state:
             item.dev_state = None
         del snap
+        extra = {"async": True, "stall_ms": round(item.stall_ms, 3),
+                 "queued_ms": round(queued_ms, 3),
+                 "fetch_ms": round(fetch_ms, 3)}
+        if self.mesh is not None:
+            self._write_sharded(item, layout, host, extra)
+            item.path = ckpt.checkpoint_path(self.directory, item.step)
+            return
         writer = self._write_fn or ckpt.save_checkpoint
         item.path = writer(
             self.directory, train_state_to_flax(layout, host), step=item.step,
             data_state=item.data_state, geometry=self.geometry,
             fault_plan=item.fault_plan,
-            event_extra={"async": True, "stall_ms": round(item.stall_ms, 3),
-                         "queued_ms": round(queued_ms, 3),
-                         "fetch_ms": round(fetch_ms, 3)})
-        if self.keep_last is not None:
-            try:
-                ckpt.gc_checkpoints(self.directory, self.keep_last)
-            except Exception:
-                logger.exception("checkpoint GC failed (non-fatal)")
+            event_extra=extra)
+        self._gc()
 
     def _fetch(self, snap: Snapshot) -> dict:
         """The snapshot copied into the page-locked host tensors, on the

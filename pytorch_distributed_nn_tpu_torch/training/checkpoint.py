@@ -24,9 +24,26 @@ manifest without a restore; a manifest-less file is legacy-unverified,
 not corrupt. Without the native codec the writer falls back to raw
 ``PDTN``, as the JAX package does.
 
-The sharded DIRECTORY format (``model_step_<N>/``) is written only by the
-JAX package's tp/sp runs, which the port does not run: reading one
-raises, naming ROADMAP Queue 1 item 1.
+The sharded DIRECTORY format of tp/sp runs, the JAX package's
+``pdtn-sharded-v1``: ``model_step_<N>/`` holds one ``shards_p<rank:05d>.npz``
+per rank and ``meta.json`` (format, step, process count, the CRC32 of
+each shard file, every leaf's whole shape, and ``geometry`` with the mesh
+``{"data", "seq", "model"}``). A shard file's keys are the JAX
+``keystr`` of a ``TrainState`` leaf and its region's index key
+(``.params['encoder']['token_embed']['embedding']|0:33,0:32``), its arrays
+the regions in the JAX leaf shapes; each unique region is written once,
+by the lowest rank that holds it (the JAX replica 0), and the step and
+the optimizer count by rank 0. Directories carry no error-feedback
+residuals. :func:`save_sharded` is collective over the mesh's ranks
+(every rank writes its file into a staging directory, rank 0 checksums
+them, writes ``meta.json`` and renames the directory into place);
+:func:`collect_host_shards`, :func:`write_sharded_local` and
+:func:`publish_sharded` are its stages, which the async writer runs on
+its thread. A restore reads every shard file (each CRC-checked),
+assembles the whole leaves and takes the live rank's regions: a
+directory resumes on any mesh, and on one rank (the evaluator), and a
+FILE checkpoint restores onto a tp/sp state the same way. Either
+package reads the other's directories.
 """
 
 from __future__ import annotations
@@ -35,14 +52,20 @@ import json
 import logging
 import os
 import re
+import shutil
 import time
 import zlib
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pytorch_distributed_nn_tpu_torch.models.convert import (
+    full_leaf_shape,
     load_train_state,
+    shard_state_tree,
+    state_leaves,
+    state_tree_from_leaves,
     train_state_tensors,
     train_state_to_flax,
 )
@@ -58,9 +81,9 @@ MAGIC_LZ = b"PDTZ"  # host-codec-compressed msgpack
 _FILE_META_FORMAT = "pdtn-file-meta-v1"
 _DATA_STATE_FORMAT = "pdtn-data-state-v1"
 _PUBLISHED_FORMAT = "pdtn-published-v1"
+_SHARDED_FORMAT = "pdtn-sharded-v1"
 QUARANTINE_DIR = "quarantine"
 PUBLISHED_FILE = "published.json"
-_SHARDED = "ROADMAP Queue 1 item 1 (dp x tp x sp training)"
 
 
 def checkpoint_path(directory: str, step: int) -> str:
@@ -127,10 +150,11 @@ def _codec():
 
 def _refuse_directory(path: str) -> None:
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a sharded checkpoint DIRECTORY (written by a tp/sp "
-            f"run of the JAX package); the port reads FILE checkpoints "
-            f"only: {_SHARDED}")
+        raise ValueError(
+            f"{path} is a sharded GSPMD checkpoint DIRECTORY (written by "
+            "a tp/sp>1 run); load_raw reads FILE checkpoints only. Rewrite "
+            "it as a file first: restore it on one rank via "
+            "restore_checkpoint(params_only=True) + save_checkpoint")
 
 
 def default_geometry() -> dict:
@@ -287,16 +311,18 @@ def load_raw(path: str) -> dict:
 
 def restore_checkpoint(path: str, state, params_only: bool = False,
                        ef: str = "raise", ef_rows: Optional[list] = None):
-    """Restore checkpoint ``path`` into the port ``TrainState`` ``state``
-    in place and return it. ``params_only`` restores the step, parameters
+    """Restore checkpoint ``path`` (a FILE or a sharded directory) into the
+    port ``TrainState`` ``state`` in place and return it (a tp/sp state
+    takes its regions). ``params_only`` restores the step, parameters
     and BatchNorm statistics and leaves the optimizer alone (the
     evaluator's template need not match the trainer's optimizer). ``ef``
     and ``ef_rows``: the error-feedback residuals
     (:func:`..models.convert.load_train_state`; by default residuals of
     another replica count raise, naming both geometries). Raises when
     the file's tree is not the state's."""
-    load_train_state(state, load_raw(path), params_only=params_only, ef=ef,
-                     ef_rows=ef_rows, where=path)
+    load_train_state(state, state_tree_for(state, load_tree(path)),
+                     params_only=params_only, ef=ef, ef_rows=ef_rows,
+                     where=path)
     return state
 
 
@@ -334,10 +360,12 @@ def _verify_blob(path: str, blob: bytes) -> Tuple[bool, str]:
 def verify_checkpoint(path: str) -> Tuple[bool, str]:
     """``(ok, reason)`` without a restore: magic bytes, then length and
     CRC32 against the manifest; a file with no manifest is
-    ``ok (no manifest — legacy, unverified)``."""
+    ``ok (no manifest — legacy, unverified)``. A sharded directory: its
+    ``meta.json``, the count of shard files and each one's CRC32."""
     if not os.path.exists(path):
         return False, "missing"
-    _refuse_directory(path)
+    if os.path.isdir(path):
+        return _verify_directory(path)
     try:
         with open(path, "rb") as f:
             blob = f.read()
@@ -349,9 +377,12 @@ def verify_checkpoint(path: str) -> Tuple[bool, str]:
 def load_verified(path: str) -> dict:
     """:func:`verify_checkpoint` and :func:`load_raw` from one read of the
     file (a GB-sized checkpoint is read once, and a GC that unlinks it
-    meanwhile cannot tear the read). Raises ``ValueError`` naming what
-    failed, ``OSError`` when the file cannot be read."""
-    _refuse_directory(path)
+    meanwhile cannot tear the read); a sharded directory is assembled
+    from its CRC-checked shard files (:func:`load_tree`). Raises
+    ``ValueError`` naming what failed, ``OSError`` when the file cannot
+    be read."""
+    if os.path.isdir(path):
+        return load_tree(path)
     with open(path, "rb") as f:
         blob = f.read()
     ok, reason = _verify_blob(path, blob)
@@ -442,7 +473,15 @@ def release_published_step(directory: str, step: int,
 
 def _checkpoint_bytes(path: str) -> int:
     total = 0
+    if os.path.isdir(path):
+        for fname in os.listdir(path):
+            try:
+                total += os.path.getsize(os.path.join(path, fname))
+            except OSError:
+                pass
     for p_ in (path, meta_path(path), data_state_path(path)):
+        if os.path.isdir(p_):
+            continue
         try:
             total += os.path.getsize(p_)
         except OSError:
@@ -475,7 +514,10 @@ def gc_checkpoints(directory: str, keep_last: int, protect=()) -> dict:
             continue
         size = _checkpoint_bytes(path)
         try:
-            os.remove(path)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
             for sidecar in (meta_path(path), data_state_path(path)):
                 if os.path.exists(sidecar):
                     os.remove(sidecar)
@@ -490,3 +532,283 @@ def gc_checkpoints(directory: str, keep_last: int, protect=()) -> dict:
                              kept=kept, keep_last=keep_last,
                              bytes_freed=freed)
     return {"deleted": deleted, "kept": kept, "bytes_freed": freed}
+
+
+
+# -- sharded directories (the tp/sp path) -----------------------------------
+
+
+def _mesh_of(state):
+    return getattr(state, "mesh", None)
+
+
+def state_tree_for(state, tree: dict) -> dict:
+    """A whole ``TrainState`` tree cut to ``state``'s regions (itself for
+    a state without a mesh)."""
+    mesh = _mesh_of(state)
+    if mesh is None:
+        return tree
+    return shard_state_tree(tree, mesh.shape, mesh.coords)
+
+
+def collect_host_shards(state) -> Tuple[dict, dict]:
+    """This rank's regions that it holds replica 0 of, on the host:
+    ``({"<leaf key>|<index key>": array}, {leaf key: whole shape})``. No
+    collective: safe off the main thread (the async writer)."""
+    layout, tensors = train_state_tensors(state)
+    return shards_of(layout, {k: v.to("cpu", copy=True)
+                              for k, v in tensors.items()})
+
+
+def shards_of(layout: dict, tensors: dict) -> Tuple[dict, dict]:
+    """:func:`collect_host_shards` of a tp/sp state's host tensors (keyed
+    as :func:`..models.convert.train_state_tensors` keys them)."""
+    from pytorch_distributed_nn_tpu_torch.parallel.partitioning import (
+        index_key,
+        leaf_region,
+        owns_region,
+    )
+
+    mesh = layout.get("mesh")
+    if mesh is None:
+        raise ValueError("a sharded checkpoint needs a tp/sp state (a mesh)")
+    tree = train_state_to_flax(layout, tensors)
+    coords = mesh.coords
+    first = all(c == 0 for c in coords.values())
+    shards, shapes = {}, {}
+    for key, path, a in state_leaves(tree):
+        a = np.asarray(a)
+        if path is None:  # the step and the count: rank 0's
+            shapes[key] = []
+            if first:
+                shards[f"{key}|"] = a
+            continue
+        full = full_leaf_shape(path, a.shape, layout["config"], layout["tp"])
+        shapes[key] = list(full)
+        region = leaf_region(path, full, mesh.shape, coords)
+        if tuple(b - s for s, b in region) != a.shape:
+            raise ValueError(f"{key}: region {region} of {full} does not "
+                             f"match this rank's leaf {a.shape}")
+        if owns_region(path, coords):
+            shards[f"{key}|{index_key(region)}"] = a
+    return shards, shapes
+
+
+def shard_file(tmp: str, rank: int) -> str:
+    return os.path.join(tmp, f"shards_p{rank:05d}.npz")
+
+
+def write_sharded_local(tmp: str, shards: dict, rank: int) -> str:
+    """This rank's shard file in the staging directory: an uncompressed
+    npz (``np.load`` reads it) whose members carry a fixed timestamp, so
+    the same shards give the same bytes (``np.savez`` stamps the time of
+    the write)."""
+    import io
+    import zipfile
+
+    os.makedirs(tmp, exist_ok=True)
+    out = shard_file(tmp, rank)
+    with zipfile.ZipFile(out, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as z:
+        for key, arr in shards.items():
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, np.asanyarray(arr),
+                                      allow_pickle=False)
+            info = zipfile.ZipInfo(key + ".npy", date_time=(1980, 1, 1, 0,
+                                                            0, 0))
+            z.writestr(info, buf.getvalue())
+    return out
+
+
+def publish_sharded(tmp: str, final: str, step: int, shapes: dict,
+                    processes: int, geometry: Optional[dict] = None) -> None:
+    """Rank 0's commit, once every shard file is complete: the CRC32 of
+    each (a file of a rank beyond ``processes``, left by a crashed save of
+    a larger world, is removed), ``meta.json``, and the rename of the
+    staging directory into place."""
+    crcs = {}
+    ours = {os.path.basename(shard_file(tmp, r)) for r in range(processes)}
+    for fname in sorted(os.listdir(tmp)):
+        if fname.startswith("shards_p") and fname.endswith(".npz"):
+            if fname not in ours:
+                os.remove(os.path.join(tmp, fname))
+                continue
+            with open(os.path.join(tmp, fname), "rb") as f:
+                crcs[fname] = zlib.crc32(f.read()) & 0xFFFFFFFF
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump({"format": _SHARDED_FORMAT, "step": step,
+                   "processes": processes, "crc32": crcs, "shapes": shapes,
+                   "geometry": geometry or default_geometry()}, f)
+    os.replace(tmp, final)
+
+
+def refuse_file(final: str) -> None:
+    for p_ in (final, final + ".tmp"):
+        if os.path.isfile(p_):
+            raise ValueError(
+                f"{p_} exists as a replicated FILE checkpoint; this run's "
+                "config writes sharded DIRECTORY checkpoints — use a fresh "
+                "--train-dir or the matching parallelism config")
+
+
+def barrier(mesh) -> None:
+    if mesh.world is not None and mesh.size > 1:
+        from pytorch_distributed_nn_tpu_torch.parallel.mesh import all_reduce
+
+        all_reduce(torch.zeros(1, device=mesh.device), "sum", mesh.world)
+
+
+def save_sharded(directory: str, state, step: Optional[int] = None,
+                 event_extra: Optional[dict] = None,
+                 data_state: Optional[dict] = None,
+                 geometry: Optional[dict] = None) -> str:
+    """Write ``model_step_<N>/`` (module docstring); every rank of the
+    mesh calls it at the same step. Emits ``checkpoint_write`` (format
+    ``sharded``) with this rank's bytes."""
+    t0 = time.perf_counter()
+    mesh = state.mesh
+    step = int(state.step) if step is None else int(step)
+    final = checkpoint_path(directory, step)
+    tmp = final + ".tmp"
+    rank0 = mesh.rank == 0
+    refuse_file(final)
+    shards, shapes = collect_host_shards(state)
+    write_sharded_local(tmp, shards, mesh.rank)
+    barrier(mesh)
+    if rank0:
+        publish_sharded(tmp, final, step, shapes, mesh.size, geometry)
+        if data_state is not None:
+            save_data_state(final, data_state)
+    barrier(mesh)
+    elapsed_ms = (time.perf_counter() - t0) * 1e3
+    fields = {"path": final,
+              "bytes": sum(int(v.nbytes) for v in shards.values()),
+              "seconds": round(elapsed_ms / 1e3, 6), "format": "sharded",
+              "process": mesh.rank, "write_ms": round(elapsed_ms, 3),
+              "stall_ms": round(elapsed_ms, 3)}
+    if event_extra:
+        fields.update(event_extra)
+    get_telemetry().emit("checkpoint_write", step=step, **fields)
+    return final
+
+
+def _read_meta(path: str) -> dict:
+    with open(os.path.join(path, "meta.json")) as f:
+        return json.load(f)
+
+
+def _shard_files(path: str) -> list:
+    return sorted(f for f in os.listdir(path)
+                  if f.startswith("shards_p") and f.endswith(".npz"))
+
+
+def _verify_directory(path: str) -> Tuple[bool, str]:
+    try:
+        meta = _read_meta(path)
+    except (OSError, ValueError) as e:
+        return False, f"unreadable meta.json: {e}"
+    if meta.get("format") != _SHARDED_FORMAT:
+        return False, f"unknown sharded format {meta.get('format')!r}"
+    files = _shard_files(path)
+    expected = meta.get("processes")
+    if expected is not None and len(files) != expected:
+        return False, f"{len(files)} shard file(s), expected {expected}"
+    crcs = meta.get("crc32") or {}
+    for fname in files:
+        want = crcs.get(fname)
+        if want is None:
+            continue
+        with open(os.path.join(path, fname), "rb") as f:
+            if (zlib.crc32(f.read()) & 0xFFFFFFFF) != want:
+                return False, f"{fname}: CRC32 mismatch"
+    return True, "ok"
+
+
+def _load_shard_files(path: str):
+    """({leaf key: {index key: array}}, meta) from every shard file, each
+    checked against its CRC32; a missing or torn file raises."""
+    import io
+
+    meta = _read_meta(path)
+    if meta.get("format") != _SHARDED_FORMAT:
+        raise ValueError(f"{path}: unknown sharded checkpoint format {meta}")
+    files = _shard_files(path)
+    expected = meta.get("processes")
+    if expected is not None and len(files) != expected:
+        raise ValueError(
+            f"{path}: found {len(files)} shard file(s) but the checkpoint "
+            f"was written by {expected} process(es) — partial copy or "
+            "deleted shards; refusing to zero-fill the gaps")
+    crcs = meta.get("crc32") or {}
+    out: Dict[str, dict] = {}
+    for fname in files:
+        with open(os.path.join(path, fname), "rb") as f:
+            raw = f.read()
+        want = crcs.get(fname)
+        if want is not None and (zlib.crc32(raw) & 0xFFFFFFFF) != want:
+            raise ValueError(
+                f"{path}/{fname}: CRC32 mismatch against meta.json — "
+                "corrupt or torn shard file")
+        with np.load(io.BytesIO(raw)) as z:
+            for k in z.files:
+                leaf, _, ikey = k.rpartition("|")
+                out.setdefault(leaf, {})[ikey] = z[k]
+    return out, meta
+
+
+def _assemble_full(entries: dict, shape) -> np.ndarray:
+    from pytorch_distributed_nn_tpu_torch.parallel.partitioning import (
+        parse_index_key,
+    )
+
+    if list(entries) == [""]:
+        return np.asarray(entries[""])
+    dtype = next(iter(entries.values())).dtype
+    full = np.zeros(shape, dtype)
+    covered = 0
+    for ikey, data in entries.items():
+        full[parse_index_key(ikey)] = data
+        covered += int(np.asarray(data).size)
+    if covered != full.size:
+        raise ValueError(f"regions cover {covered} of {full.size} elements")
+    return full
+
+
+def load_tree(path: str) -> dict:
+    """The whole ``TrainState`` tree of checkpoint ``path``: a FILE's
+    (:func:`load_raw`), or a sharded directory's, assembled from every
+    shard file."""
+    if not os.path.isdir(path):
+        return load_raw(path)
+    data, meta = _load_shard_files(path)
+    shapes = meta.get("shapes", {})
+    leaves = {}
+    for key, entries in data.items():
+        if key not in shapes:
+            raise KeyError(f"{path}: leaf {key} has no shape in meta.json")
+        try:
+            leaves[key] = _assemble_full(entries, tuple(shapes[key]))
+        except ValueError as e:
+            raise ValueError(f"{path}: leaf {key}: {e}") from None
+    missing = sorted(set(shapes) - set(leaves))
+    if missing:
+        raise KeyError(f"{path}: leaves {missing[:3]} missing")
+    return state_tree_from_leaves(leaves)
+
+
+def restore_sharded(path: str, state):
+    """A sharded directory onto ``state``'s mesh (any geometry): the JAX
+    ``restore_sharded`` and ``restore_resharded``, in place."""
+    if os.path.isfile(path):
+        raise ValueError(
+            f"{path} is a replicated FILE checkpoint (written by a tp=sp=1 "
+            "run) but this config's sharded restore needs a model_step_<N>/ "
+            "DIRECTORY — use restore_resharded, or a fresh --train-dir")
+    return restore_checkpoint(path, state)
+
+
+def restore_resharded(path: str, state, ef: str = "reset"):
+    """Elastic restore of a checkpoint taken on any mesh, FILE or
+    directory, onto ``state`` (its regions); residuals of another replica
+    count reset (directories carry none)."""
+    return restore_checkpoint(path, state, ef=ef)

@@ -11,9 +11,8 @@ from typing import Optional
 class TrainConfig:
     """The training flag surface, field for field the JAX package's
     ``TrainConfig`` (``training/config.py``), so a config moves across
-    unchanged. The port's trainer honours a subset and raises on any
-    other field set away from its default
-    (``training/trainer.py:UNSUPPORTED``)."""
+    unchanged. The port's trainer runs every field, and raises where the
+    JAX trainer refuses a value (``training/trainer.py:validate``)."""
 
     network: str = "ResNet18"
     dataset: str = "Cifar10"  # image dataset, or "MLMSynth" for text models

@@ -4,7 +4,8 @@
 A process apart from training (the paper's evaluator, SURVEY.md §3.4)
 polls ``<model_dir>/model_step_<N>`` every ``eval_interval`` seconds,
 restores each checkpoint's parameters and BatchNorm statistics into its
-own model (either package's files), scores the test set (loss, prec@1,
+own model (either package's files, or a tp/sp run's sharded directory,
+its leaves assembled), scores the test set (loss, prec@1,
 prec@5) and moves on by ``eval_freq``, or to the newest step with
 ``follow_latest``. A checkpoint that fails verification or restore is
 skipped, never fatal; ``run`` ends after ``max_evals`` evaluations,

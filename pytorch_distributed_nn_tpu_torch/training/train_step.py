@@ -57,7 +57,7 @@ them alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -101,6 +101,9 @@ class TrainState:
     rank: int = 0
     ef_state: Optional[List[torch.Tensor]] = None
     replicas: int = 1
+    #: the (data, seq, model) mesh of a tp/sp state (training/spmd.py):
+    #: the model holds this rank's regions; ``None`` elsewhere
+    mesh: Any = None
 
 
 def create_train_state(model: torch.nn.Module, build_opt: Callable,

@@ -17,7 +17,8 @@ straggler simulator, ``straggler_deadline``/``straggler_min_keep``) and
   N``: in N worker processes), ``auto`` is device when the two splits
   take under 2 GiB.
 - Text models (the transformer family, dataset ``MLMSynth``): MLM
-  training, the JAX trainer's shard_map path at tp = sp = 1: the masked
+  training, the JAX trainer's shard_map path at tp = sp = 1 (and its
+  GSPMD path above 1, below): the masked
   mean over the global masked count (``attn_impl="pallas"`` -> the
   hand-written flash kernel, ``"full"`` -> plain attention in PyTorch;
   ``fused_ln`` is accepted: the port's one LayerNorm is the kernel).
@@ -103,11 +104,23 @@ records and ``checkpoint_write``, ``checkpoint_gc``, ``eval_result``,
 ``incident``, ``straggler_drop`` and ``elastic_resume`` are events with
 the JAX package's field names.
 
-Every flag the port cannot honour yet raises, naming the ROADMAP item
-that ports it (:data:`UNSUPPORTED`); none is silently ignored: the
-sharded path (item 1). The trainer runs on the card
-unless ``device="cpu"`` is given; without a card it raises, it never
-falls back to the CPU.
+Tensor and sequence parallelism (``tensor_parallel``/``seq_parallel`` >
+1, the JAX trainer's GSPMD path, :mod:`.spmd`): the world is ``dp * sp *
+tp`` ranks on the (data, seq, model) mesh (:func:`..parallel.mesh.
+make_mesh`); every rank builds the whole model from ``seed`` and keeps its
+regions, attention is ring or Ulysses over the seq group (``seq_attn``)
+or, tp-only with ``attn_impl="pallas"``, the flash kernels on the rank's
+heads; the sync is the spmd step's (``compression`` none or int8). Its
+checkpoints are sharded directories, written by every rank (async: a
+writer on each rank), and ``resume`` restores a directory or a file of
+any mesh. ``remat`` checkpoints each block; ``warm_start`` merges a FILE
+checkpoint's parameters into the freshly initialised model
+(:mod:`.warm_start`) before the run's state is built. The JAX trainer's
+refusals stand, as ``ValueError`` with its reasons; ``overlap_eval``
+under tp/sp is not ported and raises.
+
+The trainer runs on the card unless ``device="cpu"`` is given; without a
+card it raises, it never falls back to the CPU.
 
 Weights are initialised from ``seed`` with a ``torch.Generator``: the
 flax initialisation's scheme, not its numbers (JAX's PRNG differs).
@@ -153,11 +166,25 @@ from pytorch_distributed_nn_tpu_torch.optim import (
 from pytorch_distributed_nn_tpu_torch.parallel.grad_sync import (
     make_grad_sync,
 )
+from pytorch_distributed_nn_tpu_torch.models.convert import (
+    cnn_to_state_dict,
+    flax_to_state_dict,
+    is_cnn,
+    state_dict_to_cnn,
+    state_dict_to_flax,
+)
 from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     all_reduce,
+    axis_sizes,
     env_ranks,
     init_group,
+    make_mesh,
     sibling_group,
+)
+from pytorch_distributed_nn_tpu_torch.parallel.ring_attention import (
+    make_mesh_attn,
+    make_tp_flash_attn,
 )
 from pytorch_distributed_nn_tpu_torch.resilience import elastic
 from pytorch_distributed_nn_tpu_torch.resilience.faults import (
@@ -170,6 +197,12 @@ from pytorch_distributed_nn_tpu_torch.resilience.stragglers import (
 )
 from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
 from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+from pytorch_distributed_nn_tpu_torch.training.spmd import (
+    build_spmd_eval_step,
+    build_spmd_train_step,
+    create_spmd_state,
+    shard_model,
+)
 from pytorch_distributed_nn_tpu_torch.training.train_step import (
     TrainState,
     build_eval_step,
@@ -193,32 +226,23 @@ logger = logging.getLogger(__name__)
 #: seconds an emergency checkpoint waits for the other ranks' residuals
 EF_GATHER_TIMEOUT_S = 60.0
 
-_SPMD = "ROADMAP Queue 1 item 1 (dp x tp x sp training)"
 
-#: config field -> (the values the port runs, the ROADMAP item that ports
-#: the rest); any other value raises
-UNSUPPORTED = {
-    "tensor_parallel": ((1,), _SPMD),
-    "seq_parallel": ((1,), _SPMD),
-    "remat": ((False,), _SPMD),
-    "warm_start": ((None,), _SPMD),
-}
-
-
-
-def _check_unsupported(c: TrainConfig, table: dict) -> None:
-    for field, (allowed, item) in table.items():
-        value = getattr(c, field)
-        if value not in allowed:
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: {item}")
+def use_spmd(c: TrainConfig) -> bool:
+    """Whether ``c`` runs the tp/sp (GSPMD) path."""
+    return c.tensor_parallel > 1 or c.seq_parallel > 1
 
 
 def validate(c: TrainConfig) -> None:
-    """Raise on what the port's trainer does not run (yet), and on what
-    the JAX trainer refuses."""
-    _check_unsupported(c, UNSUPPORTED)
+    """Raise on what the JAX trainer refuses."""
     text = is_text_model(c.network)
+    if use_spmd(c):
+        _validate_spmd(c, text)
+    if c.warm_start and c.resume:
+        raise ValueError(
+            "warm_start and resume are mutually exclusive: resume restores "
+            "this run's own checkpoints (same geometry + optimizer state); "
+            "warm_start performs cross-geometry parameter surgery from "
+            "another run's checkpoint")
     if text:
         if c.dataset != "MLMSynth":
             raise ValueError(f"text model {c.network!r} requires "
@@ -229,10 +253,13 @@ def validate(c: TrainConfig) -> None:
         if c.dataset == "MLMSynth":
             raise ValueError("dataset='MLMSynth' requires a text model (got "
                              f"{c.network!r})")
-        for field in ("fused_ln", "remat"):
-            if getattr(c, field):
-                raise ValueError(f"{field} only applies to text models "
-                                 f"(got network={c.network!r})")
+        if c.remat:
+            raise ValueError(
+                "remat applies to text models (the CNN zoo's activations "
+                "are small; use it for long sequences)")
+        if c.fused_ln:
+            raise ValueError("fused_ln only applies to text models "
+                             f"(got network={c.network!r})")
         if c.attn_impl != "full":
             raise ValueError(f"attn_impl={c.attn_impl!r} only applies to "
                              f"text models (got network={c.network!r})")
@@ -255,17 +282,90 @@ def validate(c: TrainConfig) -> None:
             "snapshot; it requires async_ckpt=True and eval_freq > 0")
 
 
+def _validate_spmd(c: TrainConfig, text: bool) -> None:
+    """The JAX trainer's refusals of the tp/sp path, with its reasons."""
+    if not text:
+        raise ValueError(
+            "tensor/sequence parallelism applies to text models (got "
+            f"network={c.network!r}; the CNN zoo has no sharded-parameter "
+            "annotations)")
+    if c.sync_mode != "allreduce" or c.compression not in ("none", "int8") \
+            or c.kill_ranks:
+        raise ValueError(
+            "tp/sp use the GSPMD path: gradient sync is the "
+            "compiler-inserted all-reduce (sync_mode='allreduce') or its "
+            "int8-quantized form (compression='int8', "
+            "training/spmd._int8_spmd_step); PS emulation, topk compression "
+            "and kill_ranks are shard_map-DP features (tp=sp=1)")
+    if c.grad_accum > 1 and c.compression == "int8":
+        raise ValueError(
+            "grad_accum>1 with compression='int8' under tp/sp is not "
+            "implemented (the quantized dp sync would need the microbatch "
+            "scan inside its manual region); use one or the other")
+    if c.seq_attn not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seq_attn {c.seq_attn!r}")
+    if c.attn_impl == "pallas" and c.seq_parallel > 1:
+        raise ValueError(
+            "attn_impl='pallas' composes with tensor parallelism (heads "
+            "shard over the model axis and each shard runs the flash "
+            "kernel) but not with seq_parallel > 1: sp uses ring/ulysses "
+            "attention, whose per-device inner step is already flash-style")
+    if c.fused_ln:
+        raise ValueError(
+            "fused_ln is not supported under tensor/sequence parallelism "
+            "yet (GSPMD has no partitioning rule for the LN custom call); "
+            "drop --fused-ln or tp/sp")
+    if c.straggler_deadline is not None:
+        raise ValueError(
+            "straggler simulation masks per-replica gradients inside the "
+            "shard_map DP sync; the GSPMD (tp/sp) all-reduce has no "
+            "per-replica contribution to drop")
+    if c.skip_nonfinite:
+        raise ValueError(
+            "skip_nonfinite guards the shard_map DP step; the GSPMD (tp/sp) "
+            "step has no non-finite guard yet")
+    if c.overlap_eval:
+        raise ValueError("overlap_eval under tensor/sequence parallelism is "
+                         "not ported: evaluate with the evaluator process")
+    seq_len = c.seq_len or input_spec(c.network)[0]
+    if seq_len % c.seq_parallel:
+        raise ValueError(f"seq_len {seq_len} not divisible by "
+                         f"seq_parallel={c.seq_parallel}")
+
+
+def text_model_kw(c: TrainConfig) -> dict:
+    """The model flags of a text run (no attention function)."""
+    model_kw = {"dtype": c.dtype}
+    if c.vocab_size is not None:
+        model_kw["vocab_size"] = c.vocab_size
+    if c.seq_len is not None:
+        model_kw["max_len"] = c.seq_len
+    if c.fused_ln:
+        model_kw["fused_ln"] = True
+    if c.remat:
+        model_kw["remat"] = True
+    return model_kw
+
+
+def check_heads(c: TrainConfig, num_heads: int) -> None:
+    """The JAX trainer's head-split checks of a tp/sp run."""
+    tp, sp = c.tensor_parallel, c.seq_parallel
+    if num_heads % tp:
+        raise ValueError(
+            f"num_heads={num_heads} not divisible by tensor_parallel={tp} "
+            "(heads shard over the model axis)")
+    if sp > 1 and c.seq_attn == "ulysses" and (num_heads // tp) % sp:
+        raise ValueError(
+            f"ulysses needs heads/tp={num_heads // tp} divisible by "
+            f"seq_parallel={sp} (all-to-all re-shards seq->heads); use "
+            "seq_attn='ring'")
+
+
 def build_train_model(c: TrainConfig) -> torch.nn.Module:
     """A fresh model of ``c``'s network and model flags, its weights drawn
     from ``c.seed`` (on the CPU)."""
     if is_text_model(c.network):
-        model_kw = {"dtype": c.dtype}
-        if c.vocab_size is not None:
-            model_kw["vocab_size"] = c.vocab_size
-        if c.seq_len is not None:
-            model_kw["max_len"] = c.seq_len
-        if c.fused_ln:
-            model_kw["fused_ln"] = True
+        model_kw = text_model_kw(c)
         if c.attn_impl == "pallas":
             model_kw["attn_fn"] = kernels.flash_attention
         model = build_model(c.network, **model_kw)
@@ -302,6 +402,8 @@ class Trainer:
                 "nan_grad faults poison the float image batch; text "
                 "batches are integer token ids (no NaN representation)")
         self._multihost = multihost
+        self.spmd = use_spmd(c)
+        self.mesh = None
         self._elastic_plan = None
         if c.resume:
             self._plan_elastic(group)
@@ -323,7 +425,9 @@ class Trainer:
         self.eval_group = (sibling_group(self.group, "pdtn_eval")
                            if c.overlap_eval else None)
         self._check_fault_plan()
-        self._geometry = elastic.rank_geometry(self.n_workers)
+        self._geometry = elastic.rank_geometry(
+            self.group.size(),
+            axis_sizes(self.mesh) if self.mesh is not None else None)
         self.start_step = 0
         if c.resume:
             self._resume()
@@ -352,34 +456,49 @@ class Trainer:
             self._overlap_eval_step = (
                 build_eval_step(self.eval_group) if self.is_text
                 else build_image_eval_step(self.eval_group))
-        if c.eval_freq and c.async_ckpt and self.rank == 0:
+        if c.eval_freq and c.async_ckpt and (self.rank == 0 or self.spmd):
             from pytorch_distributed_nn_tpu_torch.training.async_ckpt import (
                 AsyncCheckpointer,
             )
 
+            # a tp/sp run: every rank writes its shard file
             self._async_ckpt = AsyncCheckpointer(
-                c.train_dir, keep_last=c.keep_last, geometry=self._geometry)
+                c.train_dir, keep_last=c.keep_last, geometry=self._geometry,
+                mesh=self.mesh)
             self._async_ckpt.warmup(self.state)
         if self.start_step:
             self._restore_data_stream()
         logger.info("Trainer: %s (%d params, %s) on %s, rank %d of %d, from "
                     "step %d", c.network, param_count(self.model), c.dtype,
-                    self.device, self.rank, self.n_workers, self.start_step)
+                    self.device, self.rank, self.world, self.start_step)
 
     def _init_sync(self, group, multihost: bool = False) -> None:
         """The process group, this rank, and the gradient sync with its
         straggler simulator (both families)."""
         c = self.config
         if group is None:
-            self.group, self.device = init_group(self.device, c.num_workers,
-                                                 multihost=multihost)
+            self.group, self.device = init_group(
+                self.device, None if c.num_workers is None else
+                c.num_workers * c.tensor_parallel * c.seq_parallel,
+                multihost=multihost)
         else:
-            if c.num_workers is not None and c.num_workers != group.size():
-                raise ValueError(
-                    f"num_workers={c.num_workers} but the group has "
-                    f"{group.size()} rank(s)")
             self.group = group
-        self.rank, self.n_workers = self.group.rank(), self.group.size()
+        per = c.tensor_parallel * c.seq_parallel
+        world = self.group.size()
+        if c.num_workers is not None and c.num_workers * per != world:
+            raise ValueError(
+                f"num_workers={c.num_workers} but the group has {world} "
+                f"rank(s)" + (f" (tensor_parallel x seq_parallel = {per})"
+                              if per > 1 else ""))
+        self.rank = self.group.rank()
+        if self.spmd:
+            if world % per:
+                raise ValueError(f"{world} ranks not divisible by "
+                                 f"tensor_parallel*seq_parallel={per}")
+            self.mesh = make_mesh(self.group, world // per,
+                                  c.tensor_parallel, c.seq_parallel)
+        self.world = world
+        self.n_workers = world // per  # the data-parallel degree
         n = self.n_workers
         if c.batch_size % (n * c.grad_accum):
             raise ValueError(
@@ -400,6 +519,9 @@ class Trainer:
             self._straggler_sim = make_straggler_sim(
                 c.straggler_deadline, min_keep=c.straggler_min_keep,
                 fault_plan=self.fault_plan)
+        if self.spmd:  # the spmd step syncs over the mesh itself
+            self.grad_sync = None
+            return
         self.grad_sync = make_grad_sync(
             self.group, c.sync_mode, num_aggregate=c.num_aggregate,
             compression=c.compression, topk_ratio=c.topk_ratio,
@@ -413,17 +535,32 @@ class Trainer:
             raise ValueError(f"test batch {c.test_batch_size} not divisible "
                              f"by {n} workers")
         self.model = build_train_model(c)
-        # one dropout stream per rank and step
-        self.state = create_train_state(self.model, build_opt, self.device,
-                                        seed=c.seed + 1, rank=self.rank,
-                                        grad_sync=self.grad_sync)
+        self.warm_start_report = None
+        if c.warm_start:
+            self._warm_start(self.model)
         self.seq_len = c.seq_len or input_spec(c.network)[0]
         self.vocab_size = c.vocab_size or self.model.config.vocab_size
-        self.train_step = build_train_step(
-            self.grad_sync, grad_accum=c.grad_accum,
-            nonfinite_guard=c.skip_nonfinite)
-        self.eval_step = build_eval_step(self.group)
-        kw = dict(rank=self.rank, world=n)
+        data_rank = self.rank
+        if self.spmd:
+            check_heads(c, self.model.config.num_heads)
+            self.model = self._local_model(self.model)
+            self.state = create_spmd_state(self.model, build_opt, self.mesh,
+                                           self.device, seed=c.seed + 1)
+            self.train_step = build_spmd_train_step(
+                self.mesh, compression=c.compression,
+                grad_accum=c.grad_accum)
+            self.eval_step = build_spmd_eval_step(self.mesh)
+            data_rank = self.mesh.coords[DATA_AXIS]
+        else:
+            # one dropout stream per rank and step
+            self.state = create_train_state(
+                self.model, build_opt, self.device, seed=c.seed + 1,
+                rank=self.rank, grad_sync=self.grad_sync)
+            self.train_step = build_train_step(
+                self.grad_sync, grad_accum=c.grad_accum,
+                nonfinite_guard=c.skip_nonfinite)
+            self.eval_step = build_eval_step(self.group)
+        kw = dict(rank=data_rank, world=n)
         meta = self._stream_meta()
         if meta is not None:
             if int(meta["vocab_size"]) > self.vocab_size:
@@ -448,6 +585,40 @@ class Trainer:
                        corpus_seed=c.seed),  # same language as training
             self.device, eval_batches=c.eval_batches, **kw)
 
+    def _warm_start(self, model) -> None:
+        """Merge the ``warm_start`` FILE checkpoint's parameters into the
+        freshly initialised ``model`` (every rank alike: the file and the
+        init are the same on all)."""
+        from pytorch_distributed_nn_tpu_torch.training.warm_start import (
+            warm_start_params,
+        )
+
+        c = self.config
+        if is_cnn(model):  # the params tree; BatchNorm statistics stay
+            params, stats = state_dict_to_cnn(model.state_dict())
+            merged, self.warm_start_report = warm_start_params(
+                c.warm_start, params)
+            sd = cnn_to_state_dict(merged, stats)
+        else:
+            merged, self.warm_start_report = warm_start_params(
+                c.warm_start, state_dict_to_flax(model.state_dict(),
+                                                 model.config.num_heads))
+            sd = flax_to_state_dict(merged)
+        model.load_state_dict(sd, strict=True)
+
+    def _local_model(self, full) -> torch.nn.Module:
+        """This rank's model of a tp/sp run: built on the mesh with the
+        run's attention, holding its regions of ``full``'s weights."""
+        c = self.config
+        attn_fn = None
+        if c.seq_parallel > 1:
+            attn_fn = make_mesh_attn(self.mesh, c.seq_attn)
+        elif c.attn_impl == "pallas":
+            attn_fn = make_tp_flash_attn(self.mesh)
+        local = build_model(c.network, mesh=self.mesh, attn_fn=attn_fn,
+                            **text_model_kw(c))
+        return shard_model(full, local, self.mesh)
+
     def _stream_meta(self) -> Optional[dict]:
         """The manifest of ``data_path`` (None without one); its kind must
         be the network's."""
@@ -467,13 +638,15 @@ class Trainer:
         c = self.config
         host_index, host_count = 0, 1
         if self._multihost:
-            local = int(os.environ.get("LOCAL_WORLD_SIZE", self.n_workers))
+            local = int(os.environ.get("LOCAL_WORLD_SIZE", self.world))
             host_index, host_count = (self.rank // local,
-                                      max(1, self.n_workers // local))
+                                      max(1, self.world // local))
+        rank = (self.mesh.coords[DATA_AXIS] if self.mesh is not None
+                else self.rank)
         return StreamingLoader(
             c.data_path, c.batch_size, seed=c.seed,
             prefetch=c.stream_prefetch, workers=c.loader_workers,
-            host_index=host_index, host_count=host_count, rank=self.rank,
+            host_index=host_index, host_count=host_count, rank=rank,
             world=self.n_workers, device=self.device, **kw)
 
     def _plan_elastic(self, group) -> None:
@@ -492,12 +665,14 @@ class Trainer:
             return
         if plan.changed and c.strict_geometry:
             raise elastic.strict_geometry_error(plan, c.train_dir)
-        if plan.num_workers != world:
+        per = c.tensor_parallel * c.seq_parallel
+        if plan.num_workers * per != world:
             raise ValueError(
                 f"global batch {c.batch_size} gives {plan.num_workers} "
                 f"data-parallel workers on a world of {world} rank(s): "
-                f"launch {plan.num_workers} rank(s)")
-        impossible = c.num_workers is not None and c.num_workers != world
+                f"launch {plan.num_workers * per} rank(s)")
+        impossible = (c.num_workers is not None
+                      and c.num_workers * per != world)
         if plan.changed or impossible:
             c.num_workers = plan.num_workers
             c.grad_accum = plan.grad_accum
@@ -531,6 +706,9 @@ class Trainer:
         c = self.config
         n = self.n_workers
         self.model = build_train_model(c)
+        self.warm_start_report = None
+        if c.warm_start:
+            self._warm_start(self.model)
         # one dropout stream per rank and step, as the JAX step folds the
         # dropout key with both
         self.state = create_train_state(self.model, build_opt, self.device,
@@ -609,15 +787,17 @@ class Trainer:
                 c.train_dir, self.state, ef_rows=rows,
                 ef="raise" if self._elastic_plan is None else "reset")
             found = 0 if restored is None else self.state.step + 1
-        if self.n_workers > 1:
+        if self.world > 1:
             flag = torch.tensor([found, len(rows)], dtype=torch.int64,
                                 device=self.device)
             found, n_rows = (int(v) for v in
                              all_reduce(flag, "sum", self.group).tolist())
             if self.rank != 0 and found:
-                ckpt.restore_checkpoint(
-                    ckpt.checkpoint_path(c.train_dir, found - 1), self.state,
-                    ef="skip")
+                path = ckpt.checkpoint_path(c.train_dir, found - 1)
+                if self._elastic_plan is not None and self.spmd:
+                    ckpt.restore_resharded(path, self.state)
+                else:
+                    ckpt.restore_checkpoint(path, self.state, ef="skip")
             if found and self.state.ef_state is not None:
                 self._scatter_ef(rows if n_rows == self.n_workers else None)
         if found:
@@ -804,7 +984,7 @@ class Trainer:
         if sup is None:
             return False
         stop = sup.should_stop
-        if self.n_workers > 1:
+        if self.world > 1:
             flag = torch.tensor([int(stop)], dtype=torch.int64,
                                 device=self.device)
             stop = bool(all_reduce(flag, "max", self.group).item())
@@ -999,6 +1179,9 @@ class Trainer:
         its eval thread; rank 0 hands the save to the async writer (the
         loop stalls for the snapshot), or writes it inline."""
         c = self.config
+        if self.spmd:
+            self._save_sharded(step, timer)
+            return
         ef_rows = None
         if self.state.ef_state is not None:
             with timer.phase("checkpoint"):
@@ -1033,6 +1216,29 @@ class Trainer:
         if c.keep_last is not None:
             ckpt.gc_checkpoints(c.train_dir, c.keep_last)
         logger.info("Checkpointed step %d to %s", step, path)
+
+    def _save_sharded(self, step: Optional[int], timer=None) -> str:
+        """A tp/sp run's checkpoint directory of ``step``: every rank
+        writes its shard file (through its async writer, or inline);
+        rank 0 commits, and GCs with ``keep_last``."""
+        c = self.config
+        data_state = self._loader_state() if self.rank == 0 else None
+        phase = (timer.phase("checkpoint") if timer is not None
+                 else contextlib.nullcontext())
+        with phase:
+            if self._async_ckpt is not None:
+                handle = self._async_ckpt.save(self.state, step=step,
+                                               data_state=data_state)
+                logger.info("Checkpoint step %s handed to the async writer "
+                            "(loop stalled %.1f ms)", step, handle.stall_ms)
+                return ckpt.checkpoint_path(c.train_dir, handle.step)
+            path = ckpt.save_sharded(c.train_dir, self.state, step=step,
+                                     data_state=data_state,
+                                     geometry=self._geometry)
+        if c.keep_last is not None and self.rank == 0:
+            ckpt.gc_checkpoints(c.train_dir, c.keep_last)
+        logger.info("Checkpointed step %s to %s", step, path)
+        return path
 
     def _snapshot_state(self, snap) -> TrainState:
         """A model that reads the snapshot's tensors (no copy): the
@@ -1109,6 +1315,16 @@ class Trainer:
             self._finish_background_io(raise_errors=False)
         except Exception:
             logger.exception("async drain before emergency save failed")
+        if self.spmd:  # collective: every rank writes its shards
+            try:
+                path = ckpt.save_sharded(c.train_dir, self.state,
+                                         data_state=self._loader_state(),
+                                         geometry=self._geometry)
+                logger.info("Emergency checkpoint: %s", path)
+                return path
+            except Exception:
+                logger.exception("emergency checkpoint failed")
+                return None
         ef_rows = self._gather_ef(timeout_s=EF_GATHER_TIMEOUT_S)
         if self.rank != 0:
             return None

@@ -23,6 +23,7 @@ resume) against the JAX package's, on the CPU.
 """
 
 import functools
+import json
 import os
 
 import jax
@@ -446,13 +447,30 @@ def test_bad_magic_raises(tmp_path, small_state):
 
 def test_sharded_directory_raises_naming_its_roadmap_item(tmp_path,
                                                           small_state):
+    """The port reads sharded directories now: an empty or torn one is
+    refused as the JAX package refuses it (``verify_checkpoint`` false
+    with its reason, the restore raising), and ``load_raw`` reads FILE
+    checkpoints only, as JAX's does."""
     path = ckpt.checkpoint_path(str(tmp_path), 4)
     os.makedirs(path)
-    for fn in (ckpt.verify_checkpoint, ckpt.load_raw,
+    ok, reason = ckpt.verify_checkpoint(path)
+    assert not ok and reason.startswith("unreadable meta.json")
+    assert jckpt.verify_checkpoint(path) == (ok, reason)
+    for fn in (ckpt.load_raw,
                lambda p: ckpt.restore_checkpoint(p, small_state)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 1"):
+        with pytest.raises((ValueError, OSError)):
             fn(path)
+    # torn: a manifest naming a shard file whose bytes are not its own
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"format": "pdtn-sharded-v1", "step": 4, "processes": 1,
+                   "crc32": {"shards_p00000.npz": 1}, "shapes": {}}, f)
+    with open(os.path.join(path, "shards_p00000.npz"), "wb") as f:
+        f.write(b"torn")
+    assert ckpt.verify_checkpoint(path) == (
+        False, "shards_p00000.npz: CRC32 mismatch")
+    assert jckpt.verify_checkpoint(path) == ckpt.verify_checkpoint(path)
+    with pytest.raises(ValueError, match="CRC32 mismatch"):
+        ckpt.restore_checkpoint(path, small_state)
 
 
 def test_gc_keeps_resume_target_protected_published_and_evidence(

@@ -1123,3 +1123,102 @@ def test_cuda_streamed_batches_equal_the_cpu_loaders(card, tmp_path, kind,
     finally:
         for ld in loaders:
             ld.close()
+
+
+# -- dp x tp x sp training at world size 1 on the card -----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [6, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_at_tp_head_shards_matches_plain(card, heads, dtype):
+    """The flash kernels on the H / tp heads a tp rank of BertBase holds
+    (12 over 2 and 4), D 64, at the full sequence: forward, dq and dk/dv
+    against the plain version."""
+    g = torch.Generator().manual_seed(heads)
+    q, k, v, do = (torch.randn((2, 512, heads, 64), generator=g)
+                   .to(card, dtype) for _ in range(4))
+    mask = torch.ones((2, 512), dtype=torch.int32, device=card)
+    mask[-1, -37:] = 0
+    out, lse = kernels.flash_attention_fwd(q, k, v, mask)
+    w_out, w_lse = reference.flash_attention_fwd(q, k, v, mask)
+    delta = reference.flash_attention_delta(w_out, do)
+    dq = kernels.flash_attention_dq(q, k, v, mask, w_lse, delta, do)
+    dk, dv = kernels.flash_attention_dkv(q, k, v, mask, w_lse, delta, do)
+    w_dq = reference.flash_attention_dq(q, k, v, mask, w_lse, delta, do)
+    w_dk, w_dv = reference.flash_attention_dkv(q, k, v, mask, w_lse, delta,
+                                               do)
+    torch.cuda.synchronize()
+    fwd_tol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
+    bwd_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-3, 2.0 ** -7)
+    for got, want, (atol, rtol) in ((out, w_out, fwd_tol),
+                                    (dq, w_dq, bwd_tol), (dk, w_dk, bwd_tol),
+                                    (dv, w_dv, bwd_tol)):
+        got, want = got.float(), want.float()
+        assert ((got - want).abs() - atol - rtol * want.abs()).max() <= 0
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_quantize_with_region_offsets_bit_for_bit(card):
+    """quant_group_kernel with each leaf's element offset (a region of a
+    larger leaf: offsets that are and are not multiples of 4) against the
+    plain version, bit for bit; and the region's result equal to the
+    whole leaf's at its elements."""
+    g = torch.Generator().manual_seed(3)
+    whole = (torch.randn(30522 * 3, generator=g) * 0.01).to(card)
+    firsts = [0, 7631 * 3, 15262 * 3 + 1, 22893 * 3 + 2, 5]
+    sizes = [7631 * 3, 7631 * 3, 7631 * 3 - 1, 7629 * 3 - 2, 16390]
+    xs = [whole[f:f + n] for f, n in zip(firsts, sizes)]
+    scale = whole.abs().amax() * reference.RECIP127
+    seeds = [77] * len(xs)
+    got = kernels.quantize_int8_scaled_group(xs, [scale] * len(xs), seeds,
+                                             firsts=firsts)
+    want = reference.quantize_int8_scaled_group(xs, [scale] * len(xs),
+                                                seeds, firsts=firsts)
+    full = kernels.quantize_int8_scaled_group([whole], [scale], [77])[0]
+    torch.cuda.synchronize()
+    for x, f, a, b in zip(xs, firsts, got, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a, full[f:f + x.numel()])
+
+
+@pytest.mark.cuda
+def test_cuda_bertbase_sharded_directory_round_trip(card, tmp_path):
+    """A BertBase-width spmd state (1 x 1 x 1 mesh) after one bf16 step:
+    its sharded directory, saved on the card and restored into a fresh
+    state there, bit for bit (the parameters and Adam's moments)."""
+    from pytorch_distributed_nn_tpu_torch.data.text import MLMBatches
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.models.convert import state_leaves
+    from pytorch_distributed_nn_tpu_torch.optim import (
+        build_optimizer,
+        make_schedule,
+    )
+    from pytorch_distributed_nn_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training import spmd
+
+    def state(seed):
+        mesh = make_mesh(None)
+        full = build_model("BertBase", dtype="bfloat16").init_weights(
+            torch.Generator().manual_seed(seed))
+        local = spmd.shard_model(
+            full, build_model("BertBase", dtype="bfloat16", mesh=mesh), mesh)
+        sched = make_schedule(1e-4)
+        return mesh, spmd.create_spmd_state(
+            local, lambda p: build_optimizer("adam", p, sched), mesh, card)
+
+    mesh, a = state(0)
+    x, y = next(MLMBatches(vocab_size=30522, seq_len=128, batch_size=4))
+    spmd.build_spmd_train_step(mesh)(
+        a, (torch.from_numpy(x).long().to(card),
+            torch.from_numpy(y).long().to(card)))
+    path = ckpt.save_sharded(str(tmp_path), a)
+    _, b = state(1)
+    ckpt.restore_checkpoint(path, b)
+    want = {k: np.asarray(v) for k, _, v in
+            state_leaves(ckpt.state_tree(a))}
+    got = {k: np.asarray(v) for k, _, v in state_leaves(ckpt.state_tree(b))}
+    assert set(got) == set(want) and b.step == 1
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k

@@ -280,13 +280,12 @@ def test_image_trainer_runs_topk_and_buckets(field, value):
 
 def test_text_models_keep_single_rank_sync():
     """The text models take the image path's data-parallel sync: no
-    table of sync flags refused for them is left, and only items 1 and 3
-    still raise."""
+    table of flags refused as not yet ported is left, for the text models
+    or any other (dp x tp x sp training, the last of them, is ported)."""
     from pytorch_distributed_nn_tpu_torch.training import trainer as mod
 
     assert not hasattr(mod, "TEXT_UNSUPPORTED")
-    assert all("item 1" in item or "item 3" in item
-               for _, item in mod.UNSUPPORTED.values())
+    assert not hasattr(mod, "UNSUPPORTED")
 
 
 @pytest.mark.parametrize("sync", [dict(), dict(sync_mode="local"),

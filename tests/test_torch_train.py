@@ -55,10 +55,7 @@ from pytorch_distributed_nn_tpu_torch.training.train_step import (
     build_train_step,
     create_train_state,
 )
-from pytorch_distributed_nn_tpu_torch.training.trainer import (
-    UNSUPPORTED,
-    Trainer,
-)
+from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
 from torch_ranks import run_ranks
 
 import torch_cpu  # one intra-op thread here and in subprocesses
@@ -329,11 +326,40 @@ _BASE = dict(network="BertTiny", dataset="MLMSynth", batch_size=4,
     ("tensor_parallel", 2), ("seq_parallel", 2), ("remat", True),
     ("warm_start", "ckpt"),
 ])
-def test_unsupported_flags_raise_naming_their_roadmap_item(field, value):
-    assert field in UNSUPPORTED
-    cfg = TrainConfig(**{**_BASE, field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        Trainer(cfg, device="cpu")
+def test_unsupported_flags_raise_naming_their_roadmap_item(field, value,
+                                                           tmp_path):
+    """The four flags of ROADMAP Queue 1 item 1 used to raise naming it;
+    they run now: tp and sp a step on two gloo ranks (the loss equal on
+    both), remat and warm start a step on one."""
+    cfg = {**_BASE, field: value, "seq_len": 32}
+    ranks = 2 if field in ("tensor_parallel", "seq_parallel") else 1
+    if field == "warm_start":
+        src = TrainConfig(**{**_BASE, "vocab_size": 48, "eval_freq": 1,
+                             "train_dir": str(tmp_path / "src"),
+                             "async_ckpt": False})
+        t = Trainer(src, device="cpu")
+        try:
+            t.train()
+        finally:
+            t.close()
+        cfg["warm_start"] = str(tmp_path / "src" / "model_step_1")
+        cfg["vocab_size"] = 64
+
+    def run(r, group):
+        t = Trainer(TrainConfig(**cfg), device="cpu", group=group)
+        try:
+            losses = [h["loss"] for h in t.train()]
+        finally:
+            t.close()
+        report = t.warm_start_report
+        return losses, report
+
+    out = run_ranks(ranks, run)
+    losses, report = out[0]
+    assert len(losses) == 1 and np.isfinite(losses).all()
+    assert all(o[0] == losses for o in out)
+    if field == "warm_start":
+        assert report["sliced"] == 2 and report["unused"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -361,8 +387,6 @@ def test_data_flags_now_run_on_the_text_models(token_shards, flags):
         StreamingLoader,
     )
 
-    assert "data_path" not in UNSUPPORTED
-    assert "loader_workers" not in UNSUPPORTED
     cfg = TrainConfig(**{**_BASE, "vocab_size": 64, "max_steps": 2,
                          "data_path": token_shards, **flags})
     trainer = Trainer(cfg, device="cpu")
@@ -383,7 +407,6 @@ def test_data_flags_now_run_on_the_text_models(token_shards, flags):
 def test_gradient_sync_flags_now_run_on_the_text_models(field, value):
     """The flags the single-rank MLM step refused, each now one step of a
     2-rank BertTiny run (every rank the same finite loss)."""
-    assert field not in UNSUPPORTED
     cfg = TrainConfig(**{**_BASE, "num_workers": 2, field: value})
 
     def one(rank, group):
