@@ -9,7 +9,9 @@ and the rest of the gradient sync (int8 and bucketed collectives on
 BertBase, topk with error feedback and its resume, the straggler
 simulator), and streaming input from ``.pdsr`` shards (``data export``,
 the checkpointable ``StreamingLoader``, the native augment engine and the
-loader's worker pool).
+loader's worker pool), dp x tp x sp training, and the deployment
+lifecycle (the registry, hot swap, shadow canaries and their router,
+SLOs, the replicated frontend and the ``obs`` tools).
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
@@ -144,16 +146,16 @@ Phases, each printed on its own line:
    gives the same bytes, and ``--resume`` to step 25 restores parameters,
    momentum and BatchNorm statistics bit for bit, with one
    ``quantize_int8_scaled`` launch per resumed step; BertBase as in phase
-   5 for 4 steps at ``--eval-freq 2 --keep-last 1``, then ``--resume`` to
-   step 6 with exact launch counts per step, the losses of steps 5 and 6
-   and the parameters after step 6 against an uninterrupted 6-step run
+   5 for 2 steps at ``--eval-freq 2 --keep-last 1``, then ``--resume`` to
+   step 4 with exact launch counts per step, the losses of steps 3 and 4
+   and the parameters after step 4 against an uninterrupted 4-step run
    (within ``BERT_RESUME_TOL`` and ``RESUME_PARAM_TOL``), and two faulty
    resumes (the data stream a batch on; the dropout generator seeded
    once) that must fall outside both; meanwhile the ``evaluator``
    subprocess polls the same train_dir (``--follow-latest --max-evals 2
    --timeout 300``): its loss, acc1 and acc5 against
    ``Trainer.evaluate()`` of the same state (within ``EVAL_TOL``, which
-   must be below the eval loss's move from step 4 to 6) and its
+   must be below the eval loss's move from step 2 to 4) and its
    launch counts (12 flash forward and 26 LayerNorm forward a batch, no
    backward); then a supervised ``train`` subprocess gets SIGTERM after
    its first step, exits 0 and leaves an emergency checkpoint that
@@ -284,17 +286,43 @@ Phases, each printed on its own line:
    ``elastic_resume`` event, every restored leaf bit for bit the
    directory's, finite losses, and the evaluator's score of the directory
    on the card (``spmd_phase(kernels, reference, seed, smi, repo, root,
-   phase5_ms)``). Then one JSON line listing the kernels (launches on the
-   driven paths of phases 4, 5, 8, 9, 10, 14, 15 and 16, error against
-   the plain version, times, least possible time), and the result line
-   ``{"ok": true, "device": {...}}``.
+   phase5_ms)``);
+17. the deployment lifecycle and the replicated frontend, each reading
+   beside the card's name and power limit (``deploy_phase(kernels, seed,
+   smi, repo, root, resnet_art)``): (a) three random-init BertBase bf16
+   artifacts (the third NaN) published to a registry; in this process
+   the stable engine and its shadow each launch the LayerNorm forward 26
+   times a batch and no other kernel, TF32 stays off inside the
+   shadow's forwards, the shadow's and the swapped engine's logits equal
+   a fresh engine's bit for bit; then ``serve run --registry
+   --reload-poll --canary DEPLOY_CANARY --slo --admin-token`` in a
+   subprocess under 4 clients: the ``canary`` label ramps a canary to
+   promotion, the NaN canary is rolled back once with the labels
+   restored, ``/stats`` reports no retrace, every client gets 200;
+   (b) a GptMini server with an admin token swapped over ``POST
+   /v1/admin/swap`` while a burst decodes: fenced sequences re-prefilled,
+   4 decode launches a decode step, the tokens after the swap the new
+   artifact's plain full recompute (``LOGITS_TOL``); (c), beside (a) and
+   (b), the frontend over two ResNet-18 f32 ``serve run`` replicas under
+   8 clients: a
+   SIGKILL with no client failure, one ``replica_down`` and one
+   ``breaker_open``, a rejoin after the respawn, a rolling restart with
+   no request lost, 429 with Retry-After past ``max_inflight``; (d)
+   ``serve run --slo --flightrec slo_breach --faults DEPLOY_FAULTS``: one
+   ``slo_breach``, one incident bundle, the port's ``obs slo check``,
+   ``obs summary`` and ``obs export`` (the exposition validates). Then
+   one JSON line listing the kernels (launches on the driven paths of
+   phases 4, 5, 8, 9, 10, 14, 15, 16 and 17, error against the plain
+   version, times, least possible time), and the result line ``{"ok":
+   true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
 f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8, each training run of
-phases 9, 10, 14, 15 and 16) and read just after; the evaluator subprocess
-counts its own.
+phases 9, 10, 14, 15 and 16, the engines' batches and the swapped burst
+of phase 17) and read just after; the evaluator subprocess counts its
+own.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -1795,12 +1823,13 @@ def time_int8_kernels(kernels, reference, gen, leaf_sizes, launches, errs):
 #: loss 0.004 (dropout seeded once) and 0.022 (data a batch on) apart and
 #: parameters 3e-4 apart after two Adam steps of lr 1e-4 (PERF.md §6);
 #: above a float32 ulp of either (1e-6 at 10.45, 1.2e-7 at 1)
-BERT_RESUME_TOL = 1e-5  # the losses of steps 5 and 6
-RESUME_PARAM_TOL = 1e-6  # the parameters after step 6
+BERT_RESUME_TOL = 1e-5  # the losses of steps 3 and 4
+RESUME_PARAM_TOL = 1e-6  # the parameters after step 4
 #: the evaluator subprocess against Trainer.evaluate() of the same state:
 #: the same kernels and weights in another process, equal bit for bit on
-#: an H100 so far; 160x below the eval loss's move from step 4 to step 6
-#: (1.6e-3), which the phase checks it stays above. acc1 and acc5 read 0
+#: an H100 so far; far below the eval loss's move from step 2 to step 4
+#: (6.6e-3 on an H100 80GB HBM3 at 700 W), which the phase checks it
+#: stays above. acc1 and acc5 read 0
 #: at this init, so the loss carries the comparison
 EVAL_TOL = 1e-5
 
@@ -2015,9 +2044,9 @@ def state_gaps(got, want):
 
 
 def bert_checkpoints(kernels, seed, root, repo):
-    """BertBase (phase 5's configuration): 4 steps at --eval-freq 2
-    --keep-last 1, --resume to step 6 with exact launch counts, the
-    resumed run against an uninterrupted 6-step run (its losses and its
+    """BertBase (phase 5's configuration): 2 steps at --eval-freq 2
+    --keep-last 1, --resume to step 4 with exact launch counts, the
+    resumed run against an uninterrupted 4-step run (its losses and its
     final state), two faulty resumes the check must tell apart (the data
     stream one batch on, the dropout generator seeded once and never
     again, as the port's was), and the evaluator subprocess polling the
@@ -2037,39 +2066,39 @@ def bert_checkpoints(kernels, seed, root, repo):
     log_path = os.path.join(root, "evaluator.log")
     proc, err = start_evaluator(repo, d, seed, log_path)
     try:
-        cfg = train_config("BertBase", 4, seed=seed, eval_freq=2,
+        cfg = train_config("BertBase", 2, seed=seed, eval_freq=2,
                            keep_last=1, train_dir=d)
         t1 = Trainer(cfg)
         try:
             t1.train()
-            ev4 = t1.evaluate()
+            ev2 = t1.evaluate()
         finally:
             t1.close()
-        path4 = checked_checkpoint(ckpt, d, [4], "BertBase")
+        path2 = checked_checkpoint(ckpt, d, [2], "BertBase")
         raw = 4 + flax_msgpack.pack_array(ckpt.state_tree(t1.state)).nbytes
         del t1
         torch.cuda.empty_cache()
-        # the faulty resumes start from a copy of step 4 (the resumed run
+        # the faulty resumes start from a copy of step 2 (the resumed run
         # collects it)
         os.makedirs(faulty_dir)
-        for f in (path4, ckpt.meta_path(path4), ckpt.data_state_path(path4)):
+        for f in (path2, ckpt.meta_path(path2), ckpt.data_state_path(path2)):
             shutil.copy(f, faulty_dir)
-        t2 = Trainer(dataclasses.replace(cfg, max_steps=6, resume=True))
+        t2 = Trainer(dataclasses.replace(cfg, max_steps=4, resume=True))
         L = t2.model.config.num_layers
         per_step = {"flash_attention_fwd": L, "flash_attention_dq": L,
                     "flash_attention_dkv": L, "layer_norm": 2 * L + 2,
                     "layer_norm_bwd": 2 * L + 2}
         try:
-            if t2.start_step != 4:
-                fail(f"BertBase resume started at {t2.start_step}, not 4")
+            if t2.start_step != 2:
+                fail(f"BertBase resume started at {t2.start_step}, not 2")
             kernels.reset_launch_counts()
             resumed = t2.train()
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
-            ev6 = t2.evaluate()
+            ev4 = t2.evaluate()
         finally:
             t2.close()
-        path = checked_checkpoint(ckpt, d, [6], "BertBase resumed")
+        path = checked_checkpoint(ckpt, d, [4], "BertBase resumed")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ckpt.restore_checkpoint(path, t2.state)
@@ -2083,18 +2112,18 @@ def bert_checkpoints(kernels, seed, root, repo):
             proc.communicate(timeout=60)
     expect_launches(kernels, launches, per_step, 2, "BertBase resumed")
     stream = read_stream(os.path.join(d, "telemetry.jsonl"))
-    writes = write_events(stream, [2, 4, 6], "BertBase")
-    straight = Trainer(train_config("BertBase", 6, seed=seed))
+    writes = write_events(stream, [2, 4], "BertBase")
+    straight = Trainer(train_config("BertBase", 4, seed=seed))
     try:
         want = straight.train()
-        ref = [r["loss"] for r in want[4:6]]
+        ref = [r["loss"] for r in want[2:4]]
         sound = {"losses": [r["loss"] for r in resumed],
                  **state_gaps(t2, straight)}
         del t2
         torch.cuda.empty_cache()
         faulty = {}
         for fault in ("data stream one batch on", "dropout seeded once"):
-            t = Trainer(train_config("BertBase", 6, seed=seed, resume=True,
+            t = Trainer(train_config("BertBase", 4, seed=seed, resume=True,
                                      train_dir=faulty_dir))
             try:
                 if fault.startswith("data"):
@@ -2115,7 +2144,7 @@ def bert_checkpoints(kernels, seed, root, repo):
     for r in (sound, *faulty.values()):
         r["loss_gap"] = max(abs(x - y) for x, y in zip(r["losses"], ref))
     got = sound["losses"]
-    if [r["step"] for r in resumed] != [5, 6] or not all(
+    if [r["step"] for r in resumed] != [3, 4] or not all(
             math.isfinite(x) for x in got) or \
             sound["loss_gap"] > BERT_RESUME_TOL or \
             sound["params"] > RESUME_PARAM_TOL:
@@ -2129,13 +2158,13 @@ def bert_checkpoints(kernels, seed, root, repo):
                  f"({fault}) from a sound one: {r}")
     # the evaluator: its metrics against Trainer.evaluate() of the state
     evaluated = {int(k): v for k, v in out["evaluated"].items()}
-    compared = {s: e for s, e in ((4, ev4), (6, ev6)) if s in evaluated}
+    compared = {s: e for s, e in ((2, ev2), (4, ev4)) if s in evaluated}
     if len(evaluated) != 2 or not compared:
-        fail(f"evaluator evaluated steps {sorted(evaluated)} (expected 2 of "
-             "2, 4, 6, with 4 or 6 among them)")
-    if abs(ev4["loss"] - ev6["loss"]) <= EVAL_TOL:
-        fail(f"the evaluator check cannot tell step 4 from step 6: eval "
-             f"losses {ev4['loss']} and {ev6['loss']} (tol {EVAL_TOL})")
+        fail(f"evaluator evaluated steps {sorted(evaluated)} (expected 2 "
+             "and 4)")
+    if abs(ev2["loss"] - ev4["loss"]) <= EVAL_TOL:
+        fail(f"the evaluator check cannot tell step 2 from step 4: eval "
+             f"losses {ev2['loss']} and {ev4['loss']} (tol {EVAL_TOL})")
     for s, e in compared.items():
         if any(abs(evaluated[s][k] - e[k]) > EVAL_TOL
                for k in ("loss", "acc1", "acc5")):
@@ -2148,7 +2177,7 @@ def bert_checkpoints(kernels, seed, root, repo):
             "raw_bytes": raw, "writes": writes, "restore_ms": restore_ms,
             "launches": launches, "per_step": per_step,
             "straight_losses": ref, "sound": sound, "faulty": faulty,
-            "eval_steps": {4: ev4, 6: ev6},
+            "eval_steps": {2: ev2, 4: ev4},
             "evaluator": out, "compared": {s: {"trainer": e,
                                                "evaluator": evaluated[s]}
                                            for s, e in compared.items()}}
@@ -2242,10 +2271,25 @@ def checkpoint_phase(kernels, seed, smi, repo, root):
         f"{a['max']:.3f}; in order "
         f"{[round(x, 3) for x in resnet['steps_after_save_ms']]} "
         f"({smi})")
+    # the SIGTERM run (a subprocess) goes on while BertBase's checkpoints
+    # are written, which leave the card idle most of their time
+    sig_box = {}
+
+    def run_sigterm():
+        try:
+            sig_box["sig"] = sigterm_run(repo, root)
+        except BaseException as e:  # fail() in the thread: reported below
+            sig_box["error"] = repr(e)
+
+    sig_thread = threading.Thread(target=run_sigterm, daemon=True)
+    sig_thread.start()
     bert = bert_checkpoints(kernels, seed, root, repo)
-    log(f"phase 7 BertBase checkpoints (B=16, L=512, bf16, adam, 4 "
-        f"steps at --eval-freq 2 --keep-last 1, --resume to 6): "
-        f"model_step_6 verifies, PDTZ; PDTZ {bert['pdtz_bytes']} bytes, "
+    sig_thread.join(timeout=600)
+    if "sig" not in sig_box:
+        fail(f"phase 7 SIGTERM run: {sig_box.get('error', 'no result')}")
+    log(f"phase 7 BertBase checkpoints (B=16, L=512, bf16, adam, 2 "
+        f"steps at --eval-freq 2 --keep-last 1, --resume to 4): "
+        f"model_step_4 verifies, PDTZ; PDTZ {bert['pdtz_bytes']} bytes, "
         f"raw {bert['raw_bytes']} bytes; restore "
         f"{bert['restore_ms']:.3f} ms ({smi})")
     for w in bert["writes"]:
@@ -2257,10 +2301,10 @@ def checkpoint_phase(kernels, seed, smi, repo, root):
     for what, r in (("the resumed run", bert["sound"]),
                     *(("faulty resume: " + k, v)
                       for k, v in bert["faulty"].items())):
-        log(f"phase 7 BertBase {what}: losses (steps 5, 6) "
+        log(f"phase 7 BertBase {what}: losses (steps 3, 4) "
             f"{r['losses']} against the uninterrupted run's "
             f"{bert['straight_losses']}, apart by {r['loss_gap']} (tol "
-            f"{BERT_RESUME_TOL}); state after step 6 apart by "
+            f"{BERT_RESUME_TOL}); state after step 4 apart by "
             f"{r['params']} (parameters, tol {RESUME_PARAM_TOL}), "
             f"{r['opt_state']} (Adam's m and v) ({smi})")
     ev = bert["evaluator"]
@@ -2270,13 +2314,13 @@ def checkpoint_phase(kernels, seed, smi, repo, root):
         f"12 flash forward and 26 LayerNorm forward a batch, no "
         f"backward); against Trainer.evaluate() "
         f"{bert['compared']} (tol {EVAL_TOL}; Trainer.evaluate() at "
-        f"steps 4 and 6: {bert['eval_steps']}) ({smi})")
+        f"steps 2 and 4: {bert['eval_steps']}) ({smi})")
     for s, m in sorted(ev["evaluated"].items(), key=lambda x: int(x[0])):
         log(f"phase 7 evaluator step {s}: restore_ms "
             f"{m['restore_ms']:.3f}, eval_ms {m['eval_ms']:.3f}, loss "
             f"{m['loss']:.6f}, acc1 {m['acc1']:.6f}, acc5 "
             f"{m['acc5']:.6f} ({smi})")
-    sig = sigterm_run(repo, root)
+    sig = sig_box["sig"]
     log(f"phase 7 SIGTERM: a supervised train subprocess exited 0 "
         f"{sig['exit_s']:.3f} s after SIGTERM with an emergency "
         f"checkpoint model_step_{sig['step']} ({sig['bytes']} bytes) "
@@ -2322,13 +2366,15 @@ def median(xs):
 
 
 def start_server(repo, art, root, name, *flags):
-    """A ``serve run`` subprocess on the card, on an ephemeral port."""
+    """A ``serve run`` subprocess on the card, on an ephemeral port
+    (``art`` None: the artifact comes from the flags' registry)."""
     port_file = os.path.join(root, f"{name}.port")
     log_path = os.path.join(root, f"{name}.log")
     err = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch", "serve",
-         "run", "--artifact", art, "--port", "0", "--port-file", port_file,
+         "run", *(("--artifact", art) if art else ()), "--port", "0",
+         "--port-file", port_file,
          "--serve-dir", os.path.join(root, name), *flags],
         cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
     return {"proc": proc, "err": err, "log": log_path,
@@ -4643,6 +4689,728 @@ STEP_TIMES_STEPS = 40
 STEP_TIMES = ("BertBase", "BertBase-f32", "ResNet18", "ResNet18-saves")
 
 
+# -- phase 17: the deployment lifecycle and the replicated frontend ---------
+
+#: phase 17's batch buckets (BertBase also at every length bucket to
+#: 512: 30 shapes each engine and each canary warms), its BertBase rows'
+#: length and its concurrent clients
+DEPLOY_BUCKETS = "1,2,4"
+DEPLOY_BERT, DEPLOY_GPT = "BertBase", "GptMini"
+#: the length of (a)'s rows over HTTP: each answer carries L x 30522
+#: logits as JSON (about 0.6 MB a token), which sets the request rate
+DEPLOY_ROW_LEN = 1
+DEPLOY_CLIENTS = 8
+#: (a)'s canary policy: two stages of 30 canary requests, the gate over
+#: windows of 80 records with at least 30 a side, a canary twice the
+#: stable side's latency percentiles convicted (at the router's default
+#: of +50% over 20 records, a CPU rehearsal convicted a healthy canary on
+#: one slow batch: the p99 of 20 records is their max), no non-finite
+#: output allowed; an SLO the canary meets
+DEPLOY_CANARY = ("ramp=25:50,stage=30,window=80,min=30,threshold=1.0,"
+                 "nonfinite=0")
+DEPLOY_SLO = "lat_p99<2000ms@60s"
+#: (b): tokens a request of the swapped burst generates
+DEPLOY_NEW_TOKENS = 24
+#: (d): a latency objective that the first requests' slow_infer burns
+DEPLOY_FAULT_SLO = "lat_p99<200ms@30s"
+DEPLOY_FAULTS = "slow_infer@1:0.25s:x30"
+ADMIN_TOKEN = "chip-smoke"
+
+
+def deploy_artifacts(root, network, seed, poison=(), **model_kw):
+    """Random-init ``network`` artifacts at steps 1, 2 and those of
+    ``poison`` (weights from seed + step; NaN at a step of ``poison``),
+    versions ``<network lower>@<step>:none``. Returns {step: dir}."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        save_artifact,
+    )
+
+    out = {}
+    for step in (1, 2, *poison):
+        model = build_model(network, **model_kw).init_weights(
+            torch.Generator().manual_seed(seed + step))
+        if step in poison:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.fill_(float("nan"))
+        out[step] = os.path.join(root, f"{network.lower()}{step}")
+        save_artifact(out[step], model.state_dict(), network,
+                      model_kw=model_kw,
+                      source={"train_dir": os.path.join(root,
+                                                        network.lower()),
+                              "step": step, "checkpoint": None})
+        del model
+    return out
+
+
+def token_rows(rng, n, length, vocab):
+    return [rng.randint(1, vocab, size=length).astype("int32")
+            for _ in range(n)]
+
+
+def image_rows(seed, art, n=4):
+    """``n`` uniform rows of the artifact's input spec, as JSON lists."""
+    import numpy as np
+
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        load_manifest,
+    )
+
+    spec = load_manifest(art)["input"]["spec"]
+    rng = np.random.RandomState(seed)
+    return [rng.rand(*spec).astype(np.float32).tolist() for _ in range(n)]
+
+
+def get_json(url, timeout=60.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_rows(url, rows, seconds, clients=DEPLOY_CLIENTS, until=None):
+    """``clients`` clients posting single rows to ``url``/v1/infer, each
+    as soon as its last answer came, for ``seconds`` of wall time or
+    until ``until()``: run_http_load's result."""
+    from pytorch_distributed_nn_tpu_torch.serving.loadgen import (
+        run_http_load,
+    )
+
+    port = int(url.rsplit(":", 1)[1])
+    stop = threading.Event()
+    res = {}
+
+    def load():
+        # an offered rate no client keeps up with: closed loop
+        res.update(run_http_load("127.0.0.1", port, rows, 1e4, seconds,
+                                 timeout_s=60.0, workers=clients,
+                                 stop_early=stop))
+
+    t = threading.Thread(target=load)
+    t0 = time.monotonic()
+    t.start()
+    while t.is_alive():
+        if time.monotonic() - t0 > seconds or (until is not None
+                                               and until()):
+            stop.set()
+        t.join(timeout=0.2)
+    return res
+
+
+def shadow_checks(kernels, arts, seed):
+    """(a) in this process: the stable engine and its shadow each launch
+    the LayerNorm forward 26 times a batch and no other kernel, TF32 is
+    off inside the shadow's forward, and the shadow's and the swapped
+    engine's logits equal a fresh engine's on that artifact bit for bit.
+    Returns the launches, the shadow's build ms and the swap's ms."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+
+    buckets = tuple(int(b) for b in DEPLOY_BUCKETS.split(","))
+    engine = InferenceEngine(arts[1], batch_buckets=buckets)
+    engine.warmup()
+    cfg = engine.model.config
+    per_batch = 2 * cfg.num_layers + 2
+    xs = token_rows(np.random.RandomState(seed), 4, 64, cfg.vocab_size)
+    t0 = time.perf_counter()
+    shadow = engine.shadow(arts[2])
+    shadow_ms = (time.perf_counter() - t0) * 1e3
+    launches, outs = {}, {}
+    for name, eng in (("stable", engine), ("shadow", shadow)):
+        kernels.reset_launch_counts()
+        outs[name] = eng.infer(xs)
+        torch.cuda.synchronize()
+        launches[name] = kernels.launch_counts()
+        expect_launches(kernels, launches[name], {"layer_norm": per_batch},
+                        1, f"phase 17 (a) the {name} engine's batch")
+    # the script holds TF32 off throughout; what must hold it off in the
+    # shadow's forwards is the engine's own switch: turn it on outside
+    tf32 = []
+    hook = shadow.model.register_forward_hook(lambda m, i, o: tf32.append(
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32)))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        shadow.infer(xs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        hook.remove()
+    if tf32 != [(False, False)]:
+        fail(f"phase 17 (a) TF32 inside the shadow's forwards: {tf32}")
+    fresh = InferenceEngine(arts[2], batch_buckets=buckets)
+    want, _ = fresh.infer(xs)
+    got, stats = outs["shadow"]
+    if stats["version"] != fresh.version or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("phase 17 (a) the shadow's logits differ from a fresh "
+             f"engine's on {fresh.version}")
+    engine.swap(arts[2])
+    got, stats = engine.infer(xs)
+    if stats["version"] != fresh.version or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("phase 17 (a) the swapped engine's logits differ from a fresh "
+             f"engine's on {fresh.version}")
+    if engine.retraces() != 0 or shadow.retraces() != 0:
+        fail(f"phase 17 (a) retraces: stable {engine.retraces()}, shadow "
+             f"{shadow.retraces()}")
+    out = {"per_batch": per_batch, "launches": launches,
+           "shadow_ms": shadow_ms, "swap": dict(engine.last_swap_ms),
+           "vocab": cfg.vocab_size}
+    del engine, shadow, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def registry_server(arts, repo, root):
+    """(a)'s registry, the three artifacts published (the first as
+    ``stable``), and its ``serve run --registry --reload-poll --canary
+    --slo --admin-token`` subprocess."""
+    from pytorch_distributed_nn_tpu_torch.serving.registry import Registry
+
+    reg = Registry(os.path.join(root, "registry"))
+    reg.publish(arts[1], labels=("stable",))
+    reg.publish(arts[2])
+    reg.publish(arts[3])
+    return reg, start_server(
+        repo, None, root, "deploy", "--registry", reg.root, "--reload-poll",
+        "0.2", "--canary", DEPLOY_CANARY, "--slo", DEPLOY_SLO,
+        "--admin-token", ADMIN_TOKEN, "--buckets", DEPLOY_BUCKETS,
+        "--timeout", "60")
+
+
+def registry_canary(arts, seed, root, vocab, reg, server):
+    """(a) over HTTP, against ``registry_server``'s server: setting the
+    ``canary`` label ramps a canary to promotion, a NaN canary is rolled
+    back once and the labels are restored; ``/stats`` reports no
+    retrace."""
+    import numpy as np
+
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        artifact_version,
+        load_manifest,
+    )
+
+    v = {s: artifact_version(load_manifest(a)) for s, a in arts.items()}
+    statuses = {}
+
+    last_note = [time.monotonic()]
+
+    def router():
+        st = get_json(url + "/stats")["router"]
+        if time.monotonic() - last_note[0] > 10:
+            last_note[0] = time.monotonic()
+            log(f"phase 17 (a) router: {json.dumps(st)[:1500]}; client "
+                f"statuses {statuses}")
+        return st
+
+    def settled(key):
+        # a promote or a rollback, whichever comes: either ends the wait
+        st = router()
+        return st["promotes"] + st["rollbacks"] > counts[key]
+
+    def load(seconds, until=None):
+        res = http_rows(url, rows, seconds, clients=DEPLOY_CLIENTS // 2,
+                        until=until)
+        for k, n in res.get("statuses", {}).items():
+            statuses[k] = statuses.get(k, 0) + n
+
+    try:
+        url = server_url(server)
+        rows = [r.tolist() for r in token_rows(
+            np.random.RandomState(seed), 16, DEPLOY_ROW_LEN, vocab)]
+        counts = {"promote": 0, "rollback": 1}
+        load(2.0)  # the stable side's window
+        t0 = time.perf_counter()
+        reg.label("canary", v[2])
+        load(120.0, until=lambda: settled("promote"))
+        promote_s = time.perf_counter() - t0
+        log(f"phase 17 (a) promote after {promote_s:.1f} s: {router()}")
+        st = router()
+        if st["promotes"] != 1 or st["stable"]["version"] != v[2] \
+                or st["canary"] is not None \
+                or reg.labels() != {"stable": v[2]}:
+            fail(f"phase 17 (a) the canary did not promote: router {st}, "
+                 f"labels {reg.labels()}: {server_log(server)[-3000:]}")
+        load(2.0)  # the new stable side's window
+        t0 = time.perf_counter()
+        reg.label("canary", v[3])
+        load(120.0, until=lambda: settled("rollback"))
+        rollback_s = time.perf_counter() - t0
+        log(f"phase 17 (a) rollback after {rollback_s:.1f} s")
+        load(1.0)  # the gate stays quiet after the rollback
+        stats = get_json(url + "/stats")
+    finally:
+        if server["proc"].poll() is None:
+            drain_server(server)
+        else:
+            kill_server(server)
+    st = stats["router"]
+    if st["rollbacks"] != 1 or st["promotes"] != 1 or st["canary"] \
+            or st["stable"]["version"] != v[2] \
+            or reg.labels() != {"stable": v[2]} or not any(
+                "non-finite" in r for r in st["last_rollback"]["reasons"]):
+        fail(f"phase 17 (a) the NaN canary: router {st}, labels "
+             f"{reg.labels()}")
+    if stats["retraces"] != 0 or set(statuses) != {"200"}:
+        fail(f"phase 17 (a) /stats retraces {stats['retraces']}, client "
+             f"statuses {statuses}")
+    stream = read_stream(os.path.join(root, "deploy", "serving.jsonl"))
+    kinds = [(r["type"], r.get("phase")) for r in stream
+             if r.get("type") in ("canary", "promote", "rollback")]
+    if kinds != [("canary", "start"), ("canary", "ramp"), ("promote", None),
+                 ("canary", "start"), ("rollback", None)]:
+        fail(f"phase 17 (a) deployment events {kinds}")
+    steps = [r for r in stream if r.get("kind") == "step"]
+    first, lat = {}, {}
+    for r in steps:
+        first.setdefault(r["version"], r["infer_ms"])
+        lat.setdefault(r["version"], []).append(r["latency_ms"])
+    return {"promote_s": promote_s, "rollback_s": rollback_s,
+            "statuses": statuses, "requests": len(steps), "versions": v,
+            "first_infer_ms": {v[s]: first.get(v[s]) for s in v},
+            "median_infer_ms": {v[s]: median([r["infer_ms"] for r in steps
+                                              if r["version"] == v[s]])
+                                for s in v if v[s] in first},
+            "p99_latency_ms": {ver: percentile(xs, 99)
+                               for ver, xs in lat.items()},
+            "reasons": st["last_rollback"]["reasons"]}
+
+
+def generative_swap(kernels, seed, root):
+    """(b): a GptMini server with an admin token swapped over ``POST
+    /v1/admin/swap`` while a burst decodes: every request answered,
+    fenced sequences re-prefilled, decode attention 4 launches a decode
+    step, the tokens after the swap the new artifact's."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.observability.core import (
+        Telemetry,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.generate import (
+        GenerateScheduler,
+        GenerativeEngine,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.server import ServingServer
+
+    arts = deploy_artifacts(os.path.join(root, "gen"), DEPLOY_GPT, seed,
+                            fused_ln=True)
+    cfg = build_model(DEPLOY_GPT).config
+    engine = GenerativeEngine(arts[1])
+    engine.warmup()
+    tel = Telemetry()
+    records = {}
+    tel.subscribe(lambda r: records.__setitem__(r["request_id"], r)
+                  if r.get("kind") == "step" else None)
+    sched = GenerateScheduler(engine, telemetry=tel, default_timeout_s=120.0)
+    server = ServingServer(engine, None, port=0, generator=sched,
+                           admin_token=ADMIN_TOKEN)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    rng = np.random.RandomState(seed)
+    longest = engine.seq_buckets[-1] - DEPLOY_NEW_TOKENS
+    prompts = [rng.randint(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in np.linspace(5, longest, 8)]
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = post(url + "/v1/generate",
+                          {"inputs": [prompts[i]],
+                           "max_new_tokens": DEPLOY_NEW_TOKENS})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    try:
+        kernels.reset_launch_counts()
+        steps0 = engine.decode_steps
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120.0
+        while engine.decode_steps - steps0 < 4 \
+                and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        t0 = time.perf_counter()
+        swapped = post(url + "/v1/admin/swap", {"artifact": arts[2]},
+                       headers={"X-Admin-Token": ADMIN_TOKEN})
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        for t in threads:
+            t.join(timeout=300)
+        after = post(url + "/v1/generate",
+                     {"inputs": [prompts[3]],
+                      "max_new_tokens": DEPLOY_NEW_TOKENS})
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        decode_steps = engine.decode_steps - steps0
+        refenced = sched.refenced_total
+    finally:
+        sched.close()
+        server.close()
+    new = engine.version
+    if swapped[0] != 200 or swapped[1].get("version") != new \
+            or engine.swaps != 1:
+        fail(f"phase 17 (b) admin swap: {swapped[:2]}")
+    for i, r in enumerate(results + [after]):
+        if r is None or r[0] != 200 or len(r[1]["outputs"][0]) \
+                != DEPLOY_NEW_TOKENS:
+            fail(f"phase 17 (b) request {i}: {r and r[:2]}")
+    if after[1]["versions"] != [new]:
+        fail(f"phase 17 (b) a request after the swap served by "
+             f"{after[1]['versions']}")
+    if launches["decode_attention"] != cfg.num_layers * decode_steps \
+            or launches["layer_norm"] < 1:
+        fail(f"phase 17 (b) {decode_steps} decode steps launched "
+             f"{launches}, not {cfg.num_layers} decode launches a step")
+    fenced = [(prompts[i], r[1]["outputs"][0]) for i, r in
+              enumerate(results)
+              if records[r[1]["request_ids"][0]].get("refences")]
+    if refenced < 1 or len(fenced) < 1 or engine.fence_violations \
+            or engine.retraces():
+        fail(f"phase 17 (b) refenced {refenced}, fenced responses "
+             f"{len(fenced)}, fence_violations {engine.fence_violations}, "
+             f"retraces {engine.retraces()}")
+    # the tokens after the swap: the new artifact's plain full recompute
+    plain = build_model(DEPLOY_GPT, fused_ln=True, use_kernels=False)
+    plain.load_state_dict(engine.model.state_dict())
+    plain = plain.cuda().eval()
+    prompt, toks = prompts[3], after[1]["outputs"][0]
+    with torch.inference_mode():
+        ref = plain(torch.as_tensor([prompt + toks], device="cuda")
+                    )[0].float().cpu().numpy()
+    bucket = engine.select_seq_bucket(len(prompt) + DEPLOY_NEW_TOKENS)
+    logits, kvs, _ = engine.prefill(np.asarray(prompt, np.int32))
+    logit_err = float(np.abs(logits - ref[len(prompt) - 1]).max())
+    slot = engine.pools[bucket].alloc(engine.epoch)
+    engine.insert(bucket, slot, kvs)
+    for i, tok in enumerate(toks[:-1]):
+        pos = len(prompt) + i
+        step, _ = engine.decode(bucket, [slot], [tok], [pos])
+        logit_err = max(logit_err, float(np.abs(step[0] - ref[pos]).max()))
+    engine.pools[bucket].free(slot)
+    # a fenced request's last token came after its re-prefill: the new
+    # weights' argmax on its context wherever the top two stand apart
+    agree = clear = 0
+    with torch.inference_mode():
+        for p, out in fenced:
+            z = plain(torch.as_tensor([p + out[:-1]], device="cuda")
+                      )[0, -1].float().cpu().numpy()
+            top = np.sort(z)[-2:]
+            if top[1] - top[0] > 2 * LOGITS_TOL:
+                clear += 1
+                agree += int(int(np.argmax(z)) == out[-1])
+    ref_argmax = [int(t) for t in np.argmax(ref[len(prompt) - 1:-1], -1)]
+    if not logit_err <= LOGITS_TOL or agree != clear \
+            or ref_argmax != toks:
+        fail(f"phase 17 (b) after the swap: logits vs the plain full "
+             f"recompute max abs err {logit_err} (tol {LOGITS_TOL}), "
+             f"tokens {toks} vs its argmax {ref_argmax}; fenced last "
+             f"tokens {agree} of {clear} agree")
+    del plain, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "decode_steps": decode_steps,
+            "refenced": refenced, "fenced_responses": len(fenced),
+            "fenced_checked": clear, "swap_ms": swap_ms,
+            "logit_err": logit_err,
+            "versions": sorted({r[1]["versions"][0] for r in results})}
+
+
+def frontend_spawn(root, resnet_art):
+    """(c)'s frontend, the one ``serve frontend`` builds, with two
+    ResNet-18 f32 ``serve run`` replicas spawned on the card. The lease
+    is 10 s: a replica busy with all the load while the other restarts
+    may answer ``/readyz`` late for a few seconds (a lease of 2 s declared
+    such a replica down on the card); a killed replica is declared down
+    when its process exits, whatever the lease."""
+    from pytorch_distributed_nn_tpu_torch.serving.frontend import (
+        Frontend,
+        frontend_telemetry,
+    )
+
+    tel = frontend_telemetry(os.path.join(root, "fe", "serve"))
+    fe = Frontend(os.path.join(root, "fe"), telemetry=tel, timeout_s=30.0,
+                  poll_s=0.1, lease_s=10.0, breaker_cooldown_s=1.0,
+                  max_inflight=64)
+    for name in ("r0", "r1"):
+        fe.spawn_replica(name, resnet_art,
+                         serve_args=["--buckets", DEPLOY_BUCKETS,
+                                     "--timeout", "30"])
+    fe.start()
+    return fe, tel, time.perf_counter()
+
+
+def frontend_failover(seed, root, resnet_art, spawned):
+    """(c) over ``frontend_spawn``'s frontend, under 8 clients: a
+    SIGKILLed replica costs no client a failure and is declared down
+    once, its breaker opens once, it rejoins after the respawn; a
+    rolling restart loses no request; past ``max_inflight`` the frontend
+    sheds with 429 and Retry-After."""
+    fe, tel, t0 = spawned
+    serve_dir = os.path.join(root, "fe", "serve")
+    rows = image_rows(seed, resnet_art)
+    try:
+        fe.wait_ready(timeout=300.0)
+        ready_s = time.perf_counter() - t0
+        log(f"phase 17 (c) replicas ready {ready_s:.1f} s after their "
+            f"spawn")
+        url = f"http://{fe.host}:{fe.port}"
+        holder = {}
+        t = threading.Thread(target=lambda: holder.update(
+            kill=http_rows(url, rows, 4.0)))
+        t.start()
+        time.sleep(1.5)
+        t_kill, kill_wall = time.perf_counter(), time.time()
+        fe.kill_replica("r0")
+        while time.perf_counter() - t_kill < 30 and [
+                r["state"] for r in fe.state()["replicas"]
+                if r["name"] == "r0"] != ["down"]:
+            time.sleep(0.001)
+        failover_ms = (time.perf_counter() - t_kill) * 1e3
+        t.join(timeout=120)
+        # the rolling restart respawns the killed replica first, then
+        # drains and respawns the other
+        t = threading.Thread(target=lambda: holder.update(
+            rolling=http_rows(url, rows, 600.0, until=lambda: "done" in
+                              holder)))
+        t.start()
+        t0 = time.perf_counter()
+        fe.rolling_restart(wait_ready_s=300.0)
+        rolling_s = time.perf_counter() - t0
+        holder["done"] = True
+        t.join(timeout=120)
+        # past the bound: 16 concurrent requests against 2 slots
+        fe.max_inflight = 2
+        barrier = threading.Barrier(16)
+        shed = []
+
+        def one():
+            barrier.wait()
+            shed.append(post(url + "/v1/infer", {"inputs": [rows[0]]}))
+
+        burst = [threading.Thread(target=one) for _ in range(16)]
+        for b in burst:
+            b.start()
+        for b in burst:
+            b.join(timeout=120)
+        state = fe.state()
+    finally:
+        fe.close(drain=True)
+        tel.close()
+    for what in ("kill", "rolling"):
+        r = holder.get(what) or {}
+        if r.get("failed") != 0 or r.get("ok") != r.get("submitted") \
+                or not r.get("ok"):
+            fail(f"phase 17 (c) the {what} window: {r}")
+    codes = sorted(s for s, _, _ in shed)
+    if not set(codes) <= {200, 429} or 429 not in codes or any(
+            int(h.get("Retry-After", 0)) < 1 for s, _, h in shed
+            if s == 429):
+        fail(f"phase 17 (c) past max_inflight: statuses {codes}")
+    events = {}
+    for r in read_stream(os.path.join(serve_dir, "serving.jsonl")):
+        if r.get("kind") == "event":
+            events.setdefault(r["type"], []).append(r)
+    downs = [e["replica"] for e in events.get("replica_down", [])]
+    opens = [e["replica"] for e in events.get("breaker_open", [])]
+    rejoins = [e["replica"] for e in events.get("replica_up", [])
+               if e.get("rejoin")]
+    if downs != ["r0"] or opens != ["r0"] or rejoins[:1] != ["r0"]:
+        fail(f"phase 17 (c) replica_down {downs}, breaker_open {opens}, "
+             f"replica_up rejoins {rejoins}")
+    # SIGKILL to the killed replica's rejoin, inside the rolling restart
+    respawn_s = next(e["time"] for e in events["replica_up"]
+                     if e.get("rejoin")) - kill_wall
+    return {"ready_s": ready_s, "failover_ms": failover_ms,
+            "respawn_s": respawn_s, "rolling_s": rolling_s,
+            "kill": holder["kill"], "rolling": holder["rolling"],
+            "shed": codes.count(429), "hedges": state["hedges"],
+            "retried": state["retried"], "forwarded": state["forwarded"],
+            "rejoins": rejoins}
+
+
+def slo_server(repo, root, resnet_art):
+    """(d)'s ``serve run --slo --flightrec --faults slow_infer``."""
+    return start_server(repo, resnet_art, root, "deploy_slo", "--slo",
+                        DEPLOY_FAULT_SLO, "--flightrec", "slo_breach",
+                        "--faults", DEPLOY_FAULTS, "--buckets",
+                        DEPLOY_BUCKETS)
+
+
+def slo_incident(seed, repo, root, resnet_art, server):
+    """(d) over ``slo_server``'s server: one ``slo_breach`` and one
+    incident bundle; the port's ``obs slo check`` and ``obs summary``
+    read the stream, and its ``obs export`` writes an exposition that
+    validates."""
+    from pytorch_distributed_nn_tpu_torch.observability import promexport
+
+    serve_dir = os.path.join(root, "deploy_slo")
+    rows = image_rows(seed, resnet_art)
+    try:
+        url = server_url(server)
+        res = http_rows(url, rows, 6.0, clients=4)
+        stats = get_json(url + "/stats")
+    finally:
+        if server["proc"].poll() is None:
+            drain_server(server)
+        else:
+            kill_server(server)
+    stream = read_stream(os.path.join(serve_dir, "serving.jsonl"))
+    breaches = [r for r in stream if r.get("type") == "slo_breach"]
+    incidents = [r for r in stream if r.get("type") == "incident"]
+    bundles = sorted(os.listdir(os.path.join(serve_dir, "incidents"))) \
+        if os.path.isdir(os.path.join(serve_dir, "incidents")) else []
+    if res.get("failed") or len(breaches) != 1 or len(bundles) != 1 \
+            or not stats["slo"][0]["breaches"]:
+        fail(f"phase 17 (d) load {res.get('statuses')}; slo_breach events "
+             f"{len(breaches)}, incident events {len(incidents)}, bundles "
+             f"{bundles}, /stats slo {stats['slo']}")
+    out = {}
+    for name, args, rc in (
+            ("slo", ["obs", "slo", "check", serve_dir, "--slo",
+                     DEPLOY_FAULT_SLO], 1),
+            ("summary", ["obs", "summary", serve_dir], 0),
+            ("export", ["obs", "export", serve_dir, "--out",
+                        os.path.join(serve_dir, "metrics.prom")], 0)):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch",
+             *args], cwd=repo, capture_output=True, text=True, timeout=120)
+        if proc.returncode != rc:
+            fail(f"phase 17 (d) {' '.join(args[:2])} exited "
+                 f"{proc.returncode} (want {rc}): {proc.stdout[-2000:]} "
+                 f"{proc.stderr[-2000:]}")
+        out[name] = proc.stdout
+    with open(os.path.join(serve_dir, "metrics.prom")) as f:
+        problems = promexport.validate_exposition(f.read())
+    if problems or "burned past budget" not in out["slo"] \
+            or "serving" not in out["summary"]:
+        fail(f"phase 17 (d) exposition problems {problems}; obs slo check: "
+             f"{out['slo'][-1500:]}; obs summary: {out['summary'][-1500:]}")
+    return {"statuses": res.get("statuses"), "bundles": bundles,
+            "breach": {k: breaches[0].get(k) for k in
+                       ("slo", "burn_rate", "burn_rate_short")},
+            "slo_check": out["slo"].strip().splitlines()[-1]}
+
+
+def deploy_phase(kernels, seed, smi, repo, root, resnet_art):
+    """Phase 17: (a) the registry, the canary router and its shadow
+    engine on BertBase bf16, (b) a generative admin swap mid-burst, (c)
+    the frontend over spawned ResNet-18 replicas, (d) an SLO breach and
+    its incident bundle. Returns the launches of its counted paths."""
+    t_phase = time.perf_counter()
+    droot = os.path.join(root, "deploy")
+    t0 = time.perf_counter()
+    arts = deploy_artifacts(droot, DEPLOY_BERT, seed, poison=(3,),
+                            dtype="bfloat16")
+    artifacts_s = time.perf_counter() - t0
+    log(f"phase 17 artifacts written in {artifacts_s:.3f} s")
+    # (a)'s server warms while this process checks the engines; (c)'s
+    # replicas and (d)'s server start after those checks, and each waits
+    # idle for its own load
+    reg, deploy_server = registry_server(arts, repo, root)
+    spawned = server = None
+    try:
+        shadow = shadow_checks(kernels, arts, seed)
+        log(f"phase 17 (a) in-process checks done at "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        spawned = frontend_spawn(root, resnet_art)
+        server = slo_server(repo, root, resnet_art)
+        # (c) runs beside (a) and (b): its replicas and frontend are other
+        # processes and threads, and its checks are counts and events
+        fe_box = {}
+
+        def run_frontend():
+            try:
+                fe_box["fe"] = frontend_failover(seed, root, resnet_art,
+                                                 spawned)
+            except BaseException as e:  # fail() in the thread: below
+                fe_box["error"] = repr(e)
+            log(f"phase 17 (c) done at "
+                f"{time.perf_counter() - t_phase:.1f} s")
+
+        fe_thread = threading.Thread(target=run_frontend, daemon=True)
+        fe_thread.start()
+        canary = registry_canary(arts, seed, root, shadow["vocab"], reg,
+                                 deploy_server)
+        log(f"phase 17 (a) registry and canary done at "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        gen = generative_swap(kernels, seed, root)
+        log(f"phase 17 (b) done at {time.perf_counter() - t_phase:.1f} s")
+        fe_thread.join(timeout=900)
+        if "fe" not in fe_box:
+            fail(f"phase 17 (c): {fe_box.get('error', 'no result')}")
+        fe = fe_box["fe"]
+        slo_run = slo_incident(seed, repo, root, resnet_art, server)
+    finally:
+        if spawned is not None:
+            spawned[0].close()  # a no-op after (c) closed it
+            spawned[1].close()
+        for s in (deploy_server, server):
+            if s is not None and s["proc"].poll() is None:
+                kill_server(s)
+    phase_s = time.perf_counter() - t_phase
+    v = canary["versions"]
+    log(f"phase 17 (a) registry and canary, BertBase bf16 ({smi}): 3 "
+        f"artifacts written in {artifacts_s:.3f} s; in this process the "
+        f"stable engine and its shadow {shadow['launches']} (= 1 batch x "
+        f"{shadow['per_batch']} layer_norm each), TF32 off in the shadow's "
+        f"forwards, the shadow's and the swapped engine's logits a fresh "
+        f"engine's bit for bit; shadow built in {shadow['shadow_ms']:.3f} "
+        f"ms; swap load {shadow['swap']['load']:.3f} ms, lock held "
+        f"{shadow['swap']['lock']:.6f} ms")
+    log(f"phase 17 (a) serve run --registry --reload-poll 0.2 --canary "
+        f"{DEPLOY_CANARY} --slo {DEPLOY_SLO} ({smi}): canary {v[2]} "
+        f"promoted {canary['promote_s']:.3f} s after its label, NaN canary "
+        f"{v[3]} rolled back once {canary['rollback_s']:.3f} s after its "
+        f"label ({canary['reasons']}), labels restored; "
+        f"{canary['requests']} requests, statuses {canary['statuses']}, "
+        f"retraces 0; first-batch infer_ms by version "
+        f"{canary['first_infer_ms']}, median {canary['median_infer_ms']}, "
+        f"p99 latency ms {canary['p99_latency_ms']}")
+    log(f"phase 17 (b) generative admin swap, GptMini ({smi}): swap over "
+        f"POST /v1/admin/swap {gen['swap_ms']:.3f} ms mid-burst; "
+        f"{gen['refenced']} sequences fenced and re-prefilled "
+        f"({gen['fenced_responses']} responses, last tokens checked where "
+        f"the top two logits stand apart: {gen['fenced_checked']}); "
+        f"versions {gen['versions']}; launches {gen['launches']} "
+        f"({gen['decode_steps']} decode steps x 4); after the swap logits "
+        f"vs the new artifact's plain full recompute max abs err "
+        f"{gen['logit_err']:.3e} (tol {LOGITS_TOL})")
+    log(f"phase 17 (c) frontend over 2 ResNet-18 f32 replicas ({smi}): "
+        f"ready {fe['ready_s']:.3f} s after their spawn (before (a)'s HTTP "
+        f"part; (c) runs beside (a) and (b)); SIGKILL r0 under "
+        f"{DEPLOY_CLIENTS} clients: {fe['kill']['ok']} of "
+        f"{fe['kill']['submitted']} answered 200, failed "
+        f"{fe['kill']['failed']}, failover {fe['failover_ms']:.3f} ms, "
+        f"rejoin {fe['respawn_s']:.3f} s after the SIGKILL (its respawn "
+        f"the first step of the rolling restart); rolling restart "
+        f"{fe['rolling_s']:.3f} s: {fe['rolling']['ok']} of "
+        f"{fe['rolling']['submitted']} 200, failed "
+        f"{fe['rolling']['failed']}; past max_inflight 2: {fe['shed']} of "
+        f"16 shed with 429 and Retry-After; hedges {fe['hedges']}, retried "
+        f"{fe['retried']}, forwarded {fe['forwarded']}")
+    log(f"phase 17 (d) serve run --slo {DEPLOY_FAULT_SLO} --flightrec "
+        f"slo_breach --faults {DEPLOY_FAULTS} ({smi}): statuses "
+        f"{slo_run['statuses']}; one slo_breach {slo_run['breach']}; "
+        f"bundle {slo_run['bundles']}; obs slo check: "
+        f"{slo_run['slo_check']!r}; metrics.prom validates")
+    log(f"phase 17 seconds ({smi}): {phase_s:.3f}")
+    launches = {"layer_norm": sum(c.get("layer_norm", 0) for c in
+                                  shadow["launches"].values())
+                + gen["launches"]["layer_norm"],
+                "decode_attention": gen["launches"]["decode_attention"]}
+    return {"seconds": phase_s, "launches": launches, "shadow": shadow,
+            "canary": canary, "generate": gen, "frontend": fe,
+            "slo": slo_run}
+
+
 def step_times(which, seed):
     """Step ms of the training paths of the checkout beside this script,
     as phases 5 and 7 train them: BertBase (bf16, and f32 with
@@ -4806,12 +5574,13 @@ def serve_bench_runs(repo, seed, runs):
     return out
 
 
-def post(url, doc, timeout=120.0):
+def post(url, doc, timeout=120.0, headers=None):
     """(status, JSON body, headers) of a POST; an HTTP error status is a
     result, not an exception."""
     req = urllib.request.Request(
         url, data=json.dumps(doc).encode(),
-        headers={"Content-Type": "application/json"}, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST",
     )
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -5109,7 +5878,7 @@ def main() -> int:
         fail(f"fence_violations = {engine.fence_violations}")
 
     # one request's served logits vs a full-recompute plain forward
-    plain = build_model("GptMini", fused_ln=True, use_kernels=False)
+    plain = build_model(DEPLOY_GPT, fused_ln=True, use_kernels=False)
     plain.load_state_dict(model.state_dict())
     plain = plain.cuda().eval()
     prompt, toks = prompts[3], results[3][1]["outputs"][0]
@@ -5456,10 +6225,15 @@ def main() -> int:
         mark("16")
         spmd_run = spmd_phase(kernels, reference, args.seed, smi, repo,
                               root, bert["step_ms"])
+        # -- 17. the deployment lifecycle and the replicated frontend -----
+        mark("17")
+        deploy = deploy_phase(kernels, args.seed, smi, repo, root,
+                              os.path.join(root, "resnet_artifact_none"))
     report["serving"] = serving
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
-                  tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run)
+                  tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run,
+                  deploy=deploy)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
@@ -5523,7 +6297,8 @@ def main() -> int:
                           + prof["launches"].get(e["name"], 0)
                           + sync["launches"].get(e["name"], 0)
                           + stream["launches"].get(e["name"], 0)
-                          + spmd_run["launches"].get(e["name"], 0))
+                          + spmd_run["launches"].get(e["name"], 0)
+                          + deploy["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(

@@ -41,9 +41,8 @@ valid checkpoint (elastic across a changed world size;
 an emergency checkpoint and exit 0; ``--skip-nonfinite`` skips
 non-finite updates; ``--faults SPEC`` injects the fault plan,
 ``--flightrec SPEC`` arms the flight recorder and ``--profile N`` traces
-N steps with ``torch.profiler``. A flag the port cannot honour yet
-raises, naming the ROADMAP item that ports it. Training runs on the card
-unless ``--device cpu`` is given, and fails without one.
+N steps with ``torch.profiler``. Training runs on the card unless
+``--device cpu`` is given, and fails without one.
 
     python -m pytorch_distributed_nn_tpu_torch single [train flags]
 
@@ -101,10 +100,36 @@ anything was built after warmup; ``smoke`` is the few-second serving
 gate. The serving commands run on the card unless ``--device cpu`` is
 given, and fail without one. ``serve run --faults SPEC`` injects the
 fault plan's serving kinds (``slow_infer``, ``conn_reset``, ``http_503``,
-keyed by request count; a spec without one is refused). Its flags that
-belong to a later ROADMAP item (``--registry``, ``--reload-poll``,
-``--canary``, ``--admin-token``, ``--slo``, ``--flightrec``, ``serve
-frontend``) raise, naming the item.
+keyed by request count; a spec without one is refused).
+
+The deployment lifecycle, with the JAX package's flags and refusals:
+``serve run --registry R`` resolves ``--artifact`` as a version or a
+label (``stable`` when omitted); ``--reload-poll S`` follows the
+registry's labels (a moved ``stable`` hot-swaps, a set ``canary`` starts
+a ramp; it needs ``--registry``); ``--canary SPEC`` is the ramp and gate
+policy (``ramp=5:25:50,stage=200,threshold=0.5,window=400,min=50,
+nonfinite=0``); ``--admin-token T`` opens ``POST /v1/admin/swap``;
+``--slo SPEC`` runs the live SLO engine (status on ``GET /stats``,
+``slo_breach`` events); ``--flightrec SPEC`` arms the flight recorder over
+the serving stream. A generative artifact refuses ``--canary`` and
+``--reload-poll`` (its admin swap is the KV-fenced direct swap).
+
+    python -m pytorch_distributed_nn_tpu_torch serve frontend --artifact A \
+        [--replicas 2] [--attach H:P,...] [--max-inflight 256] [--device D]
+
+spawns N ``serve run`` replicas (each with ``--device D``) and routes
+over them with admission control, per-replica circuit breakers, hedged
+retries and zero-downtime drain; the frontend process imports no torch.
+
+    python -m pytorch_distributed_nn_tpu_torch registry \
+        {publish|list|label|rollback|gc|watch|verify} --registry R ...
+    python -m pytorch_distributed_nn_tpu_torch obs \
+        {summary|tail|compare|trace|bench-trend|slo|export|incidents} ...
+
+are the registry of serving artifacts (``registry.json`` in the JAX
+package's ``pdtn-registry-v1`` format; ``--selftest`` checks its
+invariants) and the stream tools over ``telemetry.jsonl`` and
+``serving.jsonl`` (host-side: no card).
 """
 
 from __future__ import annotations
@@ -117,13 +142,6 @@ import sys
 import threading
 from typing import Optional, Sequence
 
-
-_ITEM6 = "ROADMAP Queue 1 item 6 (router, frontend, registry, SLOs)"
-
-#: ``serve run`` flags of later items: flag -> the item that ports it
-_SERVE_LATER = {"registry": _ITEM6, "reload_poll": _ITEM6,
-                "canary": _ITEM6, "admin_token": _ITEM6, "slo": _ITEM6,
-                "flightrec": _ITEM6}
 
 
 def _buckets(text: Optional[str]):
@@ -182,21 +200,33 @@ def _fault_injector(plan, telemetry, engine):
 
 def _serve_run(args) -> int:
     from pytorch_distributed_nn_tpu_torch.models import is_generative_model
+    from pytorch_distributed_nn_tpu_torch.observability.detect import (
+        DetectorSpec,
+    )
+    from pytorch_distributed_nn_tpu_torch.observability.slo import (
+        SLOEngine,
+        parse_slos,
+    )
     from pytorch_distributed_nn_tpu_torch.serving.artifact import (
         load_manifest,
     )
     from pytorch_distributed_nn_tpu_torch.serving.loadgen import (
         serving_telemetry,
     )
+    from pytorch_distributed_nn_tpu_torch.serving.router import CanaryPolicy
     from pytorch_distributed_nn_tpu_torch.serving.server import ServingServer
 
-    later = [f for f in _SERVE_LATER if getattr(args, f) is not None]
-    if later:
-        raise NotImplementedError(
-            f"serve run --{later[0].replace('_', '-')} is not ported yet: "
-            f"{_SERVE_LATER[later[0]]}")
+    # every spec is parsed before the engine pays its warmup
+    try:
+        slos = parse_slos(args.slo) if args.slo else None
+        frspec = (DetectorSpec.parse(args.flightrec) if args.flightrec
+                  else None)
+        policy = CanaryPolicy.parse(args.canary, slo=args.slo)
+    except ValueError as e:
+        print(f"serve run: {e}", file=sys.stderr)
+        return 2
     fault_plan = None
-    if args.faults:  # parsed before the engine pays its warmup
+    if args.faults:
         from pytorch_distributed_nn_tpu_torch.resilience.faults import (
             FaultPlan,
         )
@@ -211,26 +241,65 @@ def _serve_run(args) -> int:
         except ValueError as e:
             print(f"serve run: {e}", file=sys.stderr)
             return 2
+    registry, artifact = None, args.artifact
+    if args.registry:
+        from pytorch_distributed_nn_tpu_torch.serving.registry import (
+            Registry,
+            RegistryError,
+        )
+
+        registry = Registry(args.registry)
+        try:
+            # a version id or a label; omitted: the stable label
+            if artifact is None:
+                artifact = registry.resolve("stable")["artifact"]
+            elif not os.path.isdir(artifact):
+                artifact = registry.resolve(artifact)["artifact"]
+        except RegistryError as e:
+            print(f"serve run: {e}", file=sys.stderr)
+            return 2
+    elif artifact is None:
+        print("serve run: --artifact is required without --registry",
+              file=sys.stderr)
+        return 2
+    if args.reload_poll is not None and registry is None:
+        print("serve run: --reload-poll needs --registry", file=sys.stderr)
+        return 2
+    generative = is_generative_model(
+        load_manifest(artifact).get("network", ""))
+    if generative and (args.canary or args.reload_poll is not None):
+        print("serve run: canary/label-follow is not wired for generative "
+              "artifacts — use /v1/admin/swap (KV-fenced hot swap)",
+              file=sys.stderr)
+        return 2
     max_queue = args.max_queue if args.max_queue > 0 else None
-    serve_dir = args.serve_dir or os.path.join(args.artifact, "serve")
+    serve_dir = args.serve_dir or os.path.join(artifact, "serve")
     os.makedirs(serve_dir, exist_ok=True)
     buckets = _buckets(args.buckets or args.batch_buckets)
     kw = {"batch_buckets": buckets} if buckets else {}
-    if is_generative_model(load_manifest(args.artifact).get("network", "")):
+    extra = {"slo": args.slo} if args.slo else {}
+    closers = []  # closed in reverse order after the serve loop
+    if generative:
         from pytorch_distributed_nn_tpu_torch.serving.generate import (
             GenerateScheduler,
             GenerativeEngine,
         )
 
-        engine = GenerativeEngine(args.artifact, device=args.device, **kw)
+        engine = GenerativeEngine(artifact, device=args.device, **kw)
         engine.warmup()
         telemetry = serving_telemetry(serve_dir, engine,
-                                      extra={"generative": True})
+                                      extra={"generative": True, **extra})
+        closers.append(telemetry)
+        slo_engine = (SLOEngine(slos, telemetry=telemetry)
+                      if slos is not None else None)
+        closers.append(slo_engine)
         faults = _fault_injector(fault_plan, telemetry, engine)
         sched = GenerateScheduler(engine, telemetry=telemetry,
                                   default_timeout_s=args.timeout,
                                   max_queue=max_queue)
+        closers.append(sched)
         server = ServingServer(engine, None, host=args.host, port=args.port,
+                               slo=slo_engine, admin_token=args.admin_token,
                                generator=sched, faults=faults)
         what = "GENERATIVE "
     else:
@@ -238,32 +307,135 @@ def _serve_run(args) -> int:
         from pytorch_distributed_nn_tpu_torch.serving.engine import (
             InferenceEngine,
         )
+        from pytorch_distributed_nn_tpu_torch.serving.router import (
+            CanaryRouter,
+            RegistryWatcher,
+        )
 
-        engine = InferenceEngine(args.artifact, device=args.device, **kw)
+        engine = InferenceEngine(artifact, device=args.device, **kw)
         engine.warmup()
-        telemetry = serving_telemetry(serve_dir, engine)
+        telemetry = serving_telemetry(serve_dir, engine, extra=extra)
+        closers.append(telemetry)
+        slo_engine = (SLOEngine(slos, telemetry=telemetry)
+                      if slos is not None else None)
+        closers.append(slo_engine)
+        recorder = None
+        if frspec is not None:
+            from pytorch_distributed_nn_tpu_torch.observability.flightrec \
+                import FlightRecorder
+
+            recorder = FlightRecorder(serve_dir, telemetry, frspec)
+            closers.append(recorder)
         faults = _fault_injector(fault_plan, telemetry, engine)
-        sched = Batcher(engine, telemetry=telemetry,
-                        batch_window_s=args.batch_window_ms / 1000.0,
-                        default_timeout_s=args.timeout, max_queue=max_queue)
-        server = ServingServer(engine, sched, host=args.host,
-                               port=args.port, faults=faults)
+        batcher = Batcher(
+            engine, telemetry=telemetry,
+            batch_window_s=args.batch_window_ms / 1000.0,
+            default_timeout_s=args.timeout, max_queue=max_queue,
+            # the flight recorder opens and closes captures at batch
+            # boundaries (request ids as its steps)
+            on_batch=recorder.tick if recorder is not None else None)
+        closers.append(batcher)
+        router = CanaryRouter(batcher, telemetry=telemetry,
+                              registry=registry, policy=policy)
+        closers.append(router)
+        if args.reload_poll is not None:
+            watcher = RegistryWatcher(registry, router,
+                                      poll_s=args.reload_poll)
+            watcher.start()
+            closers.append(watcher)
+        server = ServingServer(engine, router, host=args.host,
+                               port=args.port, slo=slo_engine,
+                               router=router, admin_token=args.admin_token,
+                               faults=faults)
         what = ""
-    print(f"serving {what}{args.artifact} on "
+    print(f"serving {what}{artifact} on "
           f"http://{server.host}:{server.port} ({engine.device}; stream: "
           f"{serve_dir})", file=sys.stderr)
+    if registry is not None:
+        print(f"registry: {args.registry}"
+              + (f" (label follow every {args.reload_poll:g}s)"
+                 if args.reload_poll is not None else ""), file=sys.stderr)
     try:
         _serve_loop(server, port_file=args.port_file)
     finally:
-        sched.close()
+        for obj in reversed(closers):
+            if obj is not None:
+                obj.close()
+    return 0
+
+
+def _serve_frontend(args) -> int:
+    """``serve frontend``: the replicated frontend over spawned ``serve
+    run`` replicas (or attached ones). SIGTERM drains every replica before
+    exiting; SIGINT stops at once. Imports no torch."""
+    from pytorch_distributed_nn_tpu_torch.serving.frontend import (
+        Frontend,
+        frontend_telemetry,
+    )
+
+    workdir = args.workdir or os.path.join(args.artifact, "frontend")
+    serve_dir = args.serve_dir or os.path.join(workdir, "serve")
+    telemetry = frontend_telemetry(serve_dir, extra={
+        "artifact": args.artifact,
+        "replicas": args.replicas if not args.attach else None,
+        "attach": args.attach,
+        "max_inflight": args.max_inflight,
+        "device": args.device,
+    })
+    fe = Frontend(
+        workdir, telemetry=telemetry, host=args.host, port=args.port,
+        timeout_s=args.timeout,
+        max_inflight=args.max_inflight if args.max_inflight > 0 else None,
+        retries=args.retries, hedge_ms=args.hedge_ms,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown,
+        lease_s=args.lease, poll_s=args.poll,
+        replica_max_queue=(args.replica_max_queue
+                           if args.replica_max_queue > 0 else None),
+        device=args.device)
+    try:
+        if args.attach:
+            for i, hp in enumerate(args.attach.split(",")):
+                host, port = hp.rsplit(":", 1)
+                fe.attach_replica(f"r{i}", host, int(port))
+        else:
+            for i in range(args.replicas):
+                fe.spawn_replica(f"r{i}", args.artifact)
+        fe.start()
+        fe.wait_ready()
+    except Exception as e:
+        print(f"serve frontend: {e}", file=sys.stderr)
+        fe.close()
+        telemetry.close()
+        return 1
+    print(f"frontend on http://{fe.host}:{fe.port} — {len(fe.replicas)} "
+          f"replica(s) ready (stream: {serve_dir})", file=sys.stderr)
+    if args.port_file:
+        with open(args.port_file + ".tmp", "w") as f:
+            f.write(str(fe.port))
+        os.replace(args.port_file + ".tmp", args.port_file)
+    stop, drain = threading.Event(), threading.Event()
+
+    def _on_term(signum, frame):
+        drain.set()
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _on_term)
+    signal.signal(signal.SIGINT, lambda s, f: stop.set())
+    try:
+        while not stop.wait(0.2):
+            pass
+    finally:
+        if drain.is_set():
+            print("SIGTERM: draining replicas", file=sys.stderr)
+        fe.close(stop_replicas=not args.attach, drain=drain.is_set())
         telemetry.close()
     return 0
 
 
 def _serve(args) -> int:
     if args.serve_cmd == "frontend":
-        raise NotImplementedError(
-            f"serve frontend is not ported yet: {_ITEM6}")
+        return _serve_frontend(args)
     if args.serve_cmd == "smoke":
         from pytorch_distributed_nn_tpu_torch.serving.loadgen import smoke
 
@@ -328,8 +500,11 @@ def _add_serve_flags(serve: argparse.ArgumentParser) -> None:
                          "run's telemetry manifest)")
     pe.add_argument("--num-classes", type=int, default=None)
 
-    def engine_flags(sp):
-        sp.add_argument("--artifact", required=True, metavar="DIR")
+    def engine_flags(sp, artifact_required=True):
+        sp.add_argument("--artifact", required=artifact_required,
+                        metavar="DIR",
+                        help="artifact directory (serve run with "
+                             "--registry: also a version id or label)")
         sp.add_argument("--buckets", default=None, metavar="B1,B2,...",
                         help="batch buckets requests are padded up to "
                              "(default 1,2,4,8,16,32; a decoder's: its "
@@ -342,7 +517,7 @@ def _add_serve_flags(serve: argparse.ArgumentParser) -> None:
         device(sp)
 
     run = ssub.add_parser("run", help="serve an artifact over HTTP")
-    engine_flags(run)
+    engine_flags(run, artifact_required=False)
     run.add_argument("--host", default="127.0.0.1")
     run.add_argument("--port", type=int, default=8000)
     run.add_argument("--batch-buckets", default=None,
@@ -355,9 +530,27 @@ def _add_serve_flags(serve: argparse.ArgumentParser) -> None:
     run.add_argument("--faults", default=None, metavar="SPEC",
                      help="inject serving faults (slow_infer, conn_reset, "
                           "http_503; keyed by request count)")
-    for flag in _SERVE_LATER:
-        run.add_argument("--" + flag.replace("_", "-"), default=None,
-                         help=f"not ported yet: {_SERVE_LATER[flag]}")
+    run.add_argument("--registry", default=None, metavar="DIR",
+                     help="model registry: resolves --artifact by version "
+                          "or label (default: the 'stable' label) and "
+                          "takes the router's label moves")
+    run.add_argument("--reload-poll", type=float, default=None,
+                     metavar="SECS",
+                     help="with --registry: follow its labels (a moved "
+                          "'stable' hot-swaps, a set 'canary' starts a "
+                          "ramp)")
+    run.add_argument("--canary", default=None, metavar="SPEC",
+                     help="canary policy, e.g. 'ramp=5:25:50,stage=200,"
+                          "threshold=0.5,window=400,min=50,nonfinite=0'")
+    run.add_argument("--admin-token", default=None, metavar="TOKEN",
+                     help="enable POST /v1/admin/swap (X-Admin-Token); "
+                          "without it the endpoint always answers 403")
+    run.add_argument("--slo", default=None, metavar="SPEC",
+                     help="live SLO objectives, e.g. "
+                          "'lat_p99<25ms@60s,avail>99.5%%@300s'")
+    run.add_argument("--flightrec", default=None, metavar="SPEC",
+                     help="arm the flight recorder over the serving "
+                          "stream ('default' arms every detector)")
 
     pb = ssub.add_parser("bench", help="open-loop load sweep against an "
                                        "artifact (no HTTP)")
@@ -377,7 +570,41 @@ def _add_serve_flags(serve: argparse.ArgumentParser) -> None:
                      help="run under this dir and keep what it writes")
     device(psm)
 
-    ssub.add_parser("frontend", help=f"not ported yet: {_ITEM6}")
+    pfe = ssub.add_parser(
+        "frontend", help="replicated frontend over N serve run replicas: "
+                         "admission control, circuit breakers, hedged "
+                         "retries, zero-downtime drain (imports no torch)")
+    a = pfe.add_argument
+    a("--artifact", required=True, metavar="DIR")
+    a("--replicas", type=int, default=2,
+      help="local replica servers to spawn")
+    a("--attach", default=None, metavar="H:P,H:P",
+      help="attach to running replica servers instead of spawning")
+    a("--host", default="127.0.0.1")
+    a("--port", type=int, default=8000)
+    a("--workdir", default=None, metavar="DIR",
+      help="replica workdirs and logs (default <artifact>/frontend)")
+    a("--serve-dir", default=None, metavar="DIR",
+      help="the frontend's serving.jsonl (default <workdir>/serve)")
+    a("--timeout", type=float, default=5.0,
+      help="default request deadline, seconds")
+    a("--max-inflight", type=int, default=256,
+      help="forwards in flight past it are shed with 429; 0 = unbounded")
+    a("--retries", type=int, default=2,
+      help="extra attempts (hedge included) on other replicas")
+    a("--hedge-ms", type=float, default=None,
+      help="fixed hedge delay; default: observed p95, floored at 25 ms")
+    a("--breaker-threshold", type=int, default=3)
+    a("--breaker-cooldown", type=float, default=2.0)
+    a("--lease", type=float, default=2.0,
+      help="readiness lease: a replica unreachable past it is down")
+    a("--poll", type=float, default=0.2,
+      help="readiness poll interval, seconds")
+    a("--replica-max-queue", type=int, default=256,
+      help="--max-queue of each spawned replica")
+    a("--port-file", default=None, metavar="FILE",
+      help="write the bound port here once the pool is ready")
+    device(pfe)
 
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
@@ -693,6 +920,134 @@ def _data(args) -> int:
     return 0
 
 
+def main_registry(argv: Optional[Sequence[str]] = None) -> int:
+    """Model registry (serving/registry.py): versioned serving artifacts
+    with labels and rollback, in the JAX package's ``registry.json``.
+
+    - ``publish``  — register an exported artifact (CRC-verified; torn
+      artifacts are refused) under its immutable version id
+      ``<train_dir>@<step>:<quantize>``, optionally labeling it.
+    - ``list``     — entries with their labels.
+    - ``label``    — atomically point ``stable``/``canary`` at a version
+      (``-`` clears the label).
+    - ``rollback`` — restore a label's previous holder (the operator
+      undo; the canary router calls the same primitive automatically).
+    - ``gc``       — retire entries that are neither labeled nor among
+      the newest K and RELEASE their checkpoint protection in the source
+      train_dir's ``published.json``.
+    - ``watch``    — poll a directory for new exports and publish them
+      (the reference evaluator's NFS loop, pointed at exports).
+    - ``verify``   — CRC-check one entry end to end.
+    - ``--selftest`` — the registry's invariants in about a second.
+
+    Host-side json/os: no card.
+    """
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    if "--selftest" in argv:
+        from pytorch_distributed_nn_tpu_torch.serving.registry import selftest
+
+        return selftest()
+
+    import json as _json
+
+    from pytorch_distributed_nn_tpu_torch.serving.registry import (
+        Registry,
+        RegistryError,
+        render_entries,
+    )
+
+    p = argparse.ArgumentParser(
+        "pdtn-registry", description=main_registry.__doc__
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def _add(name, help):
+        sp = sub.add_parser(name, help=help)
+        sp.add_argument("--registry", required=True, metavar="DIR",
+                        help="registry root (registry.json lives here)")
+        return sp
+
+    pp = _add("publish", "register an exported artifact")
+    pp.add_argument("--artifact", required=True, metavar="DIR")
+    pp.add_argument("--label", default=None, metavar="L1,L2",
+                    help="also point these labels (stable,canary) at it")
+    pl = _add("list", "entries + labels")
+    pl.add_argument("--json", action="store_true")
+    pla = _add("label", "atomically move a label")
+    pla.add_argument("name", choices=["stable", "canary"])
+    pla.add_argument("version",
+                     help="version id to point the label at ('-' clears)")
+    prb = _add("rollback", "restore a label's previous holder")
+    prb.add_argument("--label", default="stable",
+                     choices=["stable", "canary"])
+    pg = _add("gc", "retire unlabeled old entries + release their "
+                    "checkpoint protection")
+    pg.add_argument("--keep-last", type=int, required=True, metavar="K")
+    pg.add_argument("--delete-artifacts", action="store_true",
+                    help="also remove the retired artifact directories")
+    pg.add_argument("--json", action="store_true")
+    pw = _add("watch", "poll a directory for new exports")
+    pw.add_argument("--dir", required=True, metavar="DIR",
+                    help="directory whose child artifact dirs are "
+                         "published as they appear")
+    pw.add_argument("--label", default=None, metavar="L1,L2",
+                    help="labels for every picked-up export (e.g. "
+                         "'stable' to make publishing deploy)")
+    pw.add_argument("--interval", type=float, default=5.0, metavar="SECS")
+    pw.add_argument("--max-polls", type=int, default=None,
+                    help="stop after N polls (default: forever)")
+    pv = _add("verify", "CRC-check one entry")
+    pv.add_argument("version")
+    args = p.parse_args(argv)
+
+    reg = Registry(args.registry)
+    labels = tuple(
+        s for s in (getattr(args, "label", None) or "").split(",") if s
+    ) if getattr(args, "label", None) else ()
+    try:
+        if args.cmd == "publish":
+            entry = reg.publish(args.artifact, labels=labels)
+            print(f"published {entry['version']} -> {entry['artifact']}"
+                  + (f" labels={list(labels)}" if labels else ""))
+        elif args.cmd == "list":
+            doc = reg.load()
+            print(_json.dumps(doc, indent=2, sort_keys=True)
+                  if args.json else render_entries(doc))
+        elif args.cmd == "label":
+            version = None if args.version == "-" else args.version
+            print(reg.label(args.name, version))
+        elif args.cmd == "rollback":
+            frm, to = reg.rollback(args.label)
+            print(f"rolled back {args.label}: {frm} -> {to}")
+        elif args.cmd == "gc":
+            res = reg.gc(args.keep_last,
+                         delete_artifacts=args.delete_artifacts)
+            print(_json.dumps(res) if args.json else
+                  f"retired {len(res['retired'])} entr(ies) "
+                  f"{res['retired']}; kept {res['kept']}")
+        elif args.cmd == "watch":
+            import time as _time
+
+            polls = 0
+            while args.max_polls is None or polls < args.max_polls:
+                if polls:
+                    _time.sleep(args.interval)
+                polls += 1
+                for entry in reg.scan_dir(args.dir, labels=labels):
+                    print(f"picked up {entry['version']} "
+                          f"({entry['artifact']})")
+        elif args.cmd == "verify":
+            ok, reason = reg.verify(args.version)
+            print(f"{args.version}: {'OK' if ok else 'FAIL'} — {reason}")
+            return 0 if ok else 1
+    except RegistryError as e:
+        print(f"registry: {e}", file=sys.stderr)
+        return 2
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -706,10 +1061,26 @@ def build_parser() -> argparse.ArgumentParser:
     _add_serve_flags(sub.add_parser("serve", help="serving commands"))
     _add_data_flags(sub.add_parser(
         "data", help="streaming shard tooling: export, info (host-side)"))
+    # parsed by their own entry points (main dispatches them first)
+    sub.add_parser("registry", add_help=False,
+                   help="model registry: publish, list, label, rollback, "
+                        "gc, watch, verify (host-side)")
+    sub.add_parser("obs", add_help=False,
+                   help="stream tools: summary, tail, compare, trace, "
+                        "bench-trend, slo, export, incidents (host-side)")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["obs"]:
+        from pytorch_distributed_nn_tpu_torch.observability.obs_cli import (
+            main_obs,
+        )
+
+        return main_obs(argv[1:])
+    if argv[:1] == ["registry"]:
+        return main_registry(argv[1:])
     args = build_parser().parse_args(argv)
     if args.cmd in ("train", "single"):
         return _train(args)

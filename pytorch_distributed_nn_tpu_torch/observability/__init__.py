@@ -1,2 +1,3 @@
 """Telemetry of the port's runs (training steps and events, served
-requests) and request tracing of its serving path."""
+requests), request tracing, the stream reader, SLOs, the Prometheus
+exposition and the ``obs`` tools."""

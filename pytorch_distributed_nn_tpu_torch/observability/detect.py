@@ -27,9 +27,8 @@ Detector catalogue (``DETECTOR_KINDS``):
 - ``ckpt_stall`` — a ``checkpoint_write`` whose loop stall exceeds
   ``factor`` x the median of the run's previous stalls (after ``warmup``
   writes, ignoring stalls under ``min_ms``).
-- ``slo_breach`` — the SLO engine's edge-triggered ``slo_breach`` event.
-  Inert in the port until ROADMAP Queue 1 item 6 ports the SLO engine:
-  nothing emits the event yet.
+- ``slo_breach`` — the SLO engine's edge-triggered ``slo_breach`` event
+  (``observability/slo.py``; ``serve run --slo --flightrec``).
 
 Spec grammar (``--flightrec``, in the style of ``FaultPlan``)::
 

@@ -4,17 +4,16 @@ resume. The port's ``pytorch_distributed_nn_tpu/resilience/supervisor.py``.
 - :class:`RunSupervisor` turns SIGTERM/SIGINT into a flag the trainer
   reads at each step boundary: the step in flight completes, an emergency
   checkpoint is written, and the process exits 0 (a pause to resume, not a
-  failure). It beats ``<train_dir>/heartbeat.json`` after every step.
+  failure). It beats ``<train_dir>/heartbeat.json`` after every step and,
+  with the run's telemetry, writes its metric registry as Prometheus
+  exposition text to ``<train_dir>/metrics.prom`` (the node-exporter
+  textfile a sidecar scrapes).
 - :class:`Watchdog` (``--heartbeat-grace``) flags a run whose heartbeat
   is older than its grace: ``<train_dir>/STALLED``, a ``stall`` event, and
   the ``on_stall`` callback.
 - :func:`resume_latest_valid` walks ``model_step_<N>`` newest first,
   verifies each against its manifest, restores the first that proves
   intact, and quarantines the rest on its way.
-
-The JAX supervisor also writes the metric registry to ``metrics.prom``
-at each beat; the port has no Prometheus exporter yet (ROADMAP Queue 1
-item 6).
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ logger = logging.getLogger(__name__)
 
 HEARTBEAT_FILE = "heartbeat.json"
 STALLED_FILE = "STALLED"
+PROM_FILE = "metrics.prom"
 
 
 class RunSupervisor:
@@ -44,8 +44,9 @@ class RunSupervisor:
     def __init__(self, run_dir: Optional[str] = None,
                  grace: Optional[float] = None,
                  on_stall: Optional[Callable[[float], None]] = None,
-                 signals=(signal.SIGTERM, signal.SIGINT)):
+                 signals=(signal.SIGTERM, signal.SIGINT), telemetry=None):
         self.run_dir = run_dir
+        self.telemetry = telemetry
         self.grace = grace
         self._signals = signals
         self._old_handlers: dict = {}
@@ -93,9 +94,23 @@ class RunSupervisor:
         self._stop.set()
 
     def beat(self, step: int) -> None:
-        """Record that ``step`` completed (an atomic write)."""
-        if self.run_dir is not None:
-            write_heartbeat(self.run_dir, step, extra=self.extra or None)
+        """Record that ``step`` completed (an atomic write); with a
+        telemetry, publish its registry to ``metrics.prom`` too (atomic
+        tmp and rename)."""
+        if self.run_dir is None:
+            return
+        write_heartbeat(self.run_dir, step, extra=self.extra or None)
+        if self.telemetry is not None:
+            from pytorch_distributed_nn_tpu_torch.observability import (
+                promexport,
+            )
+
+            try:
+                promexport.write_textfile(
+                    self.telemetry.registry,
+                    os.path.join(self.run_dir, PROM_FILE))
+            except OSError:
+                logger.exception("metrics.prom write failed")
 
 
 def heartbeat_path(run_dir: str) -> str:

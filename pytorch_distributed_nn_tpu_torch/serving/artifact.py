@@ -317,8 +317,8 @@ def load_artifact(artifact_dir: str):
 def save_artifact(out_dir: str, state_dict: Dict[str, torch.Tensor],
                   network: str, model_kw: Optional[dict] = None,
                   source: Optional[dict] = None) -> dict:
-    """Write a port ``CausalLM`` state_dict as a ``pdtn-artifact-v1``
-    directory (PDAR, unquantized). ``source`` is the provenance block
+    """Write a port transformer's state_dict (``CausalLM`` or
+    ``BertMLM``) as a ``pdtn-artifact-v1`` directory (PDAR, unquantized). ``source`` is the provenance block
     (``train_dir``, ``step``) that names the artifact's version. Returns
     the manifest."""
     from pytorch_distributed_nn_tpu_torch.models import (

@@ -23,7 +23,7 @@ The scheduling contract, in order:
    ``serving_shed_total`` counter and a :class:`QueueShed` carrying a
    Retry-After taken from the observed service rate (HTTP 429).
    Admission is class-aware (:data:`TRAFFIC_CLASSES`): ``probe`` always
-   admits, ``canary`` caps at :data:`CANARY_SHARE` of the bound; the
+   admits, ``canary`` caps at ``canary_share`` of the bound; the
    ``serving_queue_depth`` and ``serving_queue_depth_peak`` gauges show
    the queue.
 5. ``begin_drain()`` stops admissions with :class:`Draining` (HTTP 503)
@@ -59,9 +59,8 @@ logger = logging.getLogger(__name__)
 DEFAULT_TIMEOUT_S = 2.0
 
 #: admission traffic classes: probes always admit, canary admission caps
-#: at CANARY_SHARE of the bound
+#: at ``canary_share`` of the bound
 TRAFFIC_CLASSES = ("stable", "canary", "probe")
-CANARY_SHARE = 0.5
 
 
 class DeadlineExceeded(Exception):
@@ -127,6 +126,8 @@ class Batcher:
         default_timeout_s: float = DEFAULT_TIMEOUT_S,
         start: bool = True,
         max_queue: Optional[int] = None,
+        on_batch=None,
+        canary_share: float = 0.5,
     ):
         self.engine = engine
         self.telemetry = telemetry if telemetry is not None else get_telemetry()
@@ -135,6 +136,13 @@ class Batcher:
         if max_queue is not None and int(max_queue) < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_queue = int(max_queue) if max_queue is not None else None
+        if not 0.0 < canary_share <= 1.0:
+            raise ValueError(
+                f"canary_share must be in (0, 1], got {canary_share}")
+        self.canary_share = float(canary_share)
+        # called with the newest request id after every scheduled batch:
+        # the serving tick of the flight recorder (serve run --flightrec)
+        self.on_batch = on_batch
         self._q: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self._ids = itertools.count()
@@ -269,7 +277,7 @@ class Batcher:
         stamp lands on the request's stream record so
         ``reader.assemble_trace`` can join this hop to the frontend's.
         ``klass`` is the admission class: ``stable`` sees the full
-        ``max_queue`` bound, ``canary`` caps at :data:`CANARY_SHARE` of it,
+        ``max_queue`` bound, ``canary`` caps at ``canary_share`` of it,
         ``probe`` (health/breaker probes) always admits. Raises
         :class:`QueueShed` past the bound and :class:`Draining` after
         :meth:`begin_drain`."""
@@ -297,7 +305,7 @@ class Batcher:
                 if depth >= self.max_queue:
                     self._shed(klass, depth, self.max_queue)
                 if klass == "canary":
-                    cap = max(1, int(self.max_queue * CANARY_SHARE))
+                    cap = max(1, int(self.max_queue * self.canary_share))
                     if self._canary_queued >= cap:
                         self._shed(klass, self._canary_queued, cap)
             if req.klass == "canary":
@@ -402,6 +410,7 @@ class Batcher:
                 else:
                     live.append(req)
             if not live:
+                self._tick_on_batch(batch)
                 continue
             infer_entry = time.monotonic()
             try:
@@ -412,6 +421,7 @@ class Batcher:
                 for req in live:
                     req.error = e
                     req.done.set()
+                self._tick_on_batch(batch)
                 continue
             done_t = time.monotonic()
             # batch_form: pop -> engine call (deadline checks, list
@@ -473,6 +483,15 @@ class Batcher:
                         stats["flops"] / stats["batch"], 1
                     )
                 self.telemetry.log_step(record)
+            self._tick_on_batch(batch)
+
+    def _tick_on_batch(self, batch) -> None:
+        if self.on_batch is None or not batch:
+            return
+        try:
+            self.on_batch(max(req.id for req in batch))
+        except Exception:  # a broken ticker must not kill the scheduler
+            logger.exception("on_batch hook failed")
 
     # -- lifecycle --------------------------------------------------------
 

@@ -27,6 +27,17 @@ them back after. :attr:`InferenceEngine.precision` reports it; ``GET
 /stats`` shows it. A bf16 model (BertBase) computes in bf16 where its
 layers say so.
 
+Hot swap (:meth:`InferenceEngine.swap`) and shadow engines
+(:meth:`InferenceEngine.shadow`, the canary router's second engine)
+replace weights, never architectures. A swap builds the new module and
+copies it to the card before it takes the weights lock, so the barrier is
+one reference install between two batches: each batch runs wholly on the
+module it snapshotted under the lock, and its records carry that
+module's version. A shadow owns its module and shares the engine's warm
+set (the shapes warmup ran, the build watermark, the bucket FLOPs and the
+count of cold shapes), so :meth:`InferenceEngine.retraces` on either
+engine covers both, as the JAX shadow's shared jit cache does.
+
 Input rows are checked before they reach the card
 (:meth:`InferenceEngine.check_input`): a token id outside the embedding
 is a device-side assert there, after which the process's CUDA context is
@@ -46,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -63,8 +75,18 @@ logger = logging.getLogger(__name__)
 #: to (powers of two keep the pad fraction <= 50%)
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
 
-_SWAP = ("weight hot swap, shadow engines and canaries are not ported yet: "
-         "ROADMAP Queue 1 item 6 (router, frontend, registry)")
+
+
+class _WarmSet:
+    """What warmup ran, shared by an engine and its shadows: the bucket
+    shapes, the native-build watermark, each shape's forward FLOPs and the
+    batches of shapes warmup did not run."""
+
+    def __init__(self):
+        self.shapes: set = set()
+        self.events: Optional[int] = None
+        self.flops: dict = {}
+        self.cold = 0
 
 
 def length_buckets(max_len: int) -> Tuple[int, ...]:
@@ -106,24 +128,20 @@ class InferenceEngine:
     def __init__(self, artifact_dir: str,
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
                  seq_buckets: Optional[Sequence[int]] = None, device=None):
-        from pytorch_distributed_nn_tpu_torch.models import build_model
-        from pytorch_distributed_nn_tpu_torch.serving.artifact import (
-            load_artifact,
-        )
-
         self.device = resolve_device(device)
         if not batch_buckets \
                 or list(batch_buckets) != sorted(set(batch_buckets)):
             raise ValueError(f"batch_buckets must be strictly increasing, "
                              f"got {batch_buckets!r}")
-        self.manifest, params, batch_stats = load_artifact(artifact_dir)
+        self.manifest, model = self._load(artifact_dir)
         self.artifact_dir = artifact_dir
-        model = build_model(self.manifest["network"],
-                            self.manifest["num_classes"],
-                            **self.manifest.get("model_kw", {}))
-        model.load_state_dict(_state_dict(model, params, batch_stats),
-                              strict=True)
-        self.model = model.to(self.device).eval()
+        self.model = model
+        # the swap barrier: infer() snapshots (model, version) under it,
+        # so a batch completes on the weights it started with
+        self._weights_lock = threading.Lock()
+        self.swaps = 0
+        # the last swap's ms: loading to the device, and the lock held
+        self.last_swap_ms: Optional[dict] = None
         cfg = getattr(model, "config", None)
         self.precision = {"tf32": False, "dtype": str(
             getattr(cfg, "dtype", None) or getattr(model, "dtype",
@@ -144,15 +162,27 @@ class InferenceEngine:
                     f"got {self.seq_buckets!r}")
         else:
             self.seq_buckets = None
-        self._warm_events: Optional[int] = None
-        self._warm_shapes: set = set()
-        self._cold_shapes = 0  # shapes run that warmup did not run
-        self.infer_batches = 0
         # forward FLOPs per bucket shape (torch.utils.flop_counter at
-        # warmup): the achieved-FLOP/s numerator of `serve bench` and of
-        # the per-request records
-        self._bucket_flops: dict = {}
+        # warmup) are the achieved-FLOP/s numerator of `serve bench` and
+        # of the per-request records
+        self._warm = _WarmSet()
+        self.infer_batches = 0
         self.flops_total = 0.0
+
+    def _load(self, artifact_dir: str):
+        """``(manifest, module)``: the artifact's weights in a fresh
+        ``eval()`` module on this engine's device."""
+        from pytorch_distributed_nn_tpu_torch.models import build_model
+        from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+            load_artifact,
+        )
+
+        manifest, params, batch_stats = load_artifact(artifact_dir)
+        model = build_model(manifest["network"], manifest["num_classes"],
+                            **manifest.get("model_kw", {}))
+        model.load_state_dict(_state_dict(model, params, batch_stats),
+                              strict=True)
+        return manifest, model.to(self.device).eval()
 
     # -- identity ----------------------------------------------------------
 
@@ -179,16 +209,93 @@ class InferenceEngine:
             "device": str(self.device),
         }
 
-    # -- hot swap: ROADMAP Queue 1 item 6 ------------------------------------
+    # -- hot swap --------------------------------------------------------
 
-    def _check_swappable(self, manifest: dict, params) -> None:
-        raise NotImplementedError(_SWAP)
+    def _check_swappable(self, manifest: dict, model) -> None:
+        """A swap replaces weights only: the same architecture and input
+        contract, and a state_dict of the same names, shapes and dtypes
+        as the serving module's; anything else is refused up front."""
+        for key in ("network", "num_classes", "model_kw", "input"):
+            if manifest.get(key) != self.manifest.get(key):
+                raise ValueError(
+                    f"refusing swap: artifact {key!r} differs "
+                    f"({manifest.get(key)!r} vs serving "
+                    f"{self.manifest.get(key)!r}) — hot swap replaces "
+                    "WEIGHTS, not architectures; deploy a new engine for "
+                    "a different model")
+        old, new = self.model.state_dict(), model.state_dict()
+        if list(old) != list(new):
+            raise ValueError(
+                f"refusing swap: state_dict has {len(new)} entries vs the "
+                f"serving module's {len(old)}, or other names")
+        for name, a in old.items():
+            b = new[name]
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise ValueError(
+                    f"refusing swap: {name} mismatches "
+                    f"({tuple(a.shape)}/{a.dtype} vs "
+                    f"{tuple(b.shape)}/{b.dtype})")
 
     def swap(self, artifact_dir: str) -> str:
-        raise NotImplementedError(_SWAP)
+        """Install another artifact's weights under live traffic; returns
+        the new version. The module is built, checked and copied to the
+        device before the lock is taken; in-flight batches complete on
+        the old module."""
+        from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+            artifact_version,
+        )
+
+        t0 = time.perf_counter()
+        manifest, model = self._load(artifact_dir)
+        self._check_swappable(manifest, model)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        old = self.version
+        t1 = time.perf_counter()
+        with self._weights_lock:
+            self.manifest = manifest
+            self.model = model
+            self.artifact_dir = artifact_dir
+            self.swaps += 1
+        t2 = time.perf_counter()
+        self.last_swap_ms = {"load": round((t1 - t0) * 1e3, 3),
+                             "lock": round((t2 - t1) * 1e3, 6)}
+        new = artifact_version(manifest)
+        logger.info("engine swap #%d: %s -> %s", self.swaps, old, new)
+        return new
+
+    def adopt(self, shadow: "InferenceEngine") -> str:
+        """Install a shadow's module as this engine's (the canary's
+        promote): its weights are on the device already, so the swap is
+        the install alone. Returns the new version."""
+        if shadow._warm is not self._warm:
+            raise ValueError("refusing adopt: not a shadow of this engine")
+        with self._weights_lock:
+            self.manifest = shadow.manifest
+            self.model = shadow.model
+            self.artifact_dir = shadow.artifact_dir
+            self.swaps += 1
+        logger.info("engine swap #%d: adopted %s", self.swaps, self.version)
+        return self.version
 
     def shadow(self, artifact_dir: str) -> "InferenceEngine":
-        raise NotImplementedError(_SWAP)
+        """A second engine on ``artifact_dir``'s weights for the canary:
+        its own module, counters and swap lock; this engine's buckets,
+        device, precision and warm set. The artifact must pass the
+        :meth:`swap` contract."""
+        manifest, model = self._load(artifact_dir)
+        self._check_swappable(manifest, model)
+        other = object.__new__(InferenceEngine)
+        other.__dict__.update(self.__dict__)
+        other.manifest = manifest
+        other.artifact_dir = artifact_dir
+        other.model = model
+        other._weights_lock = threading.Lock()
+        other.swaps = 0
+        other.last_swap_ms = None
+        other.infer_batches = 0
+        other.flops_total = 0.0
+        return other
 
     # -- bucket policy -------------------------------------------------------
 
@@ -247,16 +354,17 @@ class InferenceEngine:
 
     # -- warmup --------------------------------------------------------------
 
-    def _run(self, x: torch.Tensor, n: int):
-        """The device half of a batch: the model (TF32 off on the card),
-        the finiteness of each of the first ``n`` rows, and the copy of
-        those rows to the host. Warmup, the thread warm pass and
-        :meth:`infer` all run it, so a request launches no kernel they
-        did not."""
+    def _run(self, x: torch.Tensor, n: int, model=None):
+        """The device half of a batch: ``model`` (the serving module by
+        default; TF32 off on the card), the finiteness of each of the
+        first ``n`` rows, and the copy of those rows to the host. Warmup,
+        the thread warm pass and :meth:`infer` all run it, so a request
+        launches no kernel they did not."""
+        model = self.model if model is None else model
         precision = (_no_tf32() if self.device.type == "cuda"
                      else contextlib.nullcontext())
         with torch.inference_mode(), precision:
-            y = self.model(x.to(self.device))[:n].float()
+            y = model(x.to(self.device))[:n].float()
             # per-row output quality on the device, not as a second
             # host pass over up to 500 MB of copied logits (BertBase)
             finite = torch.isfinite(y.reshape(n, -1)).all(dim=1).cpu()
@@ -278,15 +386,15 @@ class InferenceEngine:
             counter = FlopCounterMode(display=False)
             with counter:
                 self._run(x, shape[0])
-            self._bucket_flops[tuple(shape)] = \
+            self._warm.flops[tuple(shape)] = \
                 float(counter.get_total_flops()) or None
-            self._warm_shapes.add(tuple(shape))
+            self._warm.shapes.add(tuple(shape))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self._warm_events = build_events()
+        self._warm.events = build_events()
         dt = time.perf_counter() - t0
         logger.info("engine warmup: %d bucket(s) run in %.2fs on %s",
-                    len(self._warm_shapes), dt, self.device)
+                    len(self._warm.shapes), dt, self.device)
         return dt
 
     def warm_thread(self) -> None:
@@ -307,9 +415,9 @@ class InferenceEngine:
             build_events,
         )
 
-        if self._warm_events is None:
+        if self._warm.events is None:
             return None
-        return build_events() - self._warm_events + self._cold_shapes
+        return build_events() - self._warm.events + self._warm.cold
 
     # -- inference -----------------------------------------------------------
 
@@ -326,6 +434,10 @@ class InferenceEngine:
         if n == 0:
             return [], {"bucket": 0, "batch": 0, "pad_ms": 0.0,
                         "infer_ms": 0.0}
+        # the swap barrier: this batch runs on one (module, version)
+        # pair, whatever swap() installs meanwhile
+        with self._weights_lock:
+            model, version = self.model, self.version
         t0 = time.perf_counter()
         bucket = self.select_bucket(n)
         xs = [self.check_input(x) for x in xs]
@@ -339,16 +451,16 @@ class InferenceEngine:
             for i, x in enumerate(xs):
                 batch[i] = x
         shape = tuple(batch.shape)
-        if shape not in self._warm_shapes:
-            self._cold_shapes += 1
+        if shape not in self._warm.shapes:
+            self._warm.cold += 1
         x = torch.from_numpy(batch).to(self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
-        out, finite = self._run(x, n)
+        out, finite = self._run(x, n, model)
         t2 = time.perf_counter()
         self.infer_batches += 1
-        flops = self._bucket_flops.get(shape)
+        flops = self._warm.flops.get(shape)
         if flops:
             self.flops_total += flops
         stats = {
@@ -357,7 +469,7 @@ class InferenceEngine:
             "pad_ms": round((t1 - t0) * 1000, 3),
             "infer_ms": round((t2 - t1) * 1000, 3),
             "flops": flops,
-            "version": self.version,
+            "version": version,  # the weights this batch used
             "finite_rows": finite,
             "nonfinite": int(n - int(finite.sum())),
         }

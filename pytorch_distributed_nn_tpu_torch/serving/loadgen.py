@@ -1,6 +1,5 @@
-"""In-process load generator, and the bodies of ``serve bench`` and
-``serve smoke``: the port of ``pytorch_distributed_nn_tpu/serving/
-loadgen.py`` for the single-pass path.
+"""Load generators, and the bodies of ``serve bench`` and ``serve
+smoke``: the port of ``pytorch_distributed_nn_tpu/serving/loadgen.py``.
 
 The generator is OPEN-LOOP: arrival times follow the offered rate on the
 wall clock, not the responses, so a slow server shows its latency instead
@@ -14,11 +13,13 @@ latency, the per-span p50/p99 and the achieved FLOP/s, and it fails when
 a kernel was built or an unwarmed shape ran after warmup. :func:`smoke`
 is the few-second serving gate: export a random-init LeNet, serve 100
 requests, check the invariants by reading the ``serving.jsonl`` stream
-itself, shut down cleanly; then the same for a tiny causal decoder over
-the generative scheduler.
+itself and through ``observability.reader``, shut down cleanly; then the
+same for a tiny causal decoder over the generative scheduler.
 
-Load functions of the generative and HTTP paths (``run_generate_load``,
-``generate_sweep``, ``run_http_load``) wait (ROADMAP Queue 1).
+:func:`run_generate_load` and :func:`generate_sweep` do the same for the
+generative scheduler in token rates; :func:`run_http_load` offers single
+rows over real HTTP (a server or the frontend) and tallies every outcome
+by status, the client-visible ground truth of the availability checks.
 """
 
 from __future__ import annotations
@@ -158,10 +159,15 @@ def serving_telemetry(out_dir: str, engine, extra: Optional[dict] = None):
 
 
 def make_tiny_artifact(root: str, quantize: Optional[str] = None,
-                       seed: int = 0, step: int = 1) -> str:
+                       seed: int = 0, step: int = 1,
+                       poison_nan: bool = False) -> str:
     """A random-init LeNet checkpoint in ``<root>/train_dir``, exported to
     ``<root>/artifact`` (bench and smoke fixture: serving speed does not
-    depend on trained weights). ``step`` names the artifact's version."""
+    depend on trained weights). ``step`` names the artifact's version, so
+    one helper mints distinct registry versions. ``poison_nan`` NaNs every
+    float parameter first: a CRC-intact artifact that passes every load
+    check and emits NaN, the deploy only an output-quality gate can
+    convict."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.models import build_model
@@ -176,6 +182,10 @@ def make_tiny_artifact(root: str, quantize: Optional[str] = None,
 
     model = build_model("LeNet", 10).init_weights(
         torch.Generator().manual_seed(seed))
+    if poison_nan:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.fill_(float("nan"))
     state = create_train_state(
         model, lambda p: build_optimizer("sgd", p, 0.1), "cpu", seed=seed)
     state.step = step
@@ -184,6 +194,27 @@ def make_tiny_artifact(root: str, quantize: Optional[str] = None,
     out = os.path.join(root, "artifact")
     export_artifact(train_dir, out, step=step, network="LeNet",
                     num_classes=10, quantize=quantize)
+    return out
+
+
+def make_tiny_decoder_artifact(root: str, seed: int = 0, step: int = 1,
+                               network: str = "GptTiny") -> str:
+    """A random-init causal decoder saved as ``<root>/artifact``, its
+    version ``train_dir@<step>:none`` as the JAX helper's (the generative
+    twin of :func:`make_tiny_artifact`)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        save_artifact,
+    )
+
+    model = build_model(network).init_weights(
+        torch.Generator().manual_seed(seed))
+    out = os.path.join(root, "artifact")
+    save_artifact(out, model.state_dict(), network,
+                  source={"train_dir": os.path.join(root, "train_dir"),
+                          "step": step, "checkpoint": None})
     return out
 
 
@@ -254,15 +285,294 @@ def sweep(artifact_dir: str,
     }
 
 
-def _read_stream(path: str):
-    """(manifest, step records, events) of a JSONL stream."""
-    with open(path) as f:
-        records = [json.loads(line) for line in f if line.strip()]
-    manifest = records[0] if records and \
-        records[0].get("kind") == "manifest" else None
-    steps = [r for r in records if r.get("kind") == "step"]
-    events = [r for r in records if r.get("kind") == "event"]
-    return manifest, steps, events
+def run_generate_load(
+    scheduler,
+    prompts: List[np.ndarray],
+    offered_rps: float,
+    duration_s: float,
+    max_new_tokens: int = 8,
+    timeout_s: float = 30.0,
+) -> dict:
+    """Open-loop generation load: offer ``offered_rps`` REQUESTS/s of
+    mixed-length prompts for ``duration_s``; returns the measured dict.
+
+    Same pacing discipline as :func:`run_load`; the reported rates are
+    TOKEN rates (the decoder's unit of work), with per-request TTFT and
+    inter-token percentiles pooled across the window."""
+    reqs = []
+    total = max(1, int(offered_rps * duration_s))
+    t0 = time.monotonic()
+    submitted = 0
+    while submitted < total:
+        due = min(total, int((time.monotonic() - t0) * offered_rps) + 1)
+        while submitted < due:
+            reqs.append(scheduler.submit(
+                prompts[submitted % len(prompts)],
+                max_new_tokens=max_new_tokens, timeout_s=timeout_s,
+            ))
+            submitted += 1
+        time.sleep(0.001)
+    deadline = time.monotonic() + timeout_s + 30.0
+    for r in reqs:
+        r.done.wait(timeout=max(0.0, deadline - time.monotonic()))
+    t_end = time.monotonic()
+    served = [r for r in reqs if r.error is None and r.done.is_set()]
+    dropped = sum(1 for r in reqs if r.error is not None)
+    wall = max(t_end - t0, 1e-9)
+    tokens = sum(len(r.tokens) for r in served)
+    ttft = [r.ttft_ms for r in served if r.ttft_ms is not None]
+    itl = [s for r in served for s in r.itl_samples]
+    occ = [
+        r.occ_sum / r.occ_steps for r in served if r.occ_steps
+    ]
+    return {
+        "offered_rps": offered_rps,
+        "duration_s": round(duration_s, 3),
+        "submitted": len(reqs),
+        "served": len(served),
+        "dropped": dropped,
+        "tokens": tokens,
+        "sustained_tokens_per_s": round(tokens / wall, 1),
+        "ttft_ms": {
+            "p50": round(_pctl(ttft, 50), 3),
+            "p99": round(_pctl(ttft, 99), 3),
+        },
+        # pooled per-TOKEN intervals across every served request — the
+        "inter_token_ms": {
+            "p50": round(_pctl(itl, 50), 3),
+            "p99": round(_pctl(itl, 99), 3),
+        },
+        "decode_batch_mean": (
+            round(sum(occ) / len(occ), 2) if occ else None
+        ),
+    }
+
+
+def generate_sweep(
+    artifact_dir: str,
+    offered: Sequence[float] = (10.0, 25.0, 50.0),
+    duration_s: float = 2.0,
+    max_new_tokens: int = 8,
+    out_dir: Optional[str] = None,
+    batch_buckets=(1, 2, 4, 8),
+    seq_buckets=None,
+    pool_slots: Optional[int] = None,
+    timeout_s: float = 30.0,
+    device=None,
+    log=print,
+) -> dict:
+    """Warm a generative engine on ``device``, sweep offered request rates
+    of mixed prompt lengths, check the no-retrace invariant, optionally
+    stream telemetry."""
+    from pytorch_distributed_nn_tpu_torch.serving.generate import (
+        GenerateScheduler,
+        GenerativeEngine,
+    )
+
+    engine = GenerativeEngine(
+        artifact_dir, batch_buckets=batch_buckets,
+        seq_buckets=seq_buckets, pool_slots=pool_slots, device=device,
+    )
+    warm_s = engine.warmup()
+    telemetry = None
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        telemetry = serving_telemetry(
+            out_dir, engine,
+            extra={"generative": True, "offered": list(offered)},
+        )
+    scheduler = GenerateScheduler(engine, telemetry=telemetry,
+                                  default_timeout_s=timeout_s)
+    prompts = sample_prompts(engine, 64, reserve=max_new_tokens + 2)
+    results = []
+    try:
+        for rate in offered:
+            r = run_generate_load(
+                scheduler, prompts, rate, duration_s,
+                max_new_tokens=max_new_tokens, timeout_s=timeout_s,
+            )
+            results.append(r)
+            log(
+                f"decode bench: offered {rate:g} req/s -> "
+                f"{r['sustained_tokens_per_s']:g} tokens/s, TTFT p99 "
+                f"{r['ttft_ms']['p99']:.2f} ms, ITL p99 "
+                f"{r['inter_token_ms']['p99']:.2f} ms, mean decode "
+                f"batch {r['decode_batch_mean']}, dropped {r['dropped']}"
+            )
+    finally:
+        scheduler.close()
+        if telemetry is not None:
+            telemetry.close()
+    retraces = engine.retraces()
+    rec = {
+        "artifact": artifact_dir,
+        "device": str(engine.device),
+        "warmup_s": round(warm_s, 3),
+        "batch_buckets": list(engine.batch_buckets),
+        "seq_buckets": list(engine.seq_buckets),
+        "retraces_after_warmup": retraces,
+        "fence_violations": engine.fence_violations,
+        "sweep": results,
+        "stream": (
+            os.path.join(out_dir, "serving.jsonl") if out_dir else None
+        ),
+    }
+    if retraces is not None and retraces != 0:
+        raise AssertionError(
+            f"no-retrace invariant violated on the decode path: "
+            f"{retraces} kernel build(s) after warmup — a "
+            "prompt/generation shape escaped the bucket families"
+        )
+    return rec
+
+
+def run_http_load(
+    host: str,
+    port: int,
+    rows: Sequence,
+    offered_rps: float,
+    duration_s: float,
+    timeout_s: float = 5.0,
+    workers: int = 32,
+    klass: Optional[str] = None,
+    stop_early=None,
+) -> dict:
+    """Open-loop load over real HTTP (the frontend and replica-loss path,
+    where in-process submission cannot stand in).
+
+    A worker pool paces single-row ``POST /v1/infer`` bodies against the
+    wall-clock schedule; every outcome is tallied by status — the
+    client-visible ground truth of "zero failed requests". ``workers`` bounds parallelism: keep
+    it comfortably above offered_rps x typical latency or the offered
+    process self-throttles (and the result dict says so via
+    ``behind_schedule``).
+    """
+    import http.client
+    import threading
+
+    total = max(1, int(offered_rps * duration_s))
+    lock = threading.Lock()
+    taken = 0
+    statuses: dict = {}
+    latencies: List[float] = []
+    t0 = time.monotonic()
+
+    def worker():
+        nonlocal taken
+        conn = None  # per-worker keep-alive connection
+        while True:
+            if stop_early is not None and stop_early.is_set():
+                break  # no new request once set, on schedule or behind it
+            with lock:
+                if taken >= total:
+                    break
+                i = taken
+                due = t0 + i / offered_rps
+                now = time.monotonic()
+                if now >= due:
+                    taken += 1
+                    claimed = True
+                else:
+                    claimed = False
+                    wait = due - now
+            if not claimed:
+                time.sleep(min(wait, 0.002))
+                continue
+            body = json.dumps({"inputs": [rows[i % len(rows)]],
+                                "timeout_s": timeout_s})
+            headers = {"Content-Type": "application/json"}
+            if klass:
+                headers["X-Traffic-Class"] = klass
+            sent = time.monotonic()
+            status = -1
+            # one fresh-connection retry: a keep-alive socket the server
+            # closed while idle is a client-side race, not a served-
+            # request failure (requests are idempotent by contract)
+            for fresh in (False, True):
+                if conn is None or fresh:
+                    if conn is not None:
+                        try:
+                            conn.close()
+                        except OSError:
+                            pass
+                    conn = http.client.HTTPConnection(
+                        host, port, timeout=timeout_s + 10.0
+                    )
+                    try:
+                        conn.connect()
+                        _set_nodelay(conn.sock)
+                    except OSError:
+                        pass  # surfaces on the request below
+                try:
+                    conn.request("POST", "/v1/infer", body=body,
+                                 headers=headers)
+                    resp = conn.getresponse()
+                    resp.read()
+                    status = resp.status
+                    if resp.will_close:
+                        conn.close()
+                        conn = None
+                    break
+                except (OSError, http.client.HTTPException):
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+                    conn = None
+            lat = (time.monotonic() - sent) * 1000.0
+            with lock:
+                statuses[status] = statuses.get(status, 0) + 1
+                if status == 200:
+                    latencies.append(lat)
+        if conn is not None:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    threads = [
+        threading.Thread(target=worker, name=f"pdtn-httpload-{i}",
+                         daemon=True)
+        for i in range(workers)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = max(time.monotonic() - t0, 1e-9)
+    ok = statuses.get(200, 0)
+    shed = statuses.get(429, 0)
+    failed = sum(
+        n for s, n in statuses.items()
+        if s == -1 or (s is not None and s >= 500)
+    )
+    return {
+        "offered_rps": offered_rps,
+        "submitted": taken,
+        "ok": ok,
+        "shed": shed,
+        "failed": failed,
+        "statuses": {str(k): v for k, v in sorted(statuses.items())},
+        "sustained_rps": round(ok / wall, 1),
+        # the schedule slipped: the pool was too small for the offered
+        # rate — the numbers are then closed-loop-ish, flag it
+        "behind_schedule": wall > duration_s * 1.5,
+        "latency_ms": {
+            "p50": round(_pctl(latencies, 50), 3),
+            "p95": round(_pctl(latencies, 95), 3),
+            "p99": round(_pctl(latencies, 99), 3),
+        },
+    }
+
+
+def _set_nodelay(sock) -> None:
+    import socket
+
+    if sock is not None:
+        try:
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            pass
 
 
 def smoke(keep_dir: Optional[str] = None, device=None) -> int:
@@ -271,12 +581,7 @@ def smoke(keep_dir: Optional[str] = None, device=None) -> int:
     import shutil
     import tempfile
 
-    import torch
-
-    from pytorch_distributed_nn_tpu_torch.models import build_model
-    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
-        save_artifact,
-    )
+    from pytorch_distributed_nn_tpu_torch.observability import reader
     from pytorch_distributed_nn_tpu_torch.serving.batcher import Batcher
     from pytorch_distributed_nn_tpu_torch.serving.engine import (
         InferenceEngine,
@@ -314,17 +619,18 @@ def smoke(keep_dir: Optional[str] = None, device=None) -> int:
               all(np.shape(o) == (10,) for o in outs))
         retr = engine.retraces()
         check("zero retraces after warmup", retr == 0, f"retraces={retr}")
-        manifest, steps, _ = _read_stream(
-            os.path.join(serve_dir, "serving.jsonl"))
+        rs = reader.read_stream(serve_dir)
+        manifest, steps = rs.manifest, rs.steps
         check("serving stream is manifest-headed",
               manifest is not None
               and manifest.get("config", {}).get("mode") == "serving")
         check("stream carries one record per request", len(steps) == 100,
               f"records={len(steps)}")
-        lat = [r.get("latency_ms") for r in steps]
-        check("the stream gives the serving percentiles",
-              len(lat) == 100 and all(v is not None for v in lat)
-              and _pctl(lat, 99) > 0, f"latency_ms={lat[:5]}")
+        sv = reader.summarize_run(rs).get("serving") or {}
+        check("obs summary exposes the serving percentiles",
+              sv.get("requests") == 100
+              and (sv.get("latency_ms") or {}).get("p99", 0) > 0,
+              f"serving={sv}")
         check("records carry request ids, spans and the version stamp",
               all(rec.get("request_id")
                   and set(rec.get("spans") or {}) >= set(tracing.SPANS)
@@ -338,12 +644,7 @@ def smoke(keep_dir: Optional[str] = None, device=None) -> int:
 
         # the generative case: a tiny causal decoder, mixed prompt
         # lengths, per-token continuous batching
-        model = build_model("GptTiny").init_weights(
-            torch.Generator().manual_seed(0))
-        gen_art = os.path.join(root, "gen", "artifact")
-        save_artifact(gen_art, model.state_dict(), "GptTiny",
-                      source={"train_dir": "random-init", "step": 1,
-                              "checkpoint": None})
+        gen_art = make_tiny_decoder_artifact(os.path.join(root, "gen"))
         gen_engine = GenerativeEngine(gen_art, batch_buckets=(1, 2),
                                       seq_buckets=(32,), pool_slots=4,
                                       device=device)
@@ -368,7 +669,8 @@ def smoke(keep_dir: Optional[str] = None, device=None) -> int:
         gretr = gen_engine.retraces()
         check("generate: zero retraces across prefill and decode",
               gretr == 0, f"retraces={gretr}")
-        _, gsteps, _ = _read_stream(os.path.join(gen_dir, "serving.jsonl"))
+        grs = reader.read_stream(gen_dir)
+        gsteps = grs.steps
         check("generate: records carry prefill/decode spans, token counts "
               "and the version stamp",
               len(gsteps) == 10 and all(
@@ -379,8 +681,12 @@ def smoke(keep_dir: Optional[str] = None, device=None) -> int:
                   and rec.get("version") == gen_engine.version
                   for rec in gsteps),
               f"first={gsteps[0] if gsteps else None}")
-        check("generate: the stream gives the token count",
-              sum(rec.get("new_tokens", 0) for rec in gsteps) == 40)
+        gen_block = (reader.summarize_run(grs).get("serving")
+                     or {}).get("generate") or {}
+        check("obs summary exposes the generation block",
+              gen_block.get("tokens") == 40
+              and (gen_block.get("tokens_per_s") or 0) > 0,
+              f"generate={gen_block}")
     except Exception as e:  # a crash is a failed smoke, with its trace
         logger.exception("serving smoke crashed")
         check("smoke completed without exception", False, repr(e))

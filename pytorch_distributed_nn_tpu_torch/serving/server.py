@@ -27,22 +27,32 @@ device batches. Only the scheduler threads run the engines.
 - ``GET /healthz`` — artifact identity + liveness (a draining process is
   still alive).
 - ``GET /readyz`` — 200 once warm and not draining, else 503.
+- ``X-Traffic-Class`` (``stable``, ``canary``, ``probe``) is the
+  admission class of ``POST /v1/infer``; another value is a 400.
 - ``GET /stats`` — served/dropped/shed counters, the queue bound,
   readiness and drain state, retraces, the engine's batches and
-  precision, the generative engine's state, the artifact identity and
-  uptime.
+  precision, the generative engine's state, the artifact identity,
+  uptime, the live SLO status (``slo``) and the deployment state of the
+  canary router (``router``).
+- ``POST /v1/admin/swap`` — needs ``X-Admin-Token`` equal to the server's
+  ``admin_token`` (403 otherwise, and always without one). Body
+  ``{"artifact": DIR_OR_VERSION}`` hot-swaps the stable side,
+  ``{"artifact": ..., "canary": true}`` starts a canary,
+  ``{"rollback": true}`` rolls the canary back, all through the router;
+  a generative server without a router takes ``{"artifact": DIR}`` only,
+  a direct swap that fences the outgoing engine's KV pages.
 
 Injected faults (``faults``: a :class:`~.faultinject.ServingFaultInjector`,
 ``serve run --faults``) act on ``POST /v1/infer`` and ``/v1/generate``
 before a body is read: ``conn_reset`` closes the connection with no
-status line, ``http_503`` answers 503. Admin swap, canaries and SLOs
-wait for ROADMAP Queue 1 item 6.
+status line, ``http_503`` answers 503.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -62,18 +72,26 @@ logger = logging.getLogger(__name__)
 
 class ServingServer:
     """Owns the listening socket over an infer ``batcher`` (a
-    :class:`~.batcher.Batcher`), a ``generator`` (a
+    :class:`~.batcher.Batcher`, or a :class:`~.router.CanaryRouter`, which
+    has the same ``submit`` surface), a ``generator`` (a
     :class:`~.generate.GenerateScheduler`), or both, as the JAX
-    ``ServingServer(engine, batcher, ..., generator=)``; ``engine`` is the
-    one ``/healthz`` and ``/stats`` report. ``port=0`` binds an ephemeral
-    port and ``self.port`` reports it."""
+    ``ServingServer``; ``engine`` is the one ``/healthz`` and ``/stats``
+    report. Pass the router again as ``router=`` to show its state on
+    ``/stats`` and to open the admin endpoint (with ``admin_token``);
+    ``slo`` is a live :class:`~..observability.slo.SLOEngine`. ``port=0``
+    binds an ephemeral port and ``self.port`` reports it."""
 
     def __init__(self, engine, batcher, host: str = "127.0.0.1",
-                 port: int = 8000, generator=None, faults=None):
+                 port: int = 8000, slo=None, router=None,
+                 admin_token: Optional[str] = None, generator=None,
+                 faults=None):
         if batcher is None and generator is None:
             raise ValueError("a server needs a batcher, a generator or both")
         self.engine = engine
         self.batcher = batcher
+        self.slo = slo
+        self.router = router
+        self.admin_token = admin_token
         self.generator = generator
         # serving fault injector (serving/faultinject.py): HTTP-layer hooks
         self.faults = faults
@@ -192,11 +210,83 @@ class ServingServer:
                                      else None),
                         "artifact": outer.engine.identity,
                         "uptime_s": round(time.time() - outer.started, 3),
+                        "slo": (outer.slo.status()
+                                if outer.slo is not None else None),
+                        "router": (outer.router.state()
+                                   if outer.router is not None else None),
                     })
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
+            def _do_admin_swap(self):
+                # a server started without a token has no admin surface
+                token = self.headers.get("X-Admin-Token")
+                if outer.admin_token is None or token != outer.admin_token:
+                    self._discard_body()
+                    self._reply(403, {
+                        "error": "admin token missing or wrong "
+                                 "(X-Admin-Token; server must be started "
+                                 "with --admin-token)"})
+                    return
+                if outer.router is None and outer.generator is None:
+                    self._discard_body()
+                    self._reply(400, {
+                        "error": "no router on this server — start with "
+                                 "a registry/canary configuration"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    doc = json.loads(self.rfile.read(n) or b"{}")
+                    if not isinstance(doc, dict):
+                        raise ValueError("body must be a JSON object")
+                except (ValueError, TypeError) as e:
+                    self._reply(400, {"error": f"bad request: {e}"})
+                    return
+                router = outer.router
+                try:
+                    if router is None:
+                        # a generative server: the scheduler fences the
+                        # outgoing engine's KV pages and re-prefills
+                        if not doc.get("artifact") or doc.get("canary") \
+                                or doc.get("rollback"):
+                            raise ValueError(
+                                "generative admin supports "
+                                "{'artifact': DIR} hot-swap only")
+                        v = outer.generator.swap(str(doc["artifact"]),
+                                                 source="admin")
+                        self._reply(200, {"status": "swapped",
+                                          "version": v})
+                    elif doc.get("rollback"):
+                        router.rollback("admin request", source="admin")
+                        self._reply(200, {"status": "rolled-back",
+                                          "router": router.state()})
+                    elif doc.get("artifact"):
+                        artifact = str(doc["artifact"])
+                        if router.registry is not None \
+                                and not os.path.isdir(artifact):
+                            # a version id or a label of the registry
+                            artifact = router.registry.resolve(
+                                artifact)["artifact"]
+                        if doc.get("canary"):
+                            v = router.start_canary(artifact,
+                                                    source="admin")
+                            self._reply(200, {"status": "canary",
+                                              "version": v})
+                        else:
+                            v = router.swap(artifact, source="admin")
+                            self._reply(200, {"status": "swapped",
+                                              "version": v})
+                    else:
+                        raise ValueError(
+                            "expected {'artifact': DIR[, 'canary': true]}"
+                            " or {'rollback': true}")
+                except (ValueError, RuntimeError, OSError) as e:
+                    self._reply(400, {"error": str(e)})
+
             def do_POST(self):
+                if self.path == "/v1/admin/swap":
+                    self._do_admin_swap()
+                    return
                 with outer._inflight_lock:
                     outer._inflight += 1
                 try:

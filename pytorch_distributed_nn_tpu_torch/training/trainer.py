@@ -1041,6 +1041,7 @@ class Trainer:
 
             sup = RunSupervisor(
                 c.train_dir, grace=c.heartbeat_grace,
+                telemetry=self.telemetry,
                 on_stall=(self._flightrec.notify_stall
                           if self._flightrec is not None else None))
             sup.extra["geometry"] = self._geometry

@@ -1222,3 +1222,135 @@ def test_cuda_bertbase_sharded_directory_round_trip(card, tmp_path):
     assert set(got) == set(want) and b.step == 1
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+def _two_artifacts(tmp_path, network, **model_kw):
+    """Random-init port checkpoints of ``network`` at steps 1 and 2
+    (other seeds), exported: {step: artifact dir}."""
+    from pytorch_distributed_nn_tpu_torch.models import build_model
+    from pytorch_distributed_nn_tpu_torch.optim import build_optimizer
+    from pytorch_distributed_nn_tpu_torch.serving.artifact import (
+        export_artifact,
+    )
+    from pytorch_distributed_nn_tpu_torch.training import checkpoint as ckpt
+    from pytorch_distributed_nn_tpu_torch.training.train_step import (
+        create_train_state,
+    )
+
+    text = network.startswith("Bert")
+    td = str(tmp_path / "td")
+    out = {}
+    for step in (1, 2):
+        model = build_model(network, 0 if text else 10, **model_kw)
+        model.init_weights(torch.Generator().manual_seed(step))
+        state = create_train_state(
+            model, lambda p: build_optimizer("sgd", p, 0.1), "cpu")
+        state.step = step
+        ckpt.save_checkpoint(td, state, step=step)
+        out[step] = str(tmp_path / f"art{step}")
+        export_artifact(td, out[step], step=step, network=network,
+                        num_classes=0 if text else 10, model_kw=model_kw)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("network", ["ResNet20", "BertTiny"])
+def test_cuda_shadow_equals_a_fresh_engine_with_tf32_off(card, tmp_path,
+                                                         network):
+    """A shadow engine on the card (the canary's second engine) gives a
+    fresh engine's logits on its artifact bit for bit, runs its forwards
+    with TF32 off while the process has it on, and shares the stable
+    engine's warm set: no retrace on either."""
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+
+    kw = {"dtype": "float32"} if network == "BertTiny" else {}
+    arts = _two_artifacts(tmp_path, network, **kw)
+    seq = {"seq_buckets": (8, 128)} if network == "BertTiny" else {}
+    stable = InferenceEngine(arts[1], batch_buckets=(1, 2, 4), device=card,
+                             **seq)
+    stable.warmup()
+    fresh = InferenceEngine(arts[2], batch_buckets=(1, 2, 4), device=card,
+                            **seq)
+    rng = np.random.RandomState(0)
+    if network == "BertTiny":
+        xs = [rng.randint(1, stable.vocab_size, size=n).astype(np.int32)
+              for n in (5, 77, 128)]
+    else:
+        xs = [rng.rand(32, 32, 3).astype(np.float32) for _ in range(3)]
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    try:
+        matmul.allow_tf32, cudnn.allow_tf32 = True, True
+        shadow = stable.shadow(arts[2])
+        seen = []
+        shadow.model.register_forward_hook(lambda *_: seen.append(
+            (matmul.allow_tf32, cudnn.allow_tf32)))
+        shadow.warm_thread()
+        got, stats = shadow.infer(xs)
+        want, _ = fresh.infer(xs)
+        torch.cuda.synchronize()
+        assert set(seen) == {(False, False)}
+        assert (matmul.allow_tf32, cudnn.allow_tf32) == (True, True)
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+    assert stats["version"] == fresh.version != stable.version
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert stable.retraces() == shadow.retraces() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_swap_between_batches_under_a_running_batcher(card, tmp_path):
+    """Requests stream through a Batcher on the card while the engine
+    swaps back and forth: each answer is wholly one version's logits
+    (the version it reports), and nothing is built after warmup."""
+    import threading
+
+    from pytorch_distributed_nn_tpu_torch.observability.core import (
+        Telemetry,
+    )
+    from pytorch_distributed_nn_tpu_torch.serving.batcher import Batcher
+    from pytorch_distributed_nn_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+
+    arts = _two_artifacts(tmp_path, "ResNet20")
+    engine = InferenceEngine(arts[1], batch_buckets=(1, 2, 4, 8),
+                             device=card)
+    engine.warmup()
+    x = np.random.RandomState(0).rand(32, 32, 3).astype(np.float32)
+    want = {}
+    for art in arts.values():
+        ref = InferenceEngine(art, batch_buckets=(1,), device=card)
+        out, stats = ref.infer([x])
+        want[stats["version"]] = out[0]
+    batcher = Batcher(engine, telemetry=Telemetry())
+    stop, answers = threading.Event(), []
+
+    def client():
+        while not stop.is_set():
+            req = batcher.submit(x, timeout_s=30.0)
+            answers.append((req.wait(timeout=60.0), req.version))
+
+    threads = [threading.Thread(target=client) for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        for i in range(10):
+            engine.swap(arts[2] if i % 2 == 0 else arts[1])
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        batcher.close()
+    assert engine.swaps == 10 and engine.retraces() == 0
+    assert len(answers) > 10 and {v for _, v in answers} <= set(want)
+    for out, version in answers:
+        # a coalesced batch's convolutions may sum in another order than
+        # one row's: 1e-4 (the engine's card-vs-CPU tolerance); the other
+        # version's logits are far off
+        for v, ref in want.items():
+            err = float(np.abs(out - ref).max())
+            assert err <= 1e-4 if v == version else err > 1e-2

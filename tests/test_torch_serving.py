@@ -220,13 +220,13 @@ def test_no_retrace_across_mixed_shapes(engines):
         assert engine.retraces() == 0
     # a shape warmup did not run counts as a retrace
     engine = engines["LeNet"]
-    engine._warm_shapes.discard((4, 28, 28, 1))
+    engine._warm.shapes.discard((4, 28, 28, 1))
     try:
         engine.infer(_inputs(engine, 3, seed=0))
         assert engine.retraces() == 1
     finally:
-        engine._warm_shapes.add((4, 28, 28, 1))
-        engine._cold_shapes = 0
+        engine._warm.shapes.add((4, 28, 28, 1))
+        engine._warm.cold = 0
 
 
 def test_engine_needs_a_card_unless_asked_for_the_cpu(arts):
@@ -236,10 +236,6 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(arts):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(arts["LeNet"])
-    for fn in ("swap", "shadow"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(InferenceEngine(arts["LeNet"], batch_buckets=(1,),
-                                    device="cpu"), fn)(arts["LeNet"])
 
 
 # -- the batcher -----------------------------------------------------------
@@ -658,19 +654,6 @@ def test_cli_serve_export_then_bench_on_the_cpu(arts, tmp_path):
     (r,) = rec["sweep"]
     assert r["offered_rps"] == 50.0 and r["served"] == r["submitted"] == 25
     assert os.path.exists(rec["stream"])
-
-
-def test_cli_serve_flags_of_later_items_raise(arts):
-    from pytorch_distributed_nn_tpu_torch import cli
-
-    for args, item in ((("--slo", "lat_p99<25ms@60s"), "item 6"),
-                       (("--registry", "r"), "item 6"),
-                       (("--flightrec", "default"), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["serve", "run", "--artifact", arts["LeNet"],
-                      "--device", "cpu", *args])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["serve", "frontend"])
 
 
 def test_cli_serve_run_answers_infer_and_drains_on_sigterm(arts, tmp_path):
