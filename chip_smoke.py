@@ -11,7 +11,8 @@ simulator), and streaming input from ``.pdsr`` shards (``data export``,
 the checkpointable ``StreamingLoader``, the native augment engine and the
 loader's worker pool), dp x tp x sp training, and the deployment
 lifecycle (the registry, hot swap, shadow canaries and their router,
-SLOs, the replicated frontend and the ``obs`` tools).
+SLOs, the replicated frontend and the ``obs`` tools), and the sweep
+(``sweep run``/``resume`` over spawned ResNet-18 trials).
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
@@ -310,19 +311,40 @@ Phases, each printed on its own line:
    no request lost, 429 with Retry-After past ``max_inflight``; (d)
    ``serve run --slo --flightrec slo_breach --faults DEPLOY_FAULTS``: one
    ``slo_breach``, one incident bundle, the port's ``obs slo check``,
-   ``obs summary`` and ``obs export`` (the exposition validates). Then
-   one JSON line listing the kernels (launches on the driven paths of
-   phases 4, 5, 8, 9, 10, 14, 15, 16 and 17, error against the plain
-   version, times, least possible time), and the result line ``{"ok":
-   true, "device": {...}}``.
+   ``obs summary`` and ``obs export`` (the exposition validates);
+18. the sweep (``sweep_phase(kernels, reference, seed, smi, repo, root,
+   data_path, phase5_ms)``): ``sweep run --device cuda --spec
+   SWEEP_SPEC`` as a subprocess, three ResNet-18 trials of phase 5's
+   int8 bf16 configuration (B 1024) from phase 15's CIFAR-10 shards, one
+   at a time, each a spawned child running the port's trainer; a SIGTERM
+   to the orchestrator once trial 1's stream shows a step past its
+   step-10 checkpoint (rc 3), then ``sweep resume`` (rc 0): trial 0's
+   ``trial_end`` record byte for byte as it was, trial 1 started again
+   with ``resume: true`` and completed at 20 steps, its losses at steps
+   1-20 bit for bit those of an uninterrupted in-process ``Trainer`` run
+   of phase 5's config built apart from the journal (the journal's base
+   config may differ from it only in SWEEP_UNREACHED; exactly 20 grouped
+   quantize launches, its last step's sync bit for bit the plain grouped
+   quantizer's), every lifetime of every trial counting one grouped
+   quantize launch for each step its stream holds, ``sweep report
+   --json`` ranked by trailing loss (a non-finite trial last, with its
+   ``nonfinite_skip`` event), ``obs summary`` of a trial directory and
+   ``sweep --selftest``; each trial's wall, spawn-to-first-step and
+   median step ms beside phase 5's and the card's name and power limit.
+   Then one JSON line listing the kernels (launches on the driven paths
+   of phases 4, 5, 8, 9, 10, 14, 15, 16, 17 and 18, error against the
+   plain version, times, least possible time), and the result line
+   ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
 f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8, each training run of
 phases 9, 10, 14, 15 and 16, the engines' batches and the swapped burst
-of phase 17) and read just after; the evaluator subprocess counts its
-own.
+of phase 17, phase 18's in-process reference run) and read just after;
+the evaluator subprocess and each lifetime of a sweep's trial count
+their own from 0. Phase 18's line of the kernels counts the trials'
+launches, not its reference run's.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -2050,7 +2072,8 @@ def bert_checkpoints(kernels, seed, root, repo):
     final state), two faulty resumes the check must tell apart (the data
     stream one batch on, the dropout generator seeded once and never
     again, as the port's was), and the evaluator subprocess polling the
-    same train_dir meanwhile."""
+    same train_dir meanwhile. The uninterrupted run trains while step 2's
+    file is written, and the faulty resumes while step 4's is."""
     import dataclasses
     import math
     import shutil
@@ -2065,6 +2088,7 @@ def bert_checkpoints(kernels, seed, root, repo):
     faulty_dir = os.path.join(root, "bert_faulty")
     log_path = os.path.join(root, "evaluator.log")
     proc, err = start_evaluator(repo, d, seed, log_path)
+    straight = None
     try:
         cfg = train_config("BertBase", 2, seed=seed, eval_freq=2,
                            keep_last=1, train_dir=d)
@@ -2072,6 +2096,11 @@ def bert_checkpoints(kernels, seed, root, repo):
         try:
             t1.train()
             ev2 = t1.evaluate()
+            # the uninterrupted run trains while the step-2 file is
+            # written (the codec's thread leaves the card idle)
+            straight = Trainer(train_config("BertBase", 4, seed=seed))
+            want = straight.train()
+            ref = [r["loss"] for r in want[2:4]]
         finally:
             t1.close()
         path2 = checked_checkpoint(ckpt, d, [2], "BertBase")
@@ -2096,6 +2125,26 @@ def bert_checkpoints(kernels, seed, root, repo):
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
             ev4 = t2.evaluate()
+            sound = {"losses": [r["loss"] for r in resumed],
+                     **state_gaps(t2, straight)}
+            # the faulty resumes run while the step-4 file is written
+            faulty = {}
+            for fault in ("data stream one batch on", "dropout seeded once"):
+                t = Trainer(train_config("BertBase", 4, seed=seed,
+                                         resume=True, train_dir=faulty_dir))
+                try:
+                    if fault.startswith("data"):
+                        t.train_loader.skip(1)
+                    else:
+                        t.state.dropout_generator.manual_seed(t.state.seed)
+                        t.state.dropout_generator = None  # the model's
+                    faulty[fault] = {
+                        "losses": [r["loss"] for r in t.train()],
+                        **state_gaps(t, straight)}
+                finally:
+                    t.close()
+                del t
+                torch.cuda.empty_cache()
         finally:
             t2.close()
         path = checked_checkpoint(ckpt, d, [4], "BertBase resumed")
@@ -2110,37 +2159,13 @@ def bert_checkpoints(kernels, seed, root, repo):
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=60)
+        if straight is not None:
+            straight.close()
+    del straight, t2
+    torch.cuda.empty_cache()
     expect_launches(kernels, launches, per_step, 2, "BertBase resumed")
     stream = read_stream(os.path.join(d, "telemetry.jsonl"))
     writes = write_events(stream, [2, 4], "BertBase")
-    straight = Trainer(train_config("BertBase", 4, seed=seed))
-    try:
-        want = straight.train()
-        ref = [r["loss"] for r in want[2:4]]
-        sound = {"losses": [r["loss"] for r in resumed],
-                 **state_gaps(t2, straight)}
-        del t2
-        torch.cuda.empty_cache()
-        faulty = {}
-        for fault in ("data stream one batch on", "dropout seeded once"):
-            t = Trainer(train_config("BertBase", 4, seed=seed, resume=True,
-                                     train_dir=faulty_dir))
-            try:
-                if fault.startswith("data"):
-                    t.train_loader.skip(1)
-                else:
-                    t.state.dropout_generator.manual_seed(t.state.seed)
-                    t.state.dropout_generator = None  # the model keeps it
-                faulty[fault] = {"losses": [r["loss"] for r in t.train()],
-                                 **state_gaps(t, straight)}
-            finally:
-                t.close()
-            del t
-            torch.cuda.empty_cache()
-    finally:
-        straight.close()
-    del straight
-    torch.cuda.empty_cache()
     for r in (sound, *faulty.values()):
         r["loss_gap"] = max(abs(x - y) for x, y in zip(r["losses"], ref))
     got = sound["losses"]
@@ -5589,6 +5614,373 @@ def post(url, doc, timeout=120.0, headers=None):
         return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
 
 
+# -- phase 18: the sweep ----------------------------------------------------
+
+#: the two ends and the middle of the reference tune.sh grid
+SWEEP_SPEC = "lr=0.4,0.05,0.00625"
+SWEEP_STEPS = 20
+SWEEP_CKPT_EVERY = 10
+SWEEP_TAIL = 5
+#: the trial interrupted: its stream must show a step past its first
+#: checkpoint before the SIGTERM
+SWEEP_TRIAL = 1
+#: the fields in which sweep run's base config may differ from phase 5's:
+#: those the spec and the runner set for each trial, phase 5's lr decay
+#: (its first decay follows update RESNET_DECAY_STEPS, not reached in
+#: SWEEP_STEPS) and its data layout (a shard directory streams either way)
+SWEEP_UNREACHED = ("lr", "seed", "max_steps", "train_dir", "eval_freq",
+                   "log_every", "lr_decay_steps", "data_layout")
+
+
+def sweep_cli(repo, root, args, name):
+    """Start ``python -m pytorch_distributed_nn_tpu_torch ARGS`` with its
+    output in ``root/<name>.log`` (the trials write there too: a pipe
+    nobody reads could fill and stop them), in a process group of its
+    own, which its spawned trials join."""
+    out = open(os.path.join(root, f"{name}.log"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch",
+             *args], cwd=repo, stdout=out, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True), out
+    except BaseException:
+        out.close()
+        raise
+
+
+def sweep_kill(proc) -> int:
+    """SIGKILL the command and every trial it spawned (its group)."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    return proc.wait()
+
+
+def sweep_wait(proc_out, root, name, want_rc, timeout=600.0):
+    """Wait for the command (killing its group past ``timeout``); fail
+    unless it exited ``want_rc``. Returns its output."""
+    proc, out = proc_out
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = sweep_kill(proc)
+    finally:
+        out.close()
+    with open(os.path.join(root, f"{name}.log")) as f:
+        text = f.read()
+    if rc != want_rc:
+        fail(f"phase 18 {name} exited {rc}, not {want_rc}: {text[-4000:]}")
+    return text
+
+
+def stream_steps(path):
+    """{step: record} of a trial's stream, the latest record of a step
+    winning (a resumed trial replays none, but the reader's rule is
+    this), and the stream's records in order, up to a line being
+    written."""
+    recs = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    recs.append(json.loads(line))
+                except ValueError:  # a line being written
+                    break
+    return {r["step"]: r for r in recs if r.get("kind") == "step"}, recs
+
+
+def sweep_trial_launches(sdir, jstate):
+    """The kernel launches the sweep's trials counted themselves: every
+    lifetime of every trial launched quantize_int8_scaled once for each
+    step record its stream holds after that lifetime's manifest, and
+    nothing else, and each trial's lifetimes add up to SWEEP_STEPS steps.
+    Returns the sums over all trials and each trial's lifetimes as
+    [start step, steps]."""
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        journal as jr,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.runner import (
+        LAUNCHES_BASENAME,
+    )
+
+    total, lives = {}, {}
+    for idx in sorted(jstate.trials):
+        tdir = jr.trial_dir(sdir, idx)
+        path = os.path.join(tdir, LAUNCHES_BASENAME)
+        if not os.path.exists(path):
+            fail(f"phase 18: trial {idx} counted no launches ({path})")
+        with open(path) as f:
+            counted = [json.loads(line) for line in f]
+        streamed = []
+        for r in stream_steps(os.path.join(tdir, "telemetry.jsonl"))[1]:
+            if r.get("kind") == "manifest":
+                streamed.append([r.get("start_step"), 0])
+            elif r.get("kind") == "step" and streamed:
+                streamed[-1][1] += 1
+        got = [[c["start_step"], c["steps"]] for c in counted]
+        if got != streamed or sum(n for _, n in got) != SWEEP_STEPS:
+            fail(f"phase 18: trial {idx}'s counted lifetimes {got} are not "
+                 f"its stream's {streamed} of {SWEEP_STEPS} steps")
+        for c in counted:
+            want = {k: c["steps"] if k == "quantize_int8_scaled" else 0
+                    for k in c["launches"]}
+            if c["launches"] != want:
+                fail(f"phase 18: trial {idx}'s lifetime from step "
+                     f"{c['start_step']} launched {c['launches']}, not "
+                     f"{want}")
+            for k, v in c["launches"].items():
+                total[k] = total.get(k, 0) + v
+        lives[idx] = got
+    return total, lives
+
+
+def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
+                phase5_ms):
+    """Phase 18: the sweep over spawned ResNet-18 trials, interrupted and
+    resumed, against an uninterrupted in-process run of the interrupted
+    trial. Returns the facts and the launches the trials counted."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        journal as jr,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments import report
+    from pytorch_distributed_nn_tpu_torch.experiments.spec import SweepSpec
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    sdir = os.path.join(root, "sweep")
+    selftest = sweep_cli(repo, root, ["sweep", "--selftest"], "selftest")
+    run = sweep_cli(repo, root, [
+        "sweep", "run", "--sweep-dir", sdir, "--spec", SWEEP_SPEC,
+        "--network", "ResNet18", "--dataset", "Cifar10",
+        "--batch-size", str(RESNET_B), "--test-batch-size", "1000",
+        "--momentum", "0.9", "--dtype", "bfloat16",
+        "--compress-grad", "int8", "--synthetic-size", str(RESNET_DATA),
+        "--data-path", data_path, "--steps", str(SWEEP_STEPS),
+        "--ckpt-every", str(SWEEP_CKPT_EVERY), "--tail", str(SWEEP_TAIL),
+        "--concurrency", "1", "--retries", "1", "--device", "cuda"],
+        "sweep_run")
+    try:
+        stream = os.path.join(jr.trial_dir(sdir, SWEEP_TRIAL),
+                              "telemetry.jsonl")
+        deadline = time.monotonic() + 400.0
+        seen = 0
+        # (c)'s reference, while trial 0 starts (a trial takes ~20 s to
+        # its first step, the card idle): phase 5's configuration with the
+        # trial's lr and seed, on the same shards, with no checkpoint and
+        # no supervisor, neither of which touches the numbers. It is built
+        # apart from the journal, which the CLI under test wrote, and the
+        # journal's base config may differ from it only in the fields
+        # SWEEP_UNREACHED lists
+        base = None
+        while base is None or base.manifest is None:
+            if run[0].poll() is not None or time.monotonic() > deadline:
+                fail("phase 18: the sweep wrote no journal: "
+                     + sweep_wait(run, root, "sweep_run", run[0].wait()))
+            time.sleep(0.05)
+            base = jr.load_journal(sdir)
+        trial = SweepSpec.parse(
+            SWEEP_SPEC, sweep_seed=base.sweep_meta["sweep_seed"]).trials()[
+                SWEEP_TRIAL]
+        ref_cfg = dataclasses.replace(
+            resnet_config("int8", SWEEP_STEPS, trial.seed),
+            data_path=data_path, train_dir=os.path.join(
+                root, "sweep_reference"), eval_freq=0, log_every=1,
+            **trial.overrides)
+        want_base = json.loads(json.dumps(dataclasses.asdict(ref_cfg)))
+        differ = sorted(k for k, v in want_base.items()
+                        if base.base_config.get(k) != v)
+        if set(differ) - set(SWEEP_UNREACHED):
+            fail("phase 18: sweep run's base config differs from phase 5's "
+                 "in " + ", ".join(
+                     f"{k}: {base.base_config.get(k)!r} (phase 5 "
+                     f"{want_base[k]!r})"
+                     for k in differ if k not in SWEEP_UNREACHED))
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        # a trial process runs at PyTorch's defaults, cuDNN deterministic
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            trainer = Trainer(ref_cfg)
+            try:
+                kernels.reset_launch_counts()
+                history = trainer.train()
+                torch.cuda.synchronize()
+                launches = kernels.launch_counts()
+                n_leaves, n_big = resnet_sync_check(trainer, reference)
+            finally:
+                trainer.close()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = flags
+        torch.cuda.empty_cache()
+        # a. the SIGTERM, once the trial's stream is past its checkpoint
+        while seen <= SWEEP_CKPT_EVERY:
+            if run[0].poll() is not None or time.monotonic() > deadline:
+                text = sweep_wait(run, root, "sweep_run", sweep_kill(run[0]))
+                fail(f"phase 18: trial {SWEEP_TRIAL}'s stream never passed "
+                     f"step {SWEEP_CKPT_EVERY} (last {seen}): {text[-4000:]}")
+            time.sleep(0.1)
+            seen = max(stream_steps(stream)[0], default=0)
+        t_term = time.perf_counter()
+        run[0].send_signal(signal.SIGTERM)
+        run_log = sweep_wait(run, root, "sweep_run", 3, timeout=120)
+        term_s = time.perf_counter() - t_term
+        with open(jr.journal_path(sdir)) as f:
+            before = [line for line in f if '"trial_end"' in line]
+        ends0 = [x for x in before if json.loads(x).get("trial") == 0]
+        if len(ends0) != 1 or json.loads(ends0[0])["status"] != "completed":
+            fail(f"phase 18: trial 0's trial_end records before the resume: "
+                 f"{ends0}")
+        # b. the resume
+        t0 = time.perf_counter()
+        resume_log = sweep_wait(sweep_cli(repo, root, [
+            "sweep", "resume", "--sweep-dir", sdir, "--device", "cuda"],
+            "sweep_resume"), root, "sweep_resume", 0)
+        resume_s = time.perf_counter() - t0
+        jstate = jr.load_journal(sdir)
+        with open(jr.journal_path(sdir)) as f:
+            after = [line for line in f if '"trial_end"' in line]
+        # (a) trial 0 reused: its one record, byte for byte
+        if [x for x in after if json.loads(x).get("trial") == 0] != ends0:
+            fail("phase 18 (a): trial 0's trial_end record changed across the "
+                 "resume")
+        # (b) trial 1 restarted with resume, completed at the budget
+        st = jstate.trials.get(SWEEP_TRIAL)
+        starts = [e for e in jstate.events if e.get("type") == "trial_start"
+                  and e.get("trial") == SWEEP_TRIAL]
+        if st is None or st.status != "completed" or len(starts) != 2 \
+                or starts[1].get("resume") is not True \
+                or st.last_end.get("steps") != SWEEP_STEPS \
+                or any(e["seed"] != trial.seed
+                       or e["overrides"] != trial.overrides for e in starts):
+            fail(f"phase 18 (b): trial {SWEEP_TRIAL}: starts {starts}, end "
+                 f"{None if st is None else st.last_end}")
+        preempts = [e for e in jstate.events if e.get("type") == "preempt"]
+        if len(preempts) != 1 or preempts[0].get("running") != [SWEEP_TRIAL]:
+            fail(f"phase 18: preempt events {preempts}")
+        steps, recs = stream_steps(stream)
+        manifests = [r for r in recs if r.get("kind") == "manifest"]
+        lifetimes = [m.get("start_step") for m in manifests]
+        if len(manifests) != 2 or not SWEEP_CKPT_EVERY <= lifetimes[1] < \
+                SWEEP_STEPS:
+            fail(f"phase 18 (b): trial {SWEEP_TRIAL}'s lifetimes start at "
+                 f"{lifetimes}")
+        expect_launches(kernels, launches, {"quantize_int8_scaled": 1},
+                        SWEEP_STEPS, "phase 18 in-process run")
+        trial_launches, lives = sweep_trial_launches(sdir, jstate)
+        want = [r["loss"] for r in history]
+        got = [steps[i]["loss"] if i in steps else None
+               for i in range(1, SWEEP_STEPS + 1)]
+        if got != want:
+            bad = [i + 1 for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"phase 18 (c): trial {SWEEP_TRIAL}'s losses differ from the "
+                 f"uninterrupted run at steps {bad}: {got} vs {want}")
+        # (d) the report ranks by trailing loss, a non-finite trial last
+        rows = json.loads(finish_cli(run_cli(repo, [
+            "sweep", "report", "--sweep-dir", sdir, "--json", "--tail",
+            str(SWEEP_TAIL)]), "phase 18 sweep report"))
+        losses = [r["loss"] for r in rows]
+        finite = [x for x in losses if x is not None and math.isfinite(x)]
+        if [r["status"] for r in rows] != ["completed"] * 3 \
+                or losses[:len(finite)] != sorted(finite):
+            fail(f"phase 18 (d): report rows {rows}")
+        for r in rows:
+            tstream = os.path.join(jr.trial_dir(sdir, r["trial"]),
+                                   "telemetry.jsonl")
+            trail = report.trailing_loss(
+                list(stream_steps(tstream)[0].values()), tail=SWEEP_TAIL)
+            skips = [e for e in jstate.events if e.get("type") ==
+                     "nonfinite_skip" and e.get("trial") == r["trial"]]
+            if r["loss"] != trail or bool(skips) != (not math.isfinite(trail)):
+                fail(f"phase 18 (d): trial {r['trial']}: report {r['loss']}, "
+                     f"stream {trail}, nonfinite_skip {skips}")
+        # (e) obs summary reads a trial directory as it is
+        summary = finish_cli(run_cli(repo, [
+            "obs", "summary", jr.trial_dir(sdir, SWEEP_TRIAL)]),
+            "phase 18 obs summary")
+        if f"steps: {SWEEP_STEPS} (1..{SWEEP_STEPS})" not in summary:
+            fail(f"phase 18 (e): obs summary: {summary[:2000]}")
+        # (f) the selftest, started with the phase
+        selftest_out = sweep_wait(selftest, root, "selftest", 0, timeout=120)
+    finally:
+        for proc, _ in (selftest, run):
+            if proc.poll() is None:
+                sweep_kill(proc)
+    # the trials' times: each attempt from its trial_start to its
+    # trial_end (the interrupted one to the preempt event), the spawn to
+    # its first step, the median step of its steps after the first two
+    trials = []
+    for idx in sorted(jstate.trials):
+        tdir = jr.trial_dir(sdir, idx)
+        st_steps, st_recs = stream_steps(os.path.join(tdir,
+                                                      "telemetry.jsonl"))
+        t_starts = [e for e in jstate.events if e.get("type") ==
+                    "trial_start" and e.get("trial") == idx]
+        t_ends = [e for e in jstate.events if e.get("type") == "trial_end"
+                  and e.get("trial") == idx]
+        wall = sum(e["duration_s"] for e in t_ends)
+        if idx == SWEEP_TRIAL:
+            wall += preempts[0]["time"] - t_starts[0]["time"]
+        firsts = []
+        for e in t_starts:
+            later = [r["time"] for r in st_recs if r.get("kind") == "step"
+                     and r["time"] >= e["time"]]
+            firsts.append(min(later) - e["time"])
+        ms = sorted(st_steps[i]["step_ms"] for i in st_steps if i > 2)
+        trials.append({
+            "trial": idx, "lr": t_starts[0]["overrides"]["lr"],
+            "attempts": len(t_starts), "wall_s": wall,
+            "spawn_to_first_step_s": firsts,
+            "median_step_ms": ms[len(ms) // 2],
+            "loss": next(r["loss"] for r in rows if r["trial"] == idx)})
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 18 sweep ({smi}): sweep run --spec {SWEEP_SPEC} --steps "
+        f"{SWEEP_STEPS} --ckpt-every {SWEEP_CKPT_EVERY} --concurrency 1 "
+        f"--retries 1 --device cuda, ResNet18 B={RESNET_B} bf16 int8 from "
+        f"the CIFAR-10 shards; SIGTERM at trial {SWEEP_TRIAL}'s step "
+        f"{seen}: rc 3 after {term_s:.3f} s, the trial's emergency "
+        f"checkpoint at step {lifetimes[1]}; sweep resume rc 0 in "
+        f"{resume_s:.3f} s: (a) trial 0's trial_end byte for byte, (b) "
+        f"trial {SWEEP_TRIAL} resumed at step {lifetimes[1]} and completed "
+        f"at {SWEEP_STEPS}, (c) its losses at steps 1-{SWEEP_STEPS} bit "
+        f"for bit an uninterrupted in-process run's ({launches} launches; "
+        f"its sync over {n_leaves} leaves, {n_big} through the kernel, bit "
+        f"for bit the plain grouped quantizer's; base config as phase 5's "
+        f"but for {differ}), the trials' own counts {trial_launches} over "
+        f"lifetimes [start step, steps] {lives}, (d) report ranked "
+        f"{[(r['trial'], r['loss']) for r in rows]}, (e) obs summary of "
+        f"the trial directory, (f) sweep --selftest "
+        f"({selftest_out.strip().splitlines()[-1]}); phase {seconds:.1f} s")
+    for t in trials:
+        firsts = [round(x, 3) for x in t["spawn_to_first_step_s"]]
+        log(f"phase 18 trial {t['trial']} (lr {t['lr']:g}; {smi}): "
+            f"{t['attempts']} attempt(s), wall {t['wall_s']:.3f} s, spawn "
+            f"to first step {firsts} s, median step "
+            f"{t['median_step_ms']:.3f} ms (phase 5 {phase5_ms:.3f} ms), "
+            f"trailing loss {t['loss']}")
+    return {"trials": trials, "rows": rows, "sigterm_at_step": seen,
+            "resumed_at": lifetimes[1], "term_s": term_s,
+            "resume_s": resume_s, "launches": trial_launches,
+            "lifetimes": lives, "reference_launches": launches,
+            "base_differs_in": differ,
+            "reference_losses": want, "seconds": seconds,
+            "run_log_tail": run_log[-2000:],
+            "resume_log_tail": resume_log[-2000:]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6209,11 +6601,18 @@ def main() -> int:
                                 root)
         # -- 9-13. faults, the flight recorder, the profiler, TF32, elastic
         mark("9")
-        serve_faults = serve_fault_phase(repo, root)
         faults = fault_phase(kernels, args.seed, root)
         prof = profile_phase(kernels, args.seed, root)
-        tf32 = tf32_phase(repo, root)
-        elastic = elastic_phase(repo, root)
+        # 11-13 check outcomes, not times (11's slow requests against its
+        # 200 ms): they run together, each mostly waiting on subprocesses
+        mark("11-13")
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(3) as pool:
+            futures = [pool.submit(fn, repo, root) for fn in (
+                serve_fault_phase, tf32_phase, elastic_phase)]
+        # a phase's fail() is re-raised here
+        serve_faults, tf32, elastic = (f.result() for f in futures)
         # -- 14. the gradient sync ----------------------------------------
         mark("14")
         sync = sync_phase(kernels, reference, args.seed, smi, root)
@@ -6229,11 +6628,16 @@ def main() -> int:
         mark("17")
         deploy = deploy_phase(kernels, args.seed, smi, repo, root,
                               os.path.join(root, "resnet_artifact_none"))
+        # -- 18. the sweep ------------------------------------------------
+        mark("18")
+        sweep_facts = sweep_phase(kernels, reference, args.seed, smi, repo,
+                                  root, os.path.join(root, "cifar10_shards"),
+                                  resnet["step_ms"])
     report["serving"] = serving
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
                   tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run,
-                  deploy=deploy)
+                  deploy=deploy, sweep=sweep_facts)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
@@ -6298,7 +6702,8 @@ def main() -> int:
                           + sync["launches"].get(e["name"], 0)
                           + stream["launches"].get(e["name"], 0)
                           + spmd_run["launches"].get(e["name"], 0)
-                          + deploy["launches"].get(e["name"], 0))
+                          + deploy["launches"].get(e["name"], 0)
+                          + sweep_facts["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(

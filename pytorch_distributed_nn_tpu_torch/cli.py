@@ -130,6 +130,25 @@ are the registry of serving artifacts (``registry.json`` in the JAX
 package's ``pdtn-registry-v1`` format; ``--selftest`` checks its
 invariants) and the stream tools over ``telemetry.jsonl`` and
 ``serving.jsonl`` (host-side: no card).
+
+    python -m pytorch_distributed_nn_tpu_torch sweep run --sweep-dir S \
+        [--spec 'lr=0.4,0.05,0.00625'] [--scheduler grid|asha] \
+        [--steps 100] [--ckpt-every N] [--concurrency 2] [--retries 1] \
+        [base config flags] [--device cpu]
+    python -m pytorch_distributed_nn_tpu_torch sweep \
+        {status|report|resume} --sweep-dir S
+    python -m pytorch_distributed_nn_tpu_torch sweep --selftest
+    python -m pytorch_distributed_nn_tpu_torch tune [train flags] \
+        [--candidates 0.1,0.01] [--tune-steps 100] [--device cpu]
+
+are the JAX package's sweep orchestrator and lr grid search, with its
+flags, journal (``S/sweep.jsonl``), trial directories and exit codes (0;
+1 trials failed; 2 bad input or journal; 3 SIGTERM, continued by
+``sweep resume``). Each trial attempt is a spawned process training the
+port's ``Trainer`` on ``--device`` (default: the card); the orchestrating
+process imports no torch. ``sweep run`` adds ``--compress-grad`` to the
+JAX base flags and refuses ``--plan-mesh`` until the cost model is
+ported.
 """
 
 from __future__ import annotations
@@ -1048,6 +1067,376 @@ def main_registry(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
+def main_tune(argv: Optional[Sequence[str]] = None) -> int:
+    """LR grid search (reference: src/tune.sh + src/tiny_tuning_parser.py),
+    a shim over the sweep runner: candidates run as spawned subprocesses
+    under a bounded pool on ``--device`` (default: the card), every trial
+    writes a telemetry stream, and the sweep is journaled under
+    ``<train-dir>/lr_sweep`` — a killed tune continues where it stopped.
+    ``sweep`` is the full surface (ASHA scheduler, arbitrary fields).
+    """
+    p = argparse.ArgumentParser("pdtn-tune", description=main_tune.__doc__)
+    _add_train_flags(p)
+    p.add_argument("--candidates", default=None,
+                   help="comma-separated lr candidates "
+                        "(default: the reference's tune.sh grid)")
+    p.add_argument("--tune-steps", type=int, default=100,
+                   help="steps per candidate (reference: tune.sh "
+                        "--max-steps=100)")
+    p.add_argument("--concurrency", type=int, default=2,
+                   help="concurrent candidate subprocesses (keep 1 on a "
+                        "card: trials share it)")
+    p.add_argument("--sweep-dir", default=None,
+                   help="journal + per-trial dirs (default: "
+                        "<train-dir>/lr_sweep)")
+    args = p.parse_args(argv)
+
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+    from pytorch_distributed_nn_tpu_torch.tuning import (
+        DEFAULT_CANDIDATES,
+        lr_sweep,
+    )
+
+    # the fields the JAX tune sets, and no others
+    cfg = TrainConfig(
+        network=args.network, dataset=args.dataset,
+        batch_size=args.batch_size, test_batch_size=args.test_batch_size,
+        momentum=args.momentum, optimizer=args.optimizer,
+        num_workers=args.num_workers, sync_mode=args.sync_mode,
+        num_aggregate=args.num_aggregate, compression=args.compress_grad,
+        seed=args.seed, dtype=args.dtype, data_dir=args.data_dir,
+        train_dir=args.train_dir,
+        synthetic_size=args.synthetic_size, log_every=10**9,
+        seq_len=args.seq_len, vocab_size=args.vocab_size,
+        mask_prob=args.mask_prob, corpus_branching=args.corpus_branching,
+        attn_impl=args.attn_impl,
+    )
+    candidates = (
+        tuple(float(c) for c in args.candidates.split(","))
+        if args.candidates else DEFAULT_CANDIDATES
+    )
+    try:
+        results = lr_sweep(cfg, candidates, steps=args.tune_steps,
+                           sweep_dir=args.sweep_dir,
+                           concurrency=args.concurrency,
+                           trial_device=args.device)
+    except ValueError as e:
+        # e.g. an interrupted tune's journal records a different grid
+        print(f"tune: {e}", file=sys.stderr)
+        return 2
+    for r in results:
+        print(f"lr {r.lr:g}: final loss {r.final_loss:.4f}")
+    print(f"best lr: {results[0].lr:g}")
+    return 0
+
+
+def _add_pool_flags(sp) -> None:
+    """The trial-pool knobs of ``sweep run`` and ``sweep resume``."""
+    sp.add_argument("--concurrency", type=int, default=None,
+                    help="concurrent trial subprocesses (default 2; "
+                         "keep 1 on a card)")
+    sp.add_argument("--trial-timeout", type=float, default=None,
+                    metavar="SECS",
+                    help="per-attempt wall budget; a trial past it is "
+                         "terminated (SIGTERM -> emergency checkpoint) "
+                         "and retried")
+    sp.add_argument("--retries", type=int, default=None,
+                    help="extra attempts per trial after a "
+                         "crash/timeout (default 1); retried attempts "
+                         "resume from the trial's last checkpoint")
+    sp.add_argument("--heartbeat-grace", type=float, default=None,
+                    metavar="SECS",
+                    help="convict a RUNNING trial whose heartbeat "
+                         "goes quiet past this many seconds: it is "
+                         "terminated and re-queued immediately instead "
+                         "of waiting out --trial-timeout")
+    sp.add_argument("--json", action="store_true",
+                    help="emit the result record as JSON on stdout")
+    sp.add_argument("--device", default=None,
+                    help="the trials' torch device (default: the card; "
+                         "'cpu' trains on the CPU)")
+
+
+def _sweep_finish(result: dict, as_json: bool) -> int:
+    """Shared tail of ``sweep run``/``resume``: print + exit code."""
+    import json
+
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        render_leaderboard,
+    )
+
+    if as_json:
+        print(json.dumps(result, default=str))
+    else:
+        print(
+            f"sweep {result['scheduler']}: {result['trials']} trial(s), "
+            f"{len(result['rungs'])} rung(s), "
+            f"{result['executed_steps']} step(s) executed of "
+            f"{result['planned_steps']} planned, "
+            f"{result['wall_s']:.1f}s wall"
+        )
+        print(render_leaderboard(result["leaderboard"]))
+        if result["best"] is not None:
+            best = result["best"]
+            cfg_s = " ".join(
+                f"{k}={v}" for k, v in best["overrides"].items()
+            )
+            print(f"best: trial {best['trial']} ({cfg_s}) "
+                  f"loss {best['loss']:.4f}")
+        if result["failed"]:
+            print(f"{len(result['failed'])} trial(s) failed after "
+                  f"retries: {result['failed']}", file=sys.stderr)
+    return 1 if result["failed"] else 0
+
+
+def _sweep_interrupted(e, sweep_dir: str) -> int:
+    print(f"sweep interrupted: {e} — continue with "
+          f"'sweep resume --sweep-dir {sweep_dir}'", file=sys.stderr)
+    return 3
+
+
+def main_sweep(argv: Optional[Sequence[str]] = None) -> int:
+    """Sweep orchestrator (``experiments/``), with the JAX ``sweep``'s
+    flags and exit codes (0; 1 trials failed; 2 bad input or journal; 3
+    interrupted), plus ``--device`` on ``run`` and ``resume``.
+
+    - ``run``     — execute a sweep spec: N trials as supervised
+      spawned subprocesses (bounded concurrency, per-trial timeout +
+      retry with backoff), full-grid or ASHA-style successive-halving
+      scheduling, everything journaled in ``<sweep-dir>/sweep.jsonl``.
+    - ``resume``  — continue an interrupted sweep from its journal:
+      completed trials are skipped (results reused byte-identically),
+      dead trials re-queued, in-flight trials resume from their last
+      valid checkpoint.
+    - ``status``  — per-trial state straight off the journal.
+    - ``report``  — ranked leaderboard with trailing-loss, step-rate and
+      MFU columns sourced from the trial telemetry streams.
+    - ``--selftest`` — <15 s scheduler/journal invariant gate.
+
+    The orchestrating process imports no torch; only the trials do.
+    """
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    if "--selftest" in argv:
+        from pytorch_distributed_nn_tpu_torch.experiments.selftest import (
+            run_selftest,
+        )
+
+        return run_selftest()
+
+    p = argparse.ArgumentParser("pdtn-sweep", description=main_sweep.__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("run", help="execute a sweep spec")
+    pr.add_argument("--sweep-dir", required=True,
+                    help="journal + trials/<id>/ live here")
+    pr.add_argument("--spec", default=None,
+                    help="sweep spec, e.g. 'lr=0.1,0.01;batch_size=32,64' "
+                         "or 'lr=log:1e-4..1e-1' with --samples "
+                         "(default: the reference tune.sh lr grid)")
+    pr.add_argument("--samples", type=int, default=None,
+                    help="random search: number of trials drawn from the "
+                         "spec's ranges/lists")
+    pr.add_argument("--sweep-seed", type=int, default=0,
+                    help="seeds trial enumeration AND per-trial seeds "
+                         "(SeedSequence((sweep_seed, trial_index)))")
+    pr.add_argument("--steps", type=int, default=100,
+                    help="full per-trial step budget (tune.sh: 100)")
+    pr.add_argument("--tail", type=int, default=10,
+                    help="trailing-loss ranking window")
+    pr.add_argument("--scheduler", choices=["grid", "asha"], default="grid",
+                    help="asha: successive-halving rungs — the top 1/eta "
+                         "per rung continue (via checkpoint resume) to "
+                         "eta x the budget")
+    pr.add_argument("--eta", type=int, default=3,
+                    help="asha reduction factor")
+    pr.add_argument("--min-steps", type=int, default=None,
+                    help="asha: first-rung budget (default: derived from "
+                         "the trial count)")
+    pr.add_argument("--ckpt-every", type=int, default=None,
+                    help="per-trial checkpoint cadence (default: one "
+                         "checkpoint at the rung budget); set it so a "
+                         "killed sweep resumes trials mid-rung")
+    pr.add_argument("--resume", action="store_true",
+                    help="continue this sweep-dir's journal")
+    pr.add_argument("--plan-mesh", type=int, default=0, metavar="DEVICES",
+                    help="the JAX package's planner hook; refused until "
+                         "the port has its cost model (ROADMAP item 7d)")
+    # base config: every trial starts from these and applies its overrides
+    pr.add_argument("--network", default="LeNet")
+    pr.add_argument("--dataset", default="MNIST",
+                    choices=["MNIST", "Cifar10", "Cifar100", "SVHN",
+                             "MLMSynth"])
+    pr.add_argument("--batch-size", type=int, default=32)
+    pr.add_argument("--test-batch-size", type=int, default=32)
+    pr.add_argument("--optimizer", choices=["sgd", "adam"], default="sgd")
+    pr.add_argument("--momentum", type=float, default=0.9)
+    pr.add_argument("--num-workers", type=int, default=None)
+    pr.add_argument("--synthetic-size", type=int, default=None)
+    pr.add_argument("--data-dir", default="./data")
+    pr.add_argument("--data-path", default=None, metavar="DIR",
+                    help="sharded streaming input for every trial: the "
+                         "loader whose checkpointed iterator state makes "
+                         "interrupted trials resume bit for bit (the "
+                         "in-memory image loaders restart their epoch)")
+    pr.add_argument("--dtype", choices=["float32", "bfloat16"],
+                    default="float32")
+    pr.add_argument("--seq-len", type=int, default=None)
+    pr.add_argument("--vocab-size", type=int, default=None)
+    pr.add_argument("--faults", default=None, metavar="SPEC",
+                    help="per-trial deterministic fault injection: every "
+                         "trial trains under this plan")
+    # a base-config flag the JAX sweep lacks (its train and tune have it)
+    pr.add_argument("--compress-grad", choices=["none", "int8", "topk"],
+                    default="none")
+    _add_pool_flags(pr)
+
+    pres = sub.add_parser(
+        "resume", help="continue an interrupted sweep from its journal "
+                       "(spec, config and scheduler are read back from "
+                       "the manifest)")
+    pres.add_argument("--sweep-dir", required=True)
+    _add_pool_flags(pres)
+
+    ps = sub.add_parser("status", help="per-trial state off the journal")
+    ps.add_argument("--sweep-dir", required=True)
+
+    prep = sub.add_parser("report", help="ranked leaderboard from the "
+                                         "journal + trial streams")
+    prep.add_argument("--sweep-dir", required=True)
+    prep.add_argument("--tail", type=int, default=10)
+    prep.add_argument("--json", action="store_true")
+
+    args = p.parse_args(argv)
+
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        RunnerConfig,
+        SweepInterrupted,
+        SweepRunner,
+        SweepSpec,
+        leaderboard,
+        load_journal,
+        render_leaderboard,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.report import (
+        render_status,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.spec import (
+        DEFAULT_SPEC,
+    )
+
+    if args.cmd in ("status", "report", "resume"):
+        jstate = load_journal(args.sweep_dir)
+        if jstate is None:
+            print(f"no sweep journal under {args.sweep_dir}",
+                  file=sys.stderr)
+            return 2
+    if args.cmd == "status":
+        print(render_status(jstate))
+        return 0
+    if args.cmd == "report":
+        import json
+
+        rows = leaderboard(args.sweep_dir, jstate, tail=args.tail)
+        print(json.dumps(rows, default=str) if args.json
+              else render_leaderboard(rows))
+        return 0
+
+    if args.cmd == "resume":
+        meta = jstate.sweep_meta
+        sched = meta.get("scheduler") or {}
+        runner_meta = meta.get("runner") or {}
+        try:
+            spec = SweepSpec.parse(
+                meta.get("spec") or DEFAULT_SPEC,
+                samples=meta.get("samples"),
+                sweep_seed=int(meta.get("sweep_seed") or 0),
+            )
+            rcfg = RunnerConfig(
+                sweep_dir=args.sweep_dir,
+                max_steps=int(sched.get("max_steps") or 100),
+                tail=int(runner_meta.get("tail") or 10),
+                concurrency=int(
+                    args.concurrency
+                    or runner_meta.get("concurrency") or 2
+                ),
+                trial_timeout=(
+                    args.trial_timeout
+                    if args.trial_timeout is not None
+                    else runner_meta.get("trial_timeout")
+                ),
+                retries=int(
+                    args.retries if args.retries is not None
+                    else runner_meta.get("retries", 1)
+                ),
+                ckpt_every=runner_meta.get("ckpt_every"),
+                scheduler=sched.get("kind") or "grid",
+                eta=int(sched.get("eta") or 3),
+                min_steps=sched.get("min_steps"),
+                plan_mesh=int(runner_meta.get("plan_mesh") or 0),
+                heartbeat_grace=(
+                    args.heartbeat_grace
+                    if args.heartbeat_grace is not None
+                    else runner_meta.get("heartbeat_grace")
+                ),
+                resume=True,
+                device=args.device,
+            )
+        except ValueError as e:
+            print(f"sweep resume: {e}", file=sys.stderr)
+            return 2
+        runner = SweepRunner(spec, dict(jstate.base_config or {}), rcfg)
+        try:
+            return _sweep_finish(runner.run(), args.json)
+        except SweepInterrupted as e:
+            return _sweep_interrupted(e, args.sweep_dir)
+
+    # run
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+
+    base = TrainConfig(
+        network=args.network, dataset=args.dataset,
+        batch_size=args.batch_size, test_batch_size=args.test_batch_size,
+        optimizer=args.optimizer, momentum=args.momentum,
+        num_workers=args.num_workers,
+        synthetic_size=args.synthetic_size, data_dir=args.data_dir,
+        data_path=args.data_path,
+        dtype=args.dtype, seq_len=args.seq_len, vocab_size=args.vocab_size,
+        seed=args.sweep_seed, faults=args.faults,
+        compression=args.compress_grad,
+    )
+    try:
+        spec = SweepSpec.parse(
+            args.spec or DEFAULT_SPEC,
+            samples=args.samples, sweep_seed=args.sweep_seed,
+        )
+        runner = SweepRunner(
+            spec, base,
+            RunnerConfig(
+                sweep_dir=args.sweep_dir, max_steps=args.steps,
+                tail=args.tail,
+                concurrency=args.concurrency or 2,
+                trial_timeout=args.trial_timeout,
+                retries=args.retries if args.retries is not None else 1,
+                ckpt_every=args.ckpt_every,
+                scheduler=args.scheduler, eta=args.eta,
+                min_steps=args.min_steps, resume=args.resume,
+                plan_mesh=args.plan_mesh,
+                heartbeat_grace=args.heartbeat_grace,
+                device=args.device,
+            ),
+        )
+    except ValueError as e:
+        print(f"sweep: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _sweep_finish(runner.run(), args.json)
+    except ValueError as e:
+        print(f"sweep: {e}", file=sys.stderr)
+        return 2
+    except SweepInterrupted as e:
+        return _sweep_interrupted(e, args.sweep_dir)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1068,6 +1457,12 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("obs", add_help=False,
                    help="stream tools: summary, tail, compare, trace, "
                         "bench-trend, slo, export, incidents (host-side)")
+    sub.add_parser("tune", add_help=False,
+                   help="lr grid search over the sweep runner (the "
+                        "reference's tune.sh)")
+    sub.add_parser("sweep", add_help=False,
+                   help="sweep orchestrator: run, status, report, resume, "
+                        "--selftest (the orchestrator imports no torch)")
     return p
 
 
@@ -1081,6 +1476,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return main_obs(argv[1:])
     if argv[:1] == ["registry"]:
         return main_registry(argv[1:])
+    if argv[:1] == ["sweep"]:
+        return main_sweep(argv[1:])
+    if argv[:1] == ["tune"]:
+        return main_tune(argv[1:])
     args = build_parser().parse_args(argv)
     if args.cmd in ("train", "single"):
         return _train(args)

@@ -185,10 +185,21 @@ def phase_stats(values: List[float]) -> Optional[dict]:
     }
 
 
+def step_seconds(r: dict) -> Optional[float]:
+    """A step record's step time in seconds: the JAX trainer's
+    ``step_time``, else the port trainer's ``step_ms``; None without
+    either."""
+    if "step_time" in r:
+        return float(r["step_time"])
+    if "step_ms" in r:
+        return float(r["step_ms"]) / 1000.0
+    return None
+
+
 def _rate(records: List[dict]) -> float:
     """Steps per wall-second over ``records`` (step + data time)."""
     wall = sum(
-        r.get("step_time", 0.0) + r.get("data_time", 0.0) for r in records
+        (step_seconds(r) or 0.0) + r.get("data_time", 0.0) for r in records
     )
     return len(records) / wall if wall > 0 else float("nan")
 
@@ -596,7 +607,7 @@ def summarize_run(rs: RunStream, skip: int = 1) -> dict:
             for r in timed if "input_wait_ms" in r
         ]),
         "step": phase_stats([
-            r["step_time"] for r in timed if "step_time" in r
+            step_seconds(r) for r in timed if step_seconds(r) is not None
         ]),
         "checkpoint": phase_stats(ckpt_secs),
     }
@@ -1211,7 +1222,8 @@ def summarize_by_rank(merged: MergedRun, skip: int = 1) -> dict:
                     r["data_time"] for r in timed if "data_time" in r
                 ]),
                 "step": phase_stats([
-                    r["step_time"] for r in timed if "step_time" in r
+                    step_seconds(r) for r in timed
+                    if step_seconds(r) is not None
                 ]),
             },
             "step_rate": _rate(timed),

@@ -60,7 +60,6 @@ import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from pytorch_distributed_nn_tpu_torch.observability.core import get_telemetry
 
@@ -119,6 +118,8 @@ class FaultEntry:
 
 def _nanify(x, poisoned: list):
     """``x`` with its float leaves NaN (tuples, lists and dicts walked)."""
+    import torch
+
     if isinstance(x, (tuple, list)):
         return type(x)(_nanify(v, poisoned) for v in x)
     if isinstance(x, dict):
@@ -304,6 +305,8 @@ class FaultPlan:
 def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
     """Whether every element of every tensor is finite (one device read):
     the train step's non-finite-update guard."""
+    import torch
+
     if not tensors:
         return True
     return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())

@@ -121,13 +121,17 @@ def _pinned_like(tensors: dict) -> dict:
 class SaveHandle:
     """One save: its snapshot (``dev_state``; the overlapped eval runs on
     it, so the writer drops it only without ``retain_device_state``), and
-    ``done``, set once the checkpoint is published or failed."""
+    ``done``, set once the checkpoint is published or failed. The writer
+    reads the snapshot through a reference of its own, which it drops
+    once fetched: the overlapped eval may finish, and drop
+    ``dev_state``, before the writer starts."""
 
     def __init__(self, step: int, dev_state: Snapshot,
                  retain_device_state: bool = False, data_state=None,
                  fault_plan=None):
         self.step = step
         self.dev_state = dev_state
+        self._writer_snap: Optional[Snapshot] = dev_state
         # the injection hooks ride with the save (checkpoint.py)
         self.fault_plan = fault_plan
         self.retain_device_state = retain_device_state
@@ -354,7 +358,7 @@ class AsyncCheckpointer:
     def _process(self, item: SaveHandle) -> None:
         t_run = time.perf_counter()
         queued_ms = (t_run - item.enqueued_at) * 1e3
-        snap = item.dev_state  # a local ref: the overlapped eval may drop it
+        snap, item._writer_snap = item._writer_snap, None
         if snap.event is not None:
             host = self._fetch(snap)
         else:
