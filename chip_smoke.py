@@ -225,7 +225,8 @@ Phases, each printed on its own line:
    checkpoint ResNet-20 at step 2; ``--resume`` on the card at world size
    1 emits ``elastic_resume`` (dp 2 -> 1, the global batch kept) and
    continues with finite losses; ``--strict-geometry`` raises naming both
-   geometries;
+   geometries (11-13 run together, beside phase 18 once its in-process
+   reference run is done: they check outcomes, not times);
 14. the gradient sync, each reading beside the card's name and power
    limit: BertBase as in phase 5 for SYNC_STEPS steps with each of
    SYNC_RUNS in turns (``--compress-grad none``, ``int8``, ``int8`` with
@@ -314,7 +315,7 @@ Phases, each printed on its own line:
    ``obs summary`` and ``obs export`` (the exposition validates);
 18. the sweep (``sweep_phase(kernels, reference, seed, smi, repo, root,
    data_path, phase5_ms)``): ``sweep run --device cuda --spec
-   SWEEP_SPEC`` as a subprocess, three ResNet-18 trials of phase 5's
+   SWEEP_SPEC`` as a subprocess, two ResNet-18 trials of phase 5's
    int8 bf16 configuration (B 1024) from phase 15's CIFAR-10 shards, one
    at a time, each a spawned child running the port's trainer; a SIGTERM
    to the orchestrator once trial 1's stream shows a step past its
@@ -331,6 +332,7 @@ Phases, each printed on its own line:
    ``nonfinite_skip`` event), ``obs summary`` of a trial directory and
    ``sweep --selftest``; each trial's wall, spawn-to-first-step and
    median step ms beside phase 5's and the card's name and power limit.
+19. the chaos suite (``chaos_phase``).
    Then one JSON line listing the kernels (launches on the driven paths
    of phases 4, 5, 8, 9, 10, 14, 15, 16, 17 and 18, error against the
    plain version, times, least possible time), and the result line
@@ -5616,8 +5618,9 @@ def post(url, doc, timeout=120.0, headers=None):
 
 # -- phase 18: the sweep ----------------------------------------------------
 
-#: the two ends and the middle of the reference tune.sh grid
-SWEEP_SPEC = "lr=0.4,0.05,0.00625"
+#: the top and the middle of the reference tune.sh grid
+SWEEP_SPEC = "lr=0.4,0.05"
+SWEEP_TRIALS = len(SWEEP_SPEC.split(","))
 SWEEP_STEPS = 20
 SWEEP_CKPT_EVERY = 10
 SWEEP_TAIL = 5
@@ -5736,10 +5739,13 @@ def sweep_trial_launches(sdir, jstate):
 
 
 def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
-                phase5_ms):
+                phase5_ms, after_reference=None):
     """Phase 18: the sweep over spawned ResNet-18 trials, interrupted and
     resumed, against an uninterrupted in-process run of the interrupted
-    trial. Returns the facts and the launches the trials counted."""
+    trial. ``after_reference()`` is called once that run's launches are
+    read and the process's cuDNN and TF32 flags are back: from there on
+    this process only waits on the sweep's subprocesses and reads their
+    files. Returns the facts and the launches the trials counted."""
     import dataclasses
     import math
 
@@ -5826,6 +5832,8 @@ def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
              torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark) = flags
         torch.cuda.empty_cache()
+        if after_reference is not None:
+            after_reference()
         # a. the SIGTERM, once the trial's stream is past its checkpoint
         while seen <= SWEEP_CKPT_EVERY:
             if run[0].poll() is not None or time.monotonic() > deadline:
@@ -5894,7 +5902,7 @@ def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
             str(SWEEP_TAIL)]), "phase 18 sweep report"))
         losses = [r["loss"] for r in rows]
         finite = [x for x in losses if x is not None and math.isfinite(x)]
-        if [r["status"] for r in rows] != ["completed"] * 3 \
+        if [r["status"] for r in rows] != ["completed"] * SWEEP_TRIALS \
                 or losses[:len(finite)] != sorted(finite):
             fail(f"phase 18 (d): report rows {rows}")
         for r in rows:
@@ -5979,6 +5987,95 @@ def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
             "reference_losses": want, "seconds": seconds,
             "run_log_tail": run_log[-2000:],
             "resume_log_tail": resume_log[-2000:]}
+
+
+# -- phase 19: the chaos suite -----------------------------------------------
+
+#: the scenarios ``chaos --scenario list`` names: the JAX suite's, in its
+#: order, less fleet_preempt (which waits for the fleet scheduler)
+CHAOS_SCENARIOS = (
+    "smoke", "crash_resume", "preempt", "straggler", "torn_ckpt",
+    "nan_grad", "async_ckpt", "flightrec", "slo_burn", "replica_loss",
+    "live_reload", "generate", "data_resume", "elastic_resume",
+    "sweep_resume",
+)
+
+
+def chaos_cli(repo, args):
+    """``python -m pytorch_distributed_nn_tpu_torch chaos ARGS``, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch", "chaos",
+         *args], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def chaos_phase(kernels, smi, repo, root):
+    """Phase 19: the chaos suite on the card. (a) ``run_scenario("generate",
+    "cuda")`` in this process, every invariant held, its decode attention
+    and LayerNorm forward launches counted; (b) ``chaos --scenario smoke``
+    (2 ranks) refused on one card with exit 2, naming both counts; (c)
+    ``chaos --scenario list`` naming the 15 scenarios in order. (b) and
+    (c) are subprocesses that run while (a) does."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    refuse = chaos_cli(repo, ["--scenario", "smoke", "--device", "cuda"])
+    listing = chaos_cli(repo, ["--scenario", "list"])
+    try:
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = chaos.run_scenario("generate", "cuda",
+                                    workdir=os.path.join(root,
+                                                         "chaos_generate"))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        generate_s = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"phase 19 (a) {line}")
+        if rc != 0 or "[FAIL]" in text or "[PASS]" not in text:
+            fail(f"phase 19 (a) chaos generate on the card exited {rc}")
+        for name in ("decode_attention", "layer_norm"):
+            if launches[name] < 1:
+                fail(f"phase 19 (a) chaos generate never launched {name}: "
+                     f"{launches}")
+        refused, _ = refuse.communicate(timeout=120)
+        listed, _ = listing.communicate(timeout=120)
+    finally:
+        for proc in (refuse, listing):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if cards < 2:
+        want = f"needs 2 cards (one per rank), found {cards}"
+        if refuse.returncode != 2 or want not in refused:
+            fail(f"phase 19 (b) chaos smoke on {cards} card(s) exited "
+                 f"{refuse.returncode}, not 2 naming '{want}': "
+                 f"{refused[-2000:]}")
+    names = tuple(line.split(":", 1)[0] for line in listed.splitlines()
+                  if ":" in line)
+    if listing.returncode != 0 or names != CHAOS_SCENARIOS:
+        fail(f"phase 19 (c) chaos --scenario list exited "
+             f"{listing.returncode} naming {names}")
+    phase_s = time.perf_counter() - t0
+    counted = {k: v for k, v in launches.items() if v}
+    log(f"phase 19 (a) chaos generate in-process on the card ({smi}): "
+        f"every invariant held in {generate_s:.3f} s; launches {counted}")
+    log(f"phase 19 (b) chaos --scenario smoke --device cuda on {cards} "
+        f"card(s): exit {refuse.returncode}: {refused.strip()}")
+    log(f"phase 19 (c) chaos --scenario list: {len(names)} scenarios, "
+        f"{', '.join(names)}")
+    log(f"phase 19 seconds ({smi}): {phase_s:.3f}")
+    return {"launches": launches, "generate_s": generate_s,
+            "seconds": phase_s, "refused": refused.strip(),
+            "scenarios": list(names)}
 
 
 def main() -> int:
@@ -6599,20 +6696,11 @@ def main() -> int:
         mark("8")
         serving = serving_phase(kernels, reference, F, args.seed, smi, repo,
                                 root)
-        # -- 9-13. faults, the flight recorder, the profiler, TF32, elastic
+        # -- 9-10. faults, the flight recorder, the profiler --------------
         mark("9")
         faults = fault_phase(kernels, args.seed, root)
         prof = profile_phase(kernels, args.seed, root)
-        # 11-13 check outcomes, not times (11's slow requests against its
-        # 200 ms): they run together, each mostly waiting on subprocesses
-        mark("11-13")
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(3) as pool:
-            futures = [pool.submit(fn, repo, root) for fn in (
-                serve_fault_phase, tf32_phase, elastic_phase)]
-        # a phase's fail() is re-raised here
-        serve_faults, tf32, elastic = (f.result() for f in futures)
+        # 11-13 (serving faults, TF32, elastic) run beside phase 18 below
         # -- 14. the gradient sync ----------------------------------------
         mark("14")
         sync = sync_phase(kernels, reference, args.seed, smi, root)
@@ -6628,16 +6716,33 @@ def main() -> int:
         mark("17")
         deploy = deploy_phase(kernels, args.seed, smi, repo, root,
                               os.path.join(root, "resnet_artifact_none"))
-        # -- 18. the sweep ------------------------------------------------
-        mark("18")
-        sweep_facts = sweep_phase(kernels, reference, args.seed, smi, repo,
-                                  root, os.path.join(root, "cifar10_shards"),
-                                  resnet["step_ms"])
+        # -- 18. the sweep, and 11-13 beside it ---------------------------
+        # 11-13 check outcomes, not times (11's slow requests against its
+        # 200 ms), each mostly waiting on subprocesses, as phase 18 does
+        # once its in-process reference run is done: they start then, so
+        # no launch of theirs falls in that run's counts
+        mark("18, with 11-13 beside it")
+        from concurrent.futures import ThreadPoolExecutor
+
+        futures = []
+        with ThreadPoolExecutor(3) as pool:
+            sweep_facts = sweep_phase(
+                kernels, reference, args.seed, smi, repo, root,
+                os.path.join(root, "cifar10_shards"), resnet["step_ms"],
+                after_reference=lambda: futures.extend(
+                    pool.submit(fn, repo, root) for fn in (
+                        serve_fault_phase, tf32_phase, elastic_phase)))
+            mark("11-13, the rest after phase 18")
+        # a phase's fail() is re-raised here
+        serve_faults, tf32, elastic = (f.result() for f in futures)
+        # -- 19. the chaos suite ------------------------------------------
+        mark("19")
+        chaos_facts = chaos_phase(kernels, smi, repo, root)
     report["serving"] = serving
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
                   tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run,
-                  deploy=deploy, sweep=sweep_facts)
+                  deploy=deploy, sweep=sweep_facts, chaos=chaos_facts)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
@@ -6703,7 +6808,8 @@ def main() -> int:
                           + stream["launches"].get(e["name"], 0)
                           + spmd_run["launches"].get(e["name"], 0)
                           + deploy["launches"].get(e["name"], 0)
-                          + sweep_facts["launches"].get(e["name"], 0))
+                          + sweep_facts["launches"].get(e["name"], 0)
+                          + chaos_facts["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(

@@ -1437,6 +1437,55 @@ def main_sweep(argv: Optional[Sequence[str]] = None) -> int:
         return _sweep_interrupted(e, args.sweep_dir)
 
 
+def main_chaos(argv: Optional[Sequence[str]] = None) -> int:
+    """Chaos suite: canned fault scenarios with CI-gateable invariants
+    (resilience/chaos.py), with the JAX ``chaos``'s flags and exit codes
+    plus ``--device``.
+
+    Each scenario trains tiny models with injected faults and asserts the
+    resilience contract — crash+resume bitwise equivalence, straggler
+    K-of-N drop + renormalization, torn-checkpoint conviction/quarantine,
+    NaN-update skipping, SIGTERM clean exit. Exits nonzero when any
+    invariant is violated, so CI can gate fault handling exactly like a
+    unit test. A data-parallel scenario runs one rank process per worker,
+    one card each on the card: one that needs more cards than there are
+    exits 2 before it trains.
+    """
+    p = argparse.ArgumentParser("pdtn-chaos", description=main_chaos.__doc__)
+    p.add_argument("--scenario", default="smoke",
+                   help="scenario name, or 'list' to enumerate with the "
+                        "cards each needs (smoke is the fast composite)")
+    p.add_argument("--workdir", default=None,
+                   help="run under this directory and keep the artifacts "
+                        "(default: a temp dir, removed unless --keep)")
+    p.add_argument("--keep", action="store_true",
+                   help="keep the default temp workdir for inspection")
+    p.add_argument("--cases", default=None, metavar="C1,C2,...",
+                   help="for scenarios with sub-cases (elastic_resume: "
+                        "shrink,regrow,corrupt; live_reload: swap,canary; "
+                        "replica_loss: kill,drain): run only these")
+    p.add_argument("--device", default="cuda",
+                   help="where every rank, engine and replica runs: cuda "
+                        "(the card, default; one card per rank) or cpu "
+                        "(gloo ranks)")
+    args = p.parse_args(argv)
+
+    from pytorch_distributed_nn_tpu_torch.resilience import chaos
+
+    if args.scenario == "list":
+        for name, fn in chaos.SCENARIOS.items():
+            doc = (fn.__doc__ or "").strip().splitlines()
+            print(f"{name}: {doc[0] if doc else ''} "
+                  f"[{chaos.describe_ranks(name)}]")
+        return 0
+    cases = (
+        tuple(c for c in args.cases.split(",") if c) if args.cases else None
+    )
+    return chaos.run_scenario(args.scenario, args.device,
+                              workdir=args.workdir, keep=args.keep,
+                              cases=cases)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1463,6 +1512,9 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("sweep", add_help=False,
                    help="sweep orchestrator: run, status, report, resume, "
                         "--selftest (the orchestrator imports no torch)")
+    sub.add_parser("chaos", add_help=False,
+                   help="canned fault scenarios with CI-gateable "
+                        "invariants (--scenario list)")
     return p
 
 
@@ -1480,6 +1532,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return main_sweep(argv[1:])
     if argv[:1] == ["tune"]:
         return main_tune(argv[1:])
+    if argv[:1] == ["chaos"]:
+        return main_chaos(argv[1:])
     args = build_parser().parse_args(argv)
     if args.cmd in ("train", "single"):
         return _train(args)

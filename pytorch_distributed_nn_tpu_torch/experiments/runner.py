@@ -120,15 +120,14 @@ def default_trial_main(trial_dir: str, cfg: dict,
     """
     import json
 
-    import torch
-
     from pytorch_distributed_nn_tpu_torch.ops import kernels
     from pytorch_distributed_nn_tpu_torch.training.trainer import (
         TrainConfig,
         Trainer,
     )
+    from pytorch_distributed_nn_tpu_torch.utils.device import deterministic
 
-    torch.backends.cudnn.deterministic = True
+    deterministic()
     cfg = dict(cfg)
     cfg["kill_ranks"] = tuple(cfg.get("kill_ranks") or ())
     trainer = Trainer(TrainConfig(**cfg), device=device)

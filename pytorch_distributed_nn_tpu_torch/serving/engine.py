@@ -133,6 +133,10 @@ class InferenceEngine:
                 or list(batch_buckets) != sorted(set(batch_buckets)):
             raise ValueError(f"batch_buckets must be strictly increasing, "
                              f"got {batch_buckets!r}")
+        # this engine's own stream on the card (a shadow gets another):
+        # a batch then waits for its own work only, not the other side's
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.manifest, model = self._load(artifact_dir)
         self.artifact_dir = artifact_dir
         self.model = model
@@ -182,7 +186,12 @@ class InferenceEngine:
                             **manifest.get("model_kw", {}))
         model.load_state_dict(_state_dict(model, params, batch_stats),
                               strict=True)
-        return manifest, model.to(self.device).eval()
+        model = model.to(self.device).eval()
+        if self.device.type == "cuda":
+            # the copies ran on this thread's stream; the engine's own
+            # stream reads the weights next
+            torch.cuda.current_stream(self.device).synchronize()
+        return manifest, model
 
     # -- identity ----------------------------------------------------------
 
@@ -248,8 +257,6 @@ class InferenceEngine:
         t0 = time.perf_counter()
         manifest, model = self._load(artifact_dir)
         self._check_swappable(manifest, model)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         old = self.version
         t1 = time.perf_counter()
         with self._weights_lock:
@@ -290,12 +297,20 @@ class InferenceEngine:
         other.manifest = manifest
         other.artifact_dir = artifact_dir
         other.model = model
+        other._stream = (torch.cuda.Stream(self.device)
+                         if self.device.type == "cuda" else None)
         other._weights_lock = threading.Lock()
         other.swaps = 0
         other.last_swap_ms = None
         other.infer_batches = 0
         other.flops_total = 0.0
         return other
+
+    def _on_stream(self):
+        """Work issued inside runs on this engine's stream (nothing on
+        the CPU)."""
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
 
     # -- bucket policy -------------------------------------------------------
 
@@ -363,7 +378,7 @@ class InferenceEngine:
         model = self.model if model is None else model
         precision = (_no_tf32() if self.device.type == "cuda"
                      else contextlib.nullcontext())
-        with torch.inference_mode(), precision:
+        with torch.inference_mode(), precision, self._on_stream():
             y = model(x.to(self.device))[:n].float()
             # per-row output quality on the device, not as a second
             # host pass over up to 500 MB of copied logits (BertBase)
@@ -453,9 +468,10 @@ class InferenceEngine:
         shape = tuple(batch.shape)
         if shape not in self._warm.shapes:
             self._warm.cold += 1
-        x = torch.from_numpy(batch).to(self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self._on_stream():
+            x = torch.from_numpy(batch).to(self.device)
+        if self._stream is not None:
+            self._stream.synchronize()
         t1 = time.perf_counter()
         out, finite = self._run(x, n, model)
         t2 = time.perf_counter()

@@ -599,10 +599,12 @@ class Frontend:
                     self._mark_ready(r)
                 else:
                     r.last_ok = now
-            elif r.state == "ready":
+            elif r.state == "ready" and not r.draining:
                 # lease-based liveness (the fleet transport contract):
                 # a blip inside the lease is tolerated, past it the
-                # replica is declared down exactly once
+                # replica is declared down exactly once. A replica this
+                # frontend drains answers 503 until it exits, which may
+                # outlast the lease: drain_replica records its end
                 if r.last_ok is None or now - r.last_ok > self.lease_s:
                     self._mark_down(r, "readiness lease expired")
 
@@ -692,10 +694,11 @@ class Frontend:
         p95 = lat[min(len(lat) - 1, int(0.95 * len(lat)))]
         return max(self.hedge_floor_ms, p95)
 
-    def _checkout(self, replica: Replica, timeout_s: float):
+    def _checkout(self, replica: Replica, timeout_s: float, addr):
         """``(conn, reused)`` — a pooled keep-alive connection to the
-        replica when one is idle, else a fresh one."""
-        key = (replica.name, replica.host, replica.port)
+        replica at ``addr`` (host, port) when one is idle, else a fresh
+        one."""
+        key = (replica.name, *addr)
         with self._pool_lock:
             idle = self._pool.get(key)
             while idle:
@@ -707,9 +710,7 @@ class Frontend:
                     conn.close()
                 except OSError:
                     pass
-        conn = http.client.HTTPConnection(
-            replica.host, replica.port, timeout=timeout_s
-        )
+        conn = http.client.HTTPConnection(*addr, timeout=timeout_s)
         try:
             conn.connect()
             _set_nodelay(conn.sock)
@@ -717,8 +718,8 @@ class Frontend:
             pass  # surfaces as the attempt's connection error
         return conn, False
 
-    def _checkin(self, replica: Replica, conn) -> None:
-        key = (replica.name, replica.host, replica.port)
+    def _checkin(self, replica: Replica, conn, addr) -> None:
+        key = (replica.name, *addr)
         with self._pool_lock:
             idle = self._pool.setdefault(key, [])
             if conn.sock is not None and len(idle) < 32:
@@ -739,15 +740,21 @@ class Frontend:
         erroring is broken-replica evidence. ``probing`` marks a
         half-open breaker probe: an outcome that feeds neither
         ``record_success`` nor ``record_failure`` must still release the
-        probe slot, or the breaker stays probe-locked forever."""
+        probe slot, or the breaker stays probe-locked forever. A
+        replica this frontend drained or respawned after the attempt
+        picked it (its process changed, it is draining, or it has no
+        address yet) refuses as a drain does: a reroute, no breaker
+        penalty."""
         with self._rlock:
             replica.outstanding += 1
             replica.requests += 1
+            proc, addr = replica.proc, (replica.host, replica.port)
         status, payload = None, None
-        err: Optional[str] = None
+        err: Optional[str] = (None if addr[0] is not None
+                              else "replica respawning: no address yet")
         try:
-            while True:
-                conn, reused = self._checkout(replica, timeout_s)
+            while err is None:
+                conn, reused = self._checkout(replica, timeout_s, addr)
                 try:
                     conn.request("POST", "/v1/infer", body=body,
                                  headers=headers)
@@ -761,7 +768,7 @@ class Frontend:
                     if resp.will_close:
                         conn.close()
                     else:
-                        self._checkin(replica, conn)
+                        self._checkin(replica, conn, addr)
                     break
                 except (OSError, http.client.HTTPException) as e:
                     try:
@@ -776,6 +783,14 @@ class Frontend:
             with self._rlock:
                 replica.outstanding -= 1
         if err is not None:
+            with self._rlock:
+                moved = (replica.draining or replica.proc is not proc
+                         or addr[0] is None)
+            if moved:
+                if probing:
+                    replica.breaker.release_probe()
+                return _Outcome(None, {"error": err, "draining": True},
+                                "reroute", replica, tag)
             with self._rlock:
                 replica.failures += 1
             if replica.breaker.record_failure():

@@ -1039,8 +1039,13 @@ class Trainer:
                 RunSupervisor,
             )
 
+            # every rank takes the signals; rank 0 alone beats
+            # heartbeat.json and metrics.prom in train_dir (each rank's
+            # write would race the others' rename of the shared tmp file)
+            lead = self.rank == 0
             sup = RunSupervisor(
-                c.train_dir, grace=c.heartbeat_grace,
+                c.train_dir if lead else None,
+                grace=c.heartbeat_grace if lead else None,
                 telemetry=self.telemetry,
                 on_stall=(self._flightrec.notify_stall
                           if self._flightrec is not None else None))

@@ -15,3 +15,10 @@ def resolve_device(device=None) -> torch.device:
             "asks for the CPU (device='cpu')"
         )
     return dev
+
+
+def deterministic() -> None:
+    """cuDNN's deterministic algorithms in this process, so that a run
+    resumed from a checkpoint continues bit for bit: the sweep's trials
+    and the chaos suite's ranks."""
+    torch.backends.cudnn.deterministic = True

@@ -92,6 +92,7 @@ class _StubReplica:
         self.mode = "ok"
         self.slow_s = 0.5
         self.served = 0
+        self.on_post = None  # called as each request arrives
         outer = self
 
         class H(BaseHTTPRequestHandler):
@@ -115,6 +116,8 @@ class _StubReplica:
             def do_POST(self):
                 self.rfile.read(int(self.headers.get("Content-Length", 0)))
                 outer.served += 1
+                if outer.on_post is not None:
+                    outer.on_post()
                 mode = outer.mode
                 if mode == "reset":
                     self.close_connection = True
@@ -232,6 +235,68 @@ def test_lease_down_and_rejoin(stub_pool):
     assert [e["replica"] for e in ev["replica_down"]] == ["r0"]
     rejoins = [e for e in ev["replica_up"] if e.get("rejoin")]
     assert [e["replica"] for e in rejoins] == ["r0"]
+
+
+class _SlowExit:
+    """A replica process that answers SIGTERM as ``serve run`` does, but
+    slowly: its stub refuses as draining at once and the process exits 0
+    ``after_s`` later."""
+
+    def __init__(self, stub, after_s):
+        self.stub, self.after_s = stub, after_s
+        self.returncode, self._term = None, None
+
+    def send_signal(self, sig):
+        self.stub.mode = "draining"
+        self._term = time.monotonic()
+
+    def poll(self):
+        if self._term is not None \
+                and time.monotonic() - self._term >= self.after_s:
+            self.returncode = 0
+        return self.returncode
+
+
+def test_a_drain_outlasting_the_lease_is_no_outage(stub_pool):
+    fe, stubs, tel, serve_dir = stub_pool
+    r0 = fe._find("r0")
+    r0.proc = _SlowExit(stubs[0], after_s=4 * fe.lease_s)
+    assert fe.drain_replica("r0", timeout=10.0) is True
+    status, payload = fe.forward({"inputs": [[1.0]]})
+    assert status == 200 and payload["replica"] == "r1"
+    ev = _events(tel, serve_dir)
+    assert [e["phase"] for e in ev["drain"]] == ["start", "done"]
+    assert "replica_down" not in ev and "breaker_open" not in ev
+    assert r0.failures == 0 and fe.failed == 0
+
+
+@pytest.mark.parametrize("move", ["draining", "respawned"])
+def test_an_attempt_whose_replica_moved_under_it_reroutes(stub_pool, move):
+    fe, stubs, tel, serve_dir = stub_pool
+    r0 = fe._find("r0")
+
+    def moved():
+        # what drain_replica or restart_replica does between the pick and
+        # the attempt's error: the replica then drops the connection
+        if move == "draining":
+            r0.draining = True
+        else:
+            r0.proc = _SlowExit(stubs[0], after_s=60.0)
+        stubs[0].on_post = None
+
+    stubs[0].mode = "reset"
+    stubs[0].on_post = moved
+    penalties = []
+    record = r0.breaker.record_failure
+    r0.breaker.record_failure = lambda: penalties.append(1) or record()
+    for i in range(20):
+        status, payload = fe.forward({"inputs": [[1.0]]})
+        assert status == 200 and payload["replica"] == "r1"
+        if stubs[0].served:
+            break
+    assert stubs[0].served == 1
+    assert penalties == [] and r0.failures == 0 and fe.failed == 0
+    assert "breaker_open" not in _events(tel, serve_dir)
 
 
 def test_admission_shed_canary_share_and_class(stub_pool):

@@ -468,7 +468,13 @@ def test_meshes_over_one_group_rendezvous_under_their_own_prefixes(
     share coordinates (data 0, model 0), yet their groups meet in the
     store under prefixes of their own. NCCL keeps a communicator's id
     there under keys every group reuses: on a shared prefix the second
-    group's ranks could read the first one's stale id."""
+    group's ranks could read the first one's stale id.
+
+    Each rank keeps both meshes until every rank has built its own: the
+    ranks are threads of one process, and a gloo group torn down in one
+    thread while another thread connects a new group can break that
+    connect (under load, a peer's "Connection closed by peer" or a rank
+    left waiting out the timeout)."""
     import collections
     import threading
 
@@ -485,12 +491,12 @@ def test_meshes_over_one_group_rendezvous_under_their_own_prefixes(
     def rank_fn(r, group):
         mine = seen[threading.get_ident()]
         start = len(mine)
-        make_mesh(group, 2, 1, 2)
+        meshes = [make_mesh(group, 2, 1, 2)]
         mid = len(mine)
-        make_mesh(group, 1, 1, 4)
-        return mine[start:mid], mine[mid:]
+        meshes.append(make_mesh(group, 1, 1, 4))
+        return mine[start:mid], mine[mid:], meshes
 
     results = run_ranks(4, rank_fn)
-    first = {p for a, _ in results for p in a}
-    second = {p for _, b in results for p in b}
+    first = {p for a, _, _ in results for p in a}
+    second = {p for _, b, _ in results for p in b}
     assert first and second and not first & second, (first, second)
