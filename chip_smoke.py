@@ -333,9 +333,25 @@ Phases, each printed on its own line:
    ``sweep --selftest``; each trial's wall, spawn-to-first-step and
    median step ms beside phase 5's and the card's name and power limit.
 19. the chaos suite (``chaos_phase``).
+20. the fleet, beside phase 18 from its start (``fleet_phase(seed, smi,
+   repo, root, data_path)``): ``fleet run --device cuda --agents 1`` as a
+   subprocess over phase 18's spec and trials; the agent's process group
+   SIGKILLed once trial 1 has published its step-10 checkpoint (the
+   lease declares the host dead, ``host_dead`` and ``trial_migrate``
+   journaled, rc 3 with the resume recipe), ``fleet status``, ``obs
+   summary`` and the exposition then; ``fleet run --resume`` on a fresh
+   agent (rc 0; trial 0's ``trial_end`` byte for byte, trial 1
+   re-dispatched with ``resume: true`` and attempt 0), every loss of
+   trial 1's stream, both lifetimes, bit for bit phase 18's
+   uninterrupted in-process run; every lifetime counting one grouped
+   quantize launch a step its stream holds (the killed one's counts
+   folded in by the next); ``fleet --selftest``; ``fleet run --agents
+   2`` on one card refused (rc 2, both counts); each lifetime's wall,
+   spawn to first step and median step ms, the kill-to-``host_dead``
+   seconds, beside the card's name and power limit.
    Then one JSON line listing the kernels (launches on the driven paths
-   of phases 4, 5, 8, 9, 10, 14, 15, 16, 17 and 18, error against the
-   plain version, times, least possible time), and the result line
+   of phases 4, 5, 8, 9, 10, 14, 15, 16, 17, 18 and 20, error against
+   the plain version, times, least possible time), and the result line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
@@ -344,9 +360,9 @@ f32), the resumed steps of
 phase 7, BertBase's served batches in phase 8, each training run of
 phases 9, 10, 14, 15 and 16, the engines' batches and the swapped burst
 of phase 17, phase 18's in-process reference run) and read just after;
-the evaluator subprocess and each lifetime of a sweep's trial count
-their own from 0. Phase 18's line of the kernels counts the trials'
-launches, not its reference run's.
+the evaluator subprocess and each lifetime of a sweep's or a fleet's
+trial count their own from 0. Phase 18's line of the kernels counts the
+trials' launches, not its reference run's; phase 20 adds its trials'.
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -5635,6 +5651,20 @@ SWEEP_UNREACHED = ("lr", "seed", "max_steps", "train_dir", "eval_freq",
                    "log_every", "lr_decay_steps", "data_layout")
 
 
+def sweep_flags(data_path):
+    """The trials' flags of ``sweep run`` (phase 18) and ``fleet run``
+    (phase 20): SWEEP_SPEC over phase 5's ResNet-18 int8 bf16
+    configuration (B 1024) from phase 15's CIFAR-10 shards."""
+    return ["--spec", SWEEP_SPEC,
+            "--network", "ResNet18", "--dataset", "Cifar10",
+            "--batch-size", str(RESNET_B), "--test-batch-size", "1000",
+            "--momentum", "0.9", "--dtype", "bfloat16",
+            "--compress-grad", "int8", "--synthetic-size", str(RESNET_DATA),
+            "--data-path", data_path, "--steps", str(SWEEP_STEPS),
+            "--ckpt-every", str(SWEEP_CKPT_EVERY), "--tail", str(SWEEP_TAIL),
+            "--retries", "1", "--device", "cuda"]
+
+
 def sweep_cli(repo, root, args, name):
     """Start ``python -m pytorch_distributed_nn_tpu_torch ARGS`` with its
     output in ``root/<name>.log`` (the trials write there too: a pipe
@@ -5693,13 +5723,16 @@ def stream_steps(path):
     return {r["step"]: r for r in recs if r.get("kind") == "step"}, recs
 
 
-def sweep_trial_launches(sdir, jstate):
-    """The kernel launches the sweep's trials counted themselves: every
-    lifetime of every trial launched quantize_int8_scaled once for each
-    step record its stream holds after that lifetime's manifest, and
-    nothing else, and each trial's lifetimes add up to SWEEP_STEPS steps.
-    Returns the sums over all trials and each trial's lifetimes as
-    [start step, steps]."""
+def sweep_trial_launches(sdir, jstate, what="phase 18"):
+    """The kernel launches the trials of a sweep or a fleet counted
+    themselves (one rank each): every lifetime of every trial launched
+    quantize_int8_scaled once for each step record its stream holds after
+    that lifetime's manifest, and nothing else, and each trial's
+    lifetimes run on from where the last checkpoint left them to
+    SWEEP_STEPS. Returns the sums over all trials, each trial's lifetimes
+    as [start step, steps], and the lifetimes counted as killed (a
+    SIGKILLed lifetime's counts, folded in by the next one) as (trial,
+    index)."""
     from pytorch_distributed_nn_tpu_torch.experiments import (
         journal as jr,
     )
@@ -5707,12 +5740,12 @@ def sweep_trial_launches(sdir, jstate):
         LAUNCHES_BASENAME,
     )
 
-    total, lives = {}, {}
+    total, lives, killed = {}, {}, []
     for idx in sorted(jstate.trials):
         tdir = jr.trial_dir(sdir, idx)
         path = os.path.join(tdir, LAUNCHES_BASENAME)
         if not os.path.exists(path):
-            fail(f"phase 18: trial {idx} counted no launches ({path})")
+            fail(f"{what}: trial {idx} counted no launches ({path})")
         with open(path) as f:
             counted = [json.loads(line) for line in f]
         streamed = []
@@ -5722,20 +5755,25 @@ def sweep_trial_launches(sdir, jstate):
             elif r.get("kind") == "step" and streamed:
                 streamed[-1][1] += 1
         got = [[c["start_step"], c["steps"]] for c in counted]
-        if got != streamed or sum(n for _, n in got) != SWEEP_STEPS:
-            fail(f"phase 18: trial {idx}'s counted lifetimes {got} are not "
-                 f"its stream's {streamed} of {SWEEP_STEPS} steps")
-        for c in counted:
+        ends = [a + n for a, n in got]
+        if got != streamed or ends[-1] != SWEEP_STEPS or any(
+                got[i][0] > ends[i - 1] for i in range(1, len(got))) or any(
+                (c["rank"], c["world"]) != (0, 1) for c in counted):
+            fail(f"{what}: trial {idx}'s counted lifetimes {counted} are "
+                 f"not its stream's {streamed} of {SWEEP_STEPS} steps")
+        for i, c in enumerate(counted):
             want = {k: c["steps"] if k == "quantize_int8_scaled" else 0
                     for k in c["launches"]}
             if c["launches"] != want:
-                fail(f"phase 18: trial {idx}'s lifetime from step "
+                fail(f"{what}: trial {idx}'s lifetime from step "
                      f"{c['start_step']} launched {c['launches']}, not "
                      f"{want}")
             for k, v in c["launches"].items():
                 total[k] = total.get(k, 0) + v
+            if c.get("killed"):
+                killed.append((idx, i))
         lives[idx] = got
-    return total, lives
+    return total, lives, killed
 
 
 def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
@@ -5762,15 +5800,8 @@ def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
     sdir = os.path.join(root, "sweep")
     selftest = sweep_cli(repo, root, ["sweep", "--selftest"], "selftest")
     run = sweep_cli(repo, root, [
-        "sweep", "run", "--sweep-dir", sdir, "--spec", SWEEP_SPEC,
-        "--network", "ResNet18", "--dataset", "Cifar10",
-        "--batch-size", str(RESNET_B), "--test-batch-size", "1000",
-        "--momentum", "0.9", "--dtype", "bfloat16",
-        "--compress-grad", "int8", "--synthetic-size", str(RESNET_DATA),
-        "--data-path", data_path, "--steps", str(SWEEP_STEPS),
-        "--ckpt-every", str(SWEEP_CKPT_EVERY), "--tail", str(SWEEP_TAIL),
-        "--concurrency", "1", "--retries", "1", "--device", "cuda"],
-        "sweep_run")
+        "sweep", "run", "--sweep-dir", sdir, *sweep_flags(data_path),
+        "--concurrency", "1"], "sweep_run")
     try:
         stream = os.path.join(jr.trial_dir(sdir, SWEEP_TRIAL),
                               "telemetry.jsonl")
@@ -5888,7 +5919,9 @@ def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
                  f"{lifetimes}")
         expect_launches(kernels, launches, {"quantize_int8_scaled": 1},
                         SWEEP_STEPS, "phase 18 in-process run")
-        trial_launches, lives = sweep_trial_launches(sdir, jstate)
+        trial_launches, lives, killed = sweep_trial_launches(sdir, jstate)
+        if killed:
+            fail(f"phase 18: lifetimes counted as killed: {killed}")
         want = [r["loss"] for r in history]
         got = [steps[i]["loss"] if i in steps else None
                for i in range(1, SWEEP_STEPS + 1)]
@@ -5992,12 +6025,12 @@ def sweep_phase(kernels, reference, seed, smi, repo, root, data_path,
 # -- phase 19: the chaos suite -----------------------------------------------
 
 #: the scenarios ``chaos --scenario list`` names: the JAX suite's, in its
-#: order, less fleet_preempt (which waits for the fleet scheduler)
+#: order
 CHAOS_SCENARIOS = (
     "smoke", "crash_resume", "preempt", "straggler", "torn_ckpt",
     "nan_grad", "async_ckpt", "flightrec", "slo_burn", "replica_loss",
     "live_reload", "generate", "data_resume", "elastic_resume",
-    "sweep_resume",
+    "sweep_resume", "fleet_preempt",
 )
 
 
@@ -6014,7 +6047,7 @@ def chaos_phase(kernels, smi, repo, root):
     "cuda")`` in this process, every invariant held, its decode attention
     and LayerNorm forward launches counted; (b) ``chaos --scenario smoke``
     (2 ranks) refused on one card with exit 2, naming both counts; (c)
-    ``chaos --scenario list`` naming the 15 scenarios in order. (b) and
+    ``chaos --scenario list`` naming the 16 scenarios in order. (b) and
     (c) are subprocesses that run while (a) does."""
     import contextlib
     import io
@@ -6076,6 +6109,210 @@ def chaos_phase(kernels, smi, repo, root):
     return {"launches": launches, "generate_s": generate_s,
             "seconds": phase_s, "refused": refused.strip(),
             "scenarios": list(names)}
+
+
+# -- phase 20: the fleet -------------------------------------------------------
+
+#: phase 20's lease: seconds of silence after which the killed agent is
+#: declared dead
+FLEET_LEASE = 5.0
+
+
+def fleet_lifetimes(fdir, jstate, events):
+    """Each lifetime of each of the fleet's trials: its start step, steps,
+    wall (trial_start to trial_end, a killed one to its host_dead), spawn
+    to first step and the median of its steps after the first two."""
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        journal as jr,
+    )
+
+    dead = [e["time"] for e in events if e.get("type") == "host_dead"]
+    out = []
+    for idx in sorted(jstate.trials):
+        recs = stream_steps(os.path.join(jr.trial_dir(fdir, idx),
+                                         "telemetry.jsonl"))[1]
+        starts = [e for e in events if e.get("type") == "trial_start"
+                  and e.get("trial") == idx]
+        ends = [e for e in events if e.get("type") == "trial_end"
+                and e.get("trial") == idx]
+        lives, cur = [], None
+        for r in recs:
+            if r.get("kind") == "manifest":
+                cur = {"start_step": r.get("start_step"), "steps": []}
+                lives.append(cur)
+            elif r.get("kind") == "step" and cur is not None:
+                cur["steps"].append(r)
+        for i, (life, start) in enumerate(zip(lives, starts)):
+            until = starts[i + 1]["time"] if i + 1 < len(starts) else None
+            end = next((e for e in ends if e["time"] > start["time"]
+                        and (until is None or e["time"] < until)), None)
+            wall = (end["duration_s"] if end is not None
+                    else min(t for t in dead if t > start["time"])
+                    - start["time"])
+            ms = sorted(r["step_ms"] for r in life["steps"][2:])
+            out.append({
+                "trial": idx, "lifetime": i,
+                "start_step": life["start_step"],
+                "steps": len(life["steps"]), "wall_s": wall,
+                "spawn_to_first_step_s": (life["steps"][0]["time"]
+                                          - start["time"]),
+                "median_step_ms": ms[len(ms) // 2] if ms else None,
+                "losses": [(r["step"], r["loss"]) for r in life["steps"]]})
+    return out
+
+
+def fleet_phase(seed, smi, repo, root, data_path):
+    """Phase 20: the fleet on one card. ``fleet run --device cuda
+    --agents 1`` as a subprocess over phase 18's spec and trials (the same
+    trial seeds: ``SeedSequence((sweep_seed, index))``): (a) once trial
+    SWEEP_TRIAL has published its step-SWEEP_CKPT_EVERY checkpoint the
+    agent's process group (the agent and its trial's rank) is SIGKILLed:
+    the lease declares the host dead, ``host_dead`` and
+    ``trial_migrate`` are journaled and ``fleet run`` exits 3 with the
+    resume recipe, every host being dead; (d) ``fleet status`` and ``obs
+    summary`` then show the dead host and the migration, and the
+    exposition holds ``pdtn_fleet_hosts{state="dead"} 1`` and validates;
+    (b) ``fleet run --resume`` on a fresh agent exits 0: the trial
+    re-dispatched with ``resume: true`` and its attempt number, trial 0's
+    ``trial_end`` byte for byte; (c) every lifetime counting one grouped
+    quantize launch for each step its stream holds, the killed one's
+    counts folded in by the next; (e) ``fleet --selftest``; (f) ``fleet
+    run --agents 2`` on one card exits 2 naming both counts. Returns the
+    facts: the caller holds every loss of the trial's stream against
+    phase 18's uninterrupted reference run."""
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        journal as jr,
+    )
+    from pytorch_distributed_nn_tpu_torch.observability.promexport import (
+        validate_exposition,
+    )
+
+    t_phase = time.perf_counter()
+    fdir = os.path.join(root, "fleet")
+    flags = sweep_flags(data_path)
+    selftest = sweep_cli(repo, root, ["fleet", "--selftest"],
+                         "fleet_selftest")
+    too_many = sweep_cli(repo, root, [
+        "fleet", "run", "--sweep-dir", os.path.join(root, "fleet_refused"),
+        *flags, "--agents", "2", "--device", "cuda"], "fleet_refused")
+    run_args = ["fleet", "run", "--sweep-dir", fdir, *flags,
+                "--agents", "1", "--lease", str(FLEET_LEASE)]
+    run = sweep_cli(repo, root, run_args, "fleet_run")
+    try:
+        # a. the kill, once the trial's step-10 checkpoint is published
+        ckpt = os.path.join(jr.trial_dir(fdir, SWEEP_TRIAL),
+                            f"model_step_{SWEEP_CKPT_EVERY}")
+        reg = os.path.join(fdir, "fleet", "agent0", "agent.json")
+        deadline = time.monotonic() + 400.0
+        while not os.path.exists(ckpt):
+            if run[0].poll() is not None or time.monotonic() > deadline:
+                text = sweep_wait(run, root, "fleet_run", sweep_kill(run[0]))
+                fail(f"phase 20: trial {SWEEP_TRIAL} never published its "
+                     f"step-{SWEEP_CKPT_EVERY} checkpoint: {text[-4000:]}")
+            time.sleep(0.1)
+        with open(reg) as f:
+            agent_pid = json.load(f)["pid"]
+        t_kill = time.time()
+        os.killpg(os.getpgid(agent_pid), signal.SIGKILL)
+        run_log = sweep_wait(run, root, "fleet_run", 3, timeout=120)
+        recipe = f"fleet run --resume --sweep-dir {fdir}"
+        if "every fleet host is dead" not in run_log or recipe not in run_log:
+            fail(f"phase 20 (a): fleet run's exit 3 without the resume "
+                 f"recipe: {run_log[-2000:]}")
+        j = jr.load_journal(fdir)
+        dead = [e for e in j.events if e.get("type") == "host_dead"]
+        moved = [e for e in j.events if e.get("type") == "trial_migrate"]
+        if [e.get("host") for e in dead] != ["agent0"] or [
+                (e.get("trial"), e.get("attempt"), e.get("from_host"))
+                for e in moved] != [(SWEEP_TRIAL, 0, "agent0")]:
+            fail(f"phase 20 (a): host_dead {dead}, trial_migrate {moved}")
+        kill_to_dead_s = dead[0]["time"] - t_kill
+        with open(jr.journal_path(fdir)) as f:
+            ends0 = [line for line in f if '"trial_end"' in line
+                     and json.loads(line).get("trial") == 0]
+        if len(ends0) != 1 or json.loads(ends0[0])["status"] != "completed":
+            fail(f"phase 20 (a): trial 0's trial_end records before the "
+                 f"kill: {ends0}")
+        # d. the dead host and the migration, as the tools show them
+        status = finish_cli(run_cli(repo, ["fleet", "status", "--sweep-dir",
+                                           fdir]), "phase 20 fleet status")
+        summary = finish_cli(run_cli(repo, ["obs", "summary", fdir]),
+                             "phase 20 obs summary")
+        with open(os.path.join(fdir, "metrics.prom")) as f:
+            prom = f.read()
+        perrs = validate_exposition(prom)
+        agent_row = [ln for ln in status.splitlines()
+                     if ln.strip().startswith("agent0")]
+        if not agent_row or "dead" not in agent_row[0] or (
+                f"trial {SWEEP_TRIAL}: migrated 1x" not in status) or (
+                "fleet: 1 host(s), 1 dead, 1 migration(s)" not in summary) \
+                or perrs or 'pdtn_fleet_hosts{state="dead"} 1' not in prom:
+            fail(f"phase 20 (d): fleet status {status!r}; obs summary "
+                 f"{summary[-1500:]!r}; exposition errors {perrs[:3]}")
+        # b. the resume on a fresh agent
+        t0 = time.perf_counter()
+        resume_log = sweep_wait(sweep_cli(repo, root, run_args + ["--resume"],
+                                          "fleet_resume"),
+                                root, "fleet_resume", 0)
+        resume_s = time.perf_counter() - t0
+        j = jr.load_journal(fdir)
+        with open(jr.journal_path(fdir)) as f:
+            after = [line for line in f if '"trial_end"' in line]
+        if [x for x in after if json.loads(x).get("trial") == 0] != ends0:
+            fail("phase 20 (b): trial 0's trial_end record changed across "
+                 "the resume")
+        starts = [e for e in j.events if e.get("type") == "trial_start"
+                  and e.get("trial") == SWEEP_TRIAL]
+        st = j.trials[SWEEP_TRIAL]
+        if len(starts) != 2 or starts[1].get("resume") is not True \
+                or [e.get("attempt") for e in starts] != [0, 0] \
+                or st.status != "completed" \
+                or st.last_end.get("steps") != SWEEP_STEPS \
+                or st.last_end.get("attempt") != 0 or st.migrations != 1:
+            fail(f"phase 20 (b): trial {SWEEP_TRIAL}: starts {starts}, end "
+                 f"{st.last_end}, migrations {st.migrations}")
+        # c. each lifetime's own launch counts
+        launches, lives, killed = sweep_trial_launches(fdir, j, "phase 20")
+        if killed != [(SWEEP_TRIAL, 0)]:
+            fail(f"phase 20 (c): lifetimes counted as killed {killed}, not "
+                 f"trial {SWEEP_TRIAL}'s first")
+        lifetimes = fleet_lifetimes(fdir, j, j.events)
+        # e, f
+        selftest_out = sweep_wait(selftest, root, "fleet_selftest", 0,
+                                  timeout=120)
+        refused = sweep_wait(too_many, root, "fleet_refused", 2, timeout=120)
+        if "the fleet needs 2 cards" not in refused or "found 1" not in \
+                refused:
+            fail(f"phase 20 (f): fleet run --agents 2 on one card: "
+                 f"{refused[-1500:]}")
+    finally:
+        for proc, _ in (selftest, too_many, run):
+            if proc.poll() is None:
+                sweep_kill(proc)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 20 fleet ({smi}): fleet run --device cuda --agents 1 --lease "
+        f"{FLEET_LEASE} over sweep run's spec {SWEEP_SPEC} and trials; the "
+        f"agent's process group SIGKILLed at trial {SWEEP_TRIAL}'s "
+        f"step-{SWEEP_CKPT_EVERY} checkpoint, declared dead "
+        f"{kill_to_dead_s:.3f} s later, rc 3 with the resume recipe; (d) "
+        f"fleet status, obs summary and the exposition (valid) show it; (b) "
+        f"fleet run --resume rc 0 in {resume_s:.3f} s, trial 0's trial_end "
+        f"byte for byte, trial {SWEEP_TRIAL} re-dispatched with resume, "
+        f"attempt 0; (c) the trials' own counts {launches} over lifetimes "
+        f"[start step, steps] {lives}, the killed one's folded in; (e) "
+        f"fleet --selftest ({selftest_out.strip().splitlines()[-1]}); (f) "
+        f"{refused.strip().splitlines()[-1]}; phase {seconds:.1f} s")
+    for life in lifetimes:
+        med = life["median_step_ms"]
+        log(f"phase 20 trial {life['trial']} lifetime {life['lifetime']} "
+            f"({smi}): from step {life['start_step']}, {life['steps']} "
+            f"steps, wall {life['wall_s']:.3f} s, spawn to first step "
+            f"{life['spawn_to_first_step_s']:.3f} s, median step "
+            + ("-" if med is None else f"{med:.3f} ms"))
+    return {"launches": launches, "lifetimes": lifetimes, "lives": lives,
+            "kill_to_dead_s": kill_to_dead_s, "resume_s": resume_s,
+            "seconds": seconds, "run_log_tail": run_log[-2000:],
+            "resume_log_tail": resume_log[-2000:]}
 
 
 def main() -> int:
@@ -6724,17 +6961,39 @@ def main() -> int:
         mark("18, with 11-13 beside it")
         from concurrent.futures import ThreadPoolExecutor
 
+        # 20, the fleet, runs beside 18 from its start: both wait on
+        # trials in subprocesses, and 20's uninterrupted reference is
+        # 18's in-process run (the same spec, seeds and configuration)
         futures = []
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
+            fleet_future = pool.submit(
+                fleet_phase, args.seed, smi, repo, root,
+                os.path.join(root, "cifar10_shards"))
             sweep_facts = sweep_phase(
                 kernels, reference, args.seed, smi, repo, root,
                 os.path.join(root, "cifar10_shards"), resnet["step_ms"],
                 after_reference=lambda: futures.extend(
                     pool.submit(fn, repo, root) for fn in (
                         serve_fault_phase, tf32_phase, elastic_phase)))
-            mark("11-13, the rest after phase 18")
+            mark("11-13 and 20, the rest after phase 18")
         # a phase's fail() is re-raised here
         serve_faults, tf32, elastic = (f.result() for f in futures)
+        fleet_facts = fleet_future.result()
+        want = sweep_facts["reference_losses"]
+        got = [(life["lifetime"], step, loss)
+               for life in fleet_facts["lifetimes"]
+               if life["trial"] == SWEEP_TRIAL
+               for step, loss in life["losses"]]
+        covered = {step for _, step, _ in got}
+        bad = [(i, step) for i, step, loss in got if loss != want[step - 1]]
+        if bad or covered != set(range(1, SWEEP_STEPS + 1)):
+            fail(f"phase 20 (b): trial {SWEEP_TRIAL}'s losses (lifetime, "
+                 f"step, loss) {got} against phase 18's uninterrupted "
+                 f"{want}: differ at {bad}, steps covered {sorted(covered)}")
+        log(f"phase 20 (b) ({smi}): trial {SWEEP_TRIAL}'s {len(got)} step "
+            f"records over both lifetimes (steps 1-{SWEEP_STEPS}, "
+            f"{len(got) - SWEEP_STEPS} replayed after the kill) bit for bit "
+            f"phase 18's uninterrupted in-process run")
         # -- 19. the chaos suite ------------------------------------------
         mark("19")
         chaos_facts = chaos_phase(kernels, smi, repo, root)
@@ -6742,7 +7001,8 @@ def main() -> int:
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
                   tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run,
-                  deploy=deploy, sweep=sweep_facts, chaos=chaos_facts)
+                  deploy=deploy, sweep=sweep_facts, chaos=chaos_facts,
+                  fleet=fleet_facts)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
@@ -6809,7 +7069,8 @@ def main() -> int:
                           + spmd_run["launches"].get(e["name"], 0)
                           + deploy["launches"].get(e["name"], 0)
                           + sweep_facts["launches"].get(e["name"], 0)
-                          + chaos_facts["launches"].get(e["name"], 0))
+                          + chaos_facts["launches"].get(e["name"], 0)
+                          + fleet_facts["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(

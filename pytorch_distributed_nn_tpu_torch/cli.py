@@ -149,6 +149,24 @@ port's ``Trainer`` on ``--device`` (default: the card); the orchestrating
 process imports no torch. ``sweep run`` adds ``--compress-grad`` to the
 JAX base flags and refuses ``--plan-mesh`` until the cost model is
 ported.
+
+    python -m pytorch_distributed_nn_tpu_torch fleet agent \
+        [--listen HOST:PORT] [--devices N] [--device cuda|cpu] ...
+    python -m pytorch_distributed_nn_tpu_torch fleet run --sweep-dir S \
+        [--agents 3] [--agent-devices 4,2,2] [--lease 10] \
+        [sweep flags] [--device cpu] [--resume]
+    python -m pytorch_distributed_nn_tpu_torch fleet \
+        {status --sweep-dir S|agents --hosts H:P,...|drain --hosts ...}
+    python -m pytorch_distributed_nn_tpu_torch fleet --selftest
+
+are the JAX package's fleet: the same sweep over host agents that take
+trials over JSON lines on TCP, with its flags, journal events and exit
+codes (3: interrupted, or every host dead, with the resume recipe). An
+agent of ``--device cuda --devices N`` runs its trials on N cards of
+its own (a trial of several ranks is that many rank processes, rank r
+on the r-th card); ``--device cpu`` on gloo rank processes. The
+orchestrator and the agents import no torch; ``--plan-hosts`` is
+refused until the cost model is ported.
 """
 
 from __future__ import annotations
@@ -1437,6 +1455,310 @@ def main_sweep(argv: Optional[Sequence[str]] = None) -> int:
         return _sweep_interrupted(e, args.sweep_dir)
 
 
+def main_fleet(argv: Optional[Sequence[str]] = None) -> int:
+    """Multi-host experiment fleet (experiments/fleet/), with the JAX
+    ``fleet``'s subcommands, flags, defaults and exit codes (0; 1 trials
+    failed or an agent unreachable; 2 bad input; 3 interrupted, or every
+    host dead, with the resume recipe). ``agent --device {cuda,cpu}``
+    takes the place of ``--platform``, and ``run`` takes ``--device`` and
+    ``--compress-grad`` as ``sweep run`` does.
+
+    - ``agent``  — run a host agent: registers capacity (device count,
+      labels, planner profile) over a JSON-line TCP protocol and runs
+      assigned trials as supervised subprocesses (a trial of several
+      ranks as that many rank processes); SIGTERM forwards to the trials
+      (emergency checkpoints) before the agent exits.
+    - ``run``    — the sweep orchestrator over a fleet: trials placed by
+      host capacity, meshes capped to each host, dead hosts'
+      in-flight trials migrated to survivors and elastically resumed
+      from their last valid checkpoint. ``--plan-hosts`` is refused
+      (exit 2) until the port has its planner (ROADMAP Queue 1 item
+      7d). ``--resume`` continues an interrupted fleet sweep from its
+      journal — including after the ORCHESTRATOR died.
+    - ``status`` — journal-reconstructed fleet + trial state.
+    - ``agents`` — probe ``--hosts`` agents live (hello each).
+    - ``drain``  — stop new assignments on the named agents; running
+      trials finish.
+    - ``--selftest`` — <15 s transport/placement/migration invariant
+      gate over local agents; asserts the orchestrator process and an
+      agent process never import torch.
+    """
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    if "--selftest" in argv:
+        from pytorch_distributed_nn_tpu_torch.experiments.fleet.selftest import (
+            run_selftest,
+        )
+
+        return run_selftest()
+
+    p = argparse.ArgumentParser("pdtn-fleet", description=main_fleet.__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pa = sub.add_parser("agent", help="run a host agent")
+    pa.add_argument("--listen", default="127.0.0.1:0", metavar="HOST:PORT",
+                    help="bind address (port 0 = ephemeral; pair with "
+                         "--register so the orchestrator can find it)")
+    pa.add_argument("--agent-id", default=None,
+                    help="stable identity in the journal (default: "
+                         "host-pid)")
+    pa.add_argument("--devices", type=int, default=1,
+                    help="device count advertised to the scheduler: on "
+                         "the card the agent's cards (it refuses to start "
+                         "with fewer), on the CPU the most gloo rank "
+                         "processes a trial of its takes")
+    pa.add_argument("--capacity", type=int, default=1,
+                    help="concurrent trials this host accepts (keep 1 on "
+                         "an accelerator host)")
+    pa.add_argument("--label", action="append", default=None,
+                    metavar="K=V", help="placement label (repeatable)")
+    pa.add_argument("--register", default=None, metavar="FILE",
+                    help="write a registration file (agent id, bound "
+                         "address, pid, capacity) once listening")
+    pa.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the agent's trials train: cuda (the "
+                         "card, default; rank r on the r-th card "
+                         "CUDA_VISIBLE_DEVICES shows) or cpu (gloo "
+                         "ranks)")
+    pa.add_argument("--idle-timeout", type=float, default=0.0,
+                    metavar="SECS",
+                    help="exit (terminating trials into emergency "
+                         "checkpoints) after this much orchestrator "
+                         "silence; 0 = never (the local transport "
+                         "always sets it for its agents)")
+
+    def _add_fleet_flags(sp):
+        sp.add_argument("--transport", choices=["local", "tcp"],
+                        default="local")
+        sp.add_argument("--agents", type=int, default=3,
+                        help="local transport: agent subprocesses to "
+                             "spawn")
+        sp.add_argument("--agent-devices", default=None, metavar="N,N,...",
+                        help="local transport: per-agent device counts "
+                             "(cycled; default 1 each)")
+        sp.add_argument("--agent-capacity", type=int, default=1,
+                        help="local transport: trials per agent")
+        sp.add_argument("--hosts", default=None, metavar="H:P,H:P,...",
+                        help="tcp transport: running agents to attach to "
+                             "(sweep dir must be on shared storage)")
+        sp.add_argument("--lease", type=float, default=10.0,
+                        help="seconds of silence before a host is "
+                             "declared dead and its trials migrate")
+        sp.add_argument("--call-timeout", type=float, default=2.0,
+                        help="per-RPC socket timeout")
+        sp.add_argument("--plan-hosts", action="store_true",
+                        help="the JAX package's planner-assigned mesh per "
+                             "host; refused until the port has its cost "
+                             "model (ROADMAP Queue 1 item 7d)")
+
+    pr = sub.add_parser("run", help="run a sweep over the fleet")
+    pr.add_argument("--sweep-dir", required=True)
+    pr.add_argument("--spec", default=None)
+    pr.add_argument("--samples", type=int, default=None)
+    pr.add_argument("--sweep-seed", type=int, default=0)
+    pr.add_argument("--steps", type=int, default=100)
+    pr.add_argument("--tail", type=int, default=10)
+    pr.add_argument("--scheduler", choices=["grid", "asha"],
+                    default="grid")
+    pr.add_argument("--eta", type=int, default=3)
+    pr.add_argument("--min-steps", type=int, default=None)
+    pr.add_argument("--ckpt-every", type=int, default=None)
+    pr.add_argument("--resume", action="store_true",
+                    help="continue this sweep-dir's journal (fresh fleet; "
+                         "completed trials reused byte-identically, "
+                         "in-flight ones re-dispatched with resume)")
+    # base config (every trial starts from these, like `sweep run`)
+    pr.add_argument("--network", default="LeNet")
+    pr.add_argument("--dataset", default="MNIST",
+                    choices=["MNIST", "Cifar10", "Cifar100", "SVHN",
+                             "MLMSynth"])
+    pr.add_argument("--batch-size", type=int, default=32)
+    pr.add_argument("--test-batch-size", type=int, default=32)
+    pr.add_argument("--optimizer", choices=["sgd", "adam"], default="sgd")
+    pr.add_argument("--momentum", type=float, default=0.9)
+    pr.add_argument("--num-workers", type=int, default=None)
+    pr.add_argument("--synthetic-size", type=int, default=None)
+    pr.add_argument("--data-dir", default="./data")
+    pr.add_argument("--data-path", default=None, metavar="DIR")
+    pr.add_argument("--dtype", choices=["float32", "bfloat16"],
+                    default="float32")
+    pr.add_argument("--seq-len", type=int, default=None)
+    pr.add_argument("--vocab-size", type=int, default=None)
+    pr.add_argument("--faults", default=None, metavar="SPEC")
+    pr.add_argument("--synthetic-trials", action="store_true",
+                    help="run the torch-free synthetic trial main instead "
+                         "of real training — the orchestration surface "
+                         "without the training cost (tests/CI); its "
+                         "agents need no card")
+    pr.add_argument("--step-sleep", type=float, default=0.0,
+                    metavar="SECS",
+                    help="synthetic trials: uniform per-step pacing")
+    # a base-config flag the JAX fleet lacks (its train and tune have it)
+    pr.add_argument("--compress-grad", choices=["none", "int8", "topk"],
+                    default="none")
+    _add_fleet_flags(pr)
+    _add_pool_flags(pr)
+
+    ps = sub.add_parser("status", help="journal-reconstructed fleet + "
+                                       "trial state")
+    ps.add_argument("--sweep-dir", required=True)
+
+    pag = sub.add_parser("agents", help="probe running agents (hello)")
+    pag.add_argument("--hosts", required=True, metavar="H:P,H:P,...")
+    pag.add_argument("--call-timeout", type=float, default=2.0)
+
+    pd = sub.add_parser("drain", help="stop new assignments on agents")
+    pd.add_argument("--hosts", required=True, metavar="H:P,H:P,...")
+    pd.add_argument("--call-timeout", type=float, default=2.0)
+
+    args = p.parse_args(argv)
+
+    if args.cmd == "agent":
+        from pytorch_distributed_nn_tpu_torch.experiments.fleet.agent import (
+            agent_main,
+        )
+
+        if args.agent_id is None:
+            import platform as _plat
+
+            args.agent_id = f"{_plat.node()}-{os.getpid()}"
+        try:
+            return agent_main(args)
+        except (ValueError, OSError) as e:
+            print(f"fleet agent: {e}", file=sys.stderr)
+            return 2
+
+    if args.cmd == "status":
+        from pytorch_distributed_nn_tpu_torch.experiments import load_journal
+        from pytorch_distributed_nn_tpu_torch.experiments.report import (
+            render_fleet,
+            render_status,
+        )
+
+        jstate = load_journal(args.sweep_dir)
+        if jstate is None:
+            print(f"no sweep journal under {args.sweep_dir}",
+                  file=sys.stderr)
+            return 2
+        print(render_fleet(jstate))
+        print(render_status(jstate))
+        return 0
+
+    if args.cmd in ("agents", "drain"):
+        from pytorch_distributed_nn_tpu_torch.experiments.fleet.transport import (
+            call_once,
+            probe_hosts,
+        )
+
+        addrs = [a for a in args.hosts.split(",") if a]
+        rows = probe_hosts(addrs, timeout=args.call_timeout)
+        rc = 0
+        for addr, info, err in rows:
+            if info is None:
+                print(f"{addr}: UNREACHABLE ({err})")
+                rc = 1
+                continue
+            if args.cmd == "drain":
+                host, _, port = addr.rpartition(":")
+                resp = call_once((host, int(port)), {"op": "drain"},
+                                 timeout=args.call_timeout)
+                print(f"{addr}: {info.agent_id} draining "
+                      f"(running: {resp.get('running')})")
+            else:
+                print(f"{addr}: {info.agent_id} devices={info.devices} "
+                      f"capacity={info.capacity} "
+                      f"draining={info.draining} labels={info.labels}")
+        return rc
+
+    # run
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        SweepInterrupted,
+        SweepSpec,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.fleet import (
+        FleetConfig,
+        FleetScheduler,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.fleet.transport import (
+        FleetError,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.spec import DEFAULT_SPEC
+    # the torch-free config module: the fleet orchestrator never imports
+    # torch — trials do, in their own processes on their hosts
+    from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
+
+    if args.synthetic_trials:
+        base = {
+            "network": "SynthNet", "lr": 0.1, "faults": args.faults,
+            "batch_size": args.batch_size, "step_sleep": args.step_sleep,
+        }
+    else:
+        base = TrainConfig(
+            network=args.network, dataset=args.dataset,
+            batch_size=args.batch_size,
+            test_batch_size=args.test_batch_size,
+            optimizer=args.optimizer, momentum=args.momentum,
+            num_workers=args.num_workers,
+            synthetic_size=args.synthetic_size, data_dir=args.data_dir,
+            data_path=args.data_path,
+            dtype=args.dtype, seq_len=args.seq_len,
+            vocab_size=args.vocab_size,
+            seed=args.sweep_seed, faults=args.faults,
+            compression=args.compress_grad,
+        )
+    try:
+        if args.transport == "tcp" and not args.hosts:
+            raise ValueError("--transport tcp needs --hosts")
+        spec = SweepSpec.parse(
+            args.spec or DEFAULT_SPEC,
+            samples=args.samples, sweep_seed=args.sweep_seed,
+        )
+        runner = FleetScheduler(
+            spec, base,
+            FleetConfig(
+                sweep_dir=args.sweep_dir, max_steps=args.steps,
+                tail=args.tail,
+                trial_timeout=args.trial_timeout,
+                retries=args.retries if args.retries is not None else 1,
+                ckpt_every=args.ckpt_every,
+                scheduler=args.scheduler, eta=args.eta,
+                min_steps=args.min_steps, resume=args.resume,
+                heartbeat_grace=args.heartbeat_grace,
+                device=args.device,
+                transport=args.transport, agents=args.agents,
+                agent_devices=tuple(
+                    int(d) for d in args.agent_devices.split(",") if d
+                ) if args.agent_devices else (),
+                agent_capacity=args.agent_capacity,
+                hosts=tuple(
+                    a for a in (args.hosts or "").split(",") if a
+                ),
+                lease=args.lease, call_timeout=args.call_timeout,
+                plan_hosts=args.plan_hosts,
+                trial_main_name=(
+                    "synthetic" if args.synthetic_trials else "default"
+                ),
+            ),
+        )
+    except ValueError as e:
+        print(f"fleet: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _sweep_finish(runner.run(), args.json)
+    except ValueError as e:
+        print(f"fleet: {e}", file=sys.stderr)
+        return 2
+    except SweepInterrupted as e:
+        print(f"fleet sweep interrupted: {e} — continue with "
+              f"'fleet run --resume --sweep-dir {args.sweep_dir}'",
+              file=sys.stderr)
+        return 3
+    except FleetError as e:
+        # every host dead (or the fleet failed to start): the journal
+        # holds all completed work — resumable, like an interruption
+        print(f"fleet: {e}", file=sys.stderr)
+        return 3
+
+
 def main_chaos(argv: Optional[Sequence[str]] = None) -> int:
     """Chaos suite: canned fault scenarios with CI-gateable invariants
     (resilience/chaos.py), with the JAX ``chaos``'s flags and exit codes
@@ -1463,7 +1785,8 @@ def main_chaos(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--cases", default=None, metavar="C1,C2,...",
                    help="for scenarios with sub-cases (elastic_resume: "
                         "shrink,regrow,corrupt; live_reload: swap,canary; "
-                        "replica_loss: kill,drain): run only these")
+                        "replica_loss: kill,drain; fleet_preempt: "
+                        "synthetic,elastic): run only these")
     p.add_argument("--device", default="cuda",
                    help="where every rank, engine and replica runs: cuda "
                         "(the card, default; one card per rank) or cpu "
@@ -1512,6 +1835,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("sweep", add_help=False,
                    help="sweep orchestrator: run, status, report, resume, "
                         "--selftest (the orchestrator imports no torch)")
+    sub.add_parser("fleet", add_help=False,
+                   help="the sweep over host agents: agent, run, status, "
+                        "agents, drain, --selftest (the orchestrator and "
+                        "the agents import no torch)")
     sub.add_parser("chaos", add_help=False,
                    help="canned fault scenarios with CI-gateable "
                         "invariants (--scenario list)")
@@ -1532,6 +1859,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return main_sweep(argv[1:])
     if argv[:1] == ["tune"]:
         return main_tune(argv[1:])
+    if argv[:1] == ["fleet"]:
+        return main_fleet(argv[1:])
     if argv[:1] == ["chaos"]:
         return main_chaos(argv[1:])
     args = build_parser().parse_args(argv)

@@ -1,6 +1,5 @@
 """experiments/ — resumable multi-trial sweep orchestration: the port's
-copy of the JAX package's ``experiments/`` (the fleet, ``experiments/
-fleet/``, is not ported yet).
+copy of the JAX package's ``experiments/``.
 
 The reference system's layer-5 tooling was an lr grid-search harness that
 launched a 17-process mpirun per candidate and regex-parsed worker logs
@@ -19,8 +18,11 @@ layer on top of the port:
   ``--supervise``-style telemetry run of the port's trainer.
 - :mod:`.report`    — ranked leaderboard (trailing loss / step rate / MFU
   pulled from the trial telemetry streams, never from logs).
+- :mod:`.fleet`     — the same sweep over host agents on TCP: placement,
+  leases, migration of a dead host's trials (``cli fleet``).
 
-CLI surface: ``sweep run/status/report/resume`` (+ ``--selftest``);
+CLI surface: ``sweep run/status/report/resume`` (+ ``--selftest``),
+``fleet agent/run/status/agents/drain`` (+ ``--selftest``);
 ``tune`` / :func:`~..tuning.lr_sweep` are thin shims over this runner.
 Nothing here imports torch: only the trials do.
 """

@@ -160,6 +160,40 @@ def render_leaderboard(rows: List[dict]) -> str:
     return "\n".join(lines)
 
 
+def render_fleet(jstate: JournalState) -> str:
+    """The fleet half of ``cli fleet status``: host roster + migrations,
+    reconstructed purely from the journal fold (the state `fleet run
+    --resume` starts from when the orchestrator itself died)."""
+    meta = jstate.sweep_meta.get("fleet") or {}
+    lines = [
+        f"fleet: transport {meta.get('transport', '?')} · "
+        f"{len(jstate.hosts)} host(s) journaled · "
+        f"{jstate.migrations} migration(s)"
+    ]
+    if jstate.hosts:
+        lines.append(f"  {'host':<12} {'state':<6} {'devices':>7} "
+                     f"{'capacity':>8}  addr")
+        for hid in sorted(jstate.hosts):
+            h = jstate.hosts[hid]
+            lines.append(
+                f"  {hid:<12} {h.get('state', '?'):<6} "
+                f"{_fmt(h.get('devices'), '{:d}', '-'):>7} "
+                f"{_fmt(h.get('capacity'), '{:d}', '-'):>8}  "
+                f"{h.get('addr') or '-'}"
+                + (f" ({h['reason']})" if h.get("reason") else "")
+            )
+    migrated = {
+        idx: st for idx, st in sorted(jstate.trials.items())
+        if st.migrations
+    }
+    for idx, st in migrated.items():
+        lines.append(
+            f"  trial {idx}: migrated {st.migrations}x, last host "
+            f"{st.host or '-'}"
+        )
+    return "\n".join(lines)
+
+
 def render_status(jstate: JournalState) -> str:
     """The ``cli sweep status`` view: journal-only, no stream reads."""
     meta = jstate.sweep_meta

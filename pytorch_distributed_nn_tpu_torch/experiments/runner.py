@@ -42,9 +42,11 @@ Execution model (docs/experiments.md):
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
 import os
+import re
 import signal
 import time
 from typing import Callable, Dict, List, Optional
@@ -107,19 +109,18 @@ class RunnerConfig:
 def default_trial_main(trial_dir: str, cfg: dict,
                        device: Optional[str] = None) -> None:
     """Child entry point: one real training run from a config dict on
-    ``device`` (None: the card).
+    ``device`` (None: the card), as one rank of the torchrun world of
+    its environment (a fleet agent's trial of several ranks,
+    ``experiments/fleet/agent.py``), else as a world of one.
 
     Runs in a spawned subprocess; the torch import and the card's context
     happen HERE, never in the orchestrating parent. cuDNN runs its
     deterministic algorithms, so that a trial resumed from a checkpoint
     continues bit for bit (the journal reuses a trial's records as they
     are, and :func:`.report.trailing_loss` dedupes replayed steps on that
-    promise). The launch counts of this lifetime's steps are appended to
-    :data:`LAUNCHES_BASENAME` once it has trained (a preempted lifetime
-    too: it returns after its emergency checkpoint).
+    promise). Every rank counts its kernel launches over the lifetime's
+    steps (:class:`_LifetimeLaunches`).
     """
-    import json
-
     from pytorch_distributed_nn_tpu_torch.ops import kernels
     from pytorch_distributed_nn_tpu_torch.training.trainer import (
         TrainConfig,
@@ -130,19 +131,89 @@ def default_trial_main(trial_dir: str, cfg: dict,
     deterministic()
     cfg = dict(cfg)
     cfg["kill_ranks"] = tuple(cfg.get("kill_ranks") or ())
+    if int(os.environ.get("RANK", "0")) == 0:
+        # before the group forms: no rank of this lifetime has stepped yet
+        _fold_killed_lifetimes(trial_dir)
     trainer = Trainer(TrainConfig(**cfg), device=device)
     try:
         kernels.reset_launch_counts()
-        history = trainer.train()
-        line = json.dumps({"start_step": trainer.start_step,
-                           "steps": len(history),
-                           "launches": kernels.launch_counts()})
-        with open(os.path.join(trial_dir, LAUNCHES_BASENAME), "a") as f:
-            f.write(line + "\n")
-            f.flush()
-            os.fsync(f.fileno())
+        counts = _LifetimeLaunches(trial_dir, trainer, kernels.launch_counts)
+        trainer.telemetry.subscribe(counts.on_record)
+        trainer.train()
+        counts.close()
     finally:
         trainer.close()
+
+
+#: a lifetime's counts so far, one file a rank, rewritten after each step
+LIVE_LAUNCHES = "launches.live.r{rank}.json"
+
+
+class _LifetimeLaunches:
+    """One rank's kernel launches over one lifetime of a trial: after
+    every step record :data:`LIVE_LAUNCHES` is rewritten (atomically)
+    with ``{start_step, steps, launches, rank, world}``, and
+    :meth:`close` moves it to a line of :data:`LAUNCHES_BASENAME` once
+    the lifetime has trained (a preempted one too: it returns after its
+    emergency checkpoint). A SIGKILLed lifetime leaves its live file
+    behind, and the next lifetime folds it into a line
+    (:func:`_fold_killed_lifetimes`): every lifetime is counted."""
+
+    def __init__(self, trial_dir: str, trainer, launch_counts):
+        self.path = os.path.join(trial_dir, LAUNCHES_BASENAME)
+        self.live = os.path.join(trial_dir,
+                                 LIVE_LAUNCHES.format(rank=trainer.rank))
+        self._trainer = trainer
+        self._launch_counts = launch_counts
+        self.steps = 0
+        self._publish()
+
+    def record(self) -> dict:
+        t = self._trainer
+        return {"start_step": t.start_step, "steps": self.steps,
+                "launches": self._launch_counts(), "rank": t.rank,
+                "world": t.world}
+
+    def _publish(self) -> None:
+        with open(self.live + ".tmp", "w") as f:
+            json.dump(self.record(), f)
+        os.replace(self.live + ".tmp", self.live)
+
+    def on_record(self, rec: dict) -> None:
+        if rec.get("kind") == "step":
+            self.steps += 1
+            self._publish()
+
+    def close(self) -> None:
+        _append_line(self.path, self.record())
+        os.unlink(self.live)
+
+
+def _fold_killed_lifetimes(trial_dir: str) -> None:
+    """The live files a SIGKILLed lifetime left in ``trial_dir`` become its
+    lines of :data:`LAUNCHES_BASENAME` (rank order), marked ``killed``."""
+    pat = re.compile(re.escape(LIVE_LAUNCHES).replace(
+        re.escape("{rank}"), r"(\d+)") + "$")
+    try:
+        names = os.listdir(trial_dir)
+    except FileNotFoundError:
+        return
+    left = sorted((int(m.group(1)), n) for n in names
+                  if (m := pat.match(n)))
+    for _, name in left:
+        path = os.path.join(trial_dir, name)
+        with open(path) as f:
+            rec = json.load(f)
+        _append_line(os.path.join(trial_dir, LAUNCHES_BASENAME),
+                     dict(rec, killed=True))
+        os.unlink(path)
+
+
+def _append_line(path: str, rec: dict) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+        f.flush()
+        os.fsync(f.fileno())
 
 
 def _synthetic_loss(lr: float, seed: int, step: int) -> float:
@@ -184,12 +255,18 @@ def synthetic_trial_main(trial_dir: str, cfg: dict,
     lr = float(cfg.get("lr") or 0.1)
     seed = int(cfg.get("seed") or 0)
     budget = int(cfg.get("max_steps") or 0)
+    # uniform per-step pacing (distinct from the targeted delay@ fault):
+    # what the fleet's chaos and tests use to model a workload whose wall
+    # time is real while its loss stays a pure function of (lr, seed, step)
+    step_sleep = float(cfg.get("step_sleep") or 0.0)
     t = Telemetry.for_run(path, run_manifest(
         config={"network": cfg.get("network"), "lr": lr, "seed": seed},
         start_step=start,
     ))
     try:
         for step in range(start + 1, budget + 1):
+            if step_sleep:
+                time.sleep(step_sleep)
             for s, _rank, secs in plan.delay_table():
                 if s == step:
                     time.sleep(secs)
@@ -325,6 +402,7 @@ class SweepRunner:
                     "heartbeat_grace": c.heartbeat_grace,
                 },
                 "trace": self.trace.fields(),
+                **self._sweep_meta_extra(),
             },
             resumed=bool(c.resume),
         )
@@ -333,6 +411,7 @@ class SweepRunner:
             "sweep_trials_total", help="trials in the sweep spec",
         ).set(len(trials))
         self._gauges()
+        self._on_journal_open()
         prev_handler = None
         try:
             prev_handler = signal.signal(signal.SIGTERM, self._on_sigterm)
@@ -416,6 +495,7 @@ class SweepRunner:
                         f"interrupted with {len(running)} trial(s) running "
                         f"and {len(pend)} queued"
                     )
+                self._poll_hosts(running, pend, rung)
                 now = time.monotonic()
                 for att in list(pend):
                     if len(running) >= c.concurrency:
@@ -423,7 +503,16 @@ class SweepRunner:
                     if att.not_before > now:
                         continue
                     pend.remove(att)
-                    running[att.trial.index] = self._launch(att, rung)
+                    handle = self._launch(att, rung)
+                    if handle is None:
+                        # fleet: no host has a free slot right now — the
+                        # attempt re-queues AT ITS PLACE IN LINE behind a
+                        # short gate (a migrated trial at the head stays
+                        # at the head) instead of blocking the loop
+                        att.not_before = time.monotonic() + 0.1
+                        pend.insert(0, att)
+                        continue
+                    running[att.trial.index] = handle
                     self._gauges(running=len(running))
                 progressed = False
                 for idx, run in list(running.items()):
@@ -495,7 +584,8 @@ class SweepRunner:
 
     # -- one attempt ------------------------------------------------------
 
-    def _launch(self, att: _Attempt, rung: scheduler.Rung) -> _Running:
+    def _launch(self, att: _Attempt,
+                rung: scheduler.Rung) -> Optional[_Running]:
         import multiprocessing
 
         c = self.cfg
@@ -622,16 +712,36 @@ class SweepRunner:
             step_rate=metrics.get("step_rate"), mfu=metrics.get("mfu"),
             overrides=trial.overrides,
             duration_s=round(time.monotonic() - run.t0, 3),
+            **self._attempt_extra(run),
         )
         self.journal.flush()
         return status, loss, metrics
 
+    # -- fleet seams (experiments/fleet/scheduler.py overrides these) -----
+
+    def _sweep_meta_extra(self) -> dict:
+        """Extra sweep-manifest fields (fleet: transport + lease)."""
+        return {}
+
+    def _on_journal_open(self) -> None:
+        """Called once the journal is writable (fleet: host_join events,
+        fleet gauges)."""
+
+    def _poll_hosts(self, running, pend, rung) -> None:
+        """Called every loop iteration before launches/reaps (fleet:
+        lease pings, dead-host detection, trial migration)."""
+
     def _heartbeat_stale(self, run: _Running) -> Optional[float]:
-        """Stale heartbeat age for a RUNNING attempt, or None: the
-        trial's heartbeat file polled through the supervisor Watchdog."""
+        """Stale heartbeat age for a RUNNING attempt, or None. The base
+        pool polls the trial's local heartbeat file through the
+        supervisor Watchdog; the fleet uses the agent-relayed age."""
         if run.hb is None:
             return None
         return run.hb.check_once()
+
+    def _attempt_extra(self, run: _Running) -> dict:
+        """Extra trial_end fields (fleet: the host that ran it)."""
+        return {}
 
     def _retry_delay(self, att: _Attempt) -> float:
         from pytorch_distributed_nn_tpu_torch.resilience.retry import (

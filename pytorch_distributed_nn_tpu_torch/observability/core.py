@@ -384,6 +384,26 @@ def run_manifest(
         manifest["config"] = config
     if mesh_shape is not None:
         manifest["mesh_shape"] = mesh_shape
+    # distributed-trace relay: a process spawned by the sweep runner or a
+    # fleet agent inherits its attempt's span in PDTN_TRACE_CONTEXT; the
+    # manifest derives its own child span under it, so trial telemetry
+    # joins the sweep's trace (orchestrator -> agent -> trial, the agent
+    # named by PDTN_TRACE_VIA). An unset or malformed value stamps
+    # nothing: manifests must never fail on environment garbage.
+    relayed = os.environ.get("PDTN_TRACE_CONTEXT")
+    if relayed:
+        from pytorch_distributed_nn_tpu_torch.observability import tracing
+
+        try:
+            ctx = tracing.TraceContext.from_header(relayed).child()
+        except ValueError:
+            pass
+        else:
+            block = ctx.fields()
+            via = os.environ.get("PDTN_TRACE_VIA")
+            if via:
+                block["via"] = via
+            manifest["trace_context"] = block
     for k, v in extra.items():
         if v is not None:
             manifest[k] = v

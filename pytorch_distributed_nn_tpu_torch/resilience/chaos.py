@@ -40,12 +40,10 @@ subsystem promises — not just "it didn't crash":
 - ``replica_loss``  — the replicated frontend survives a SIGKILLed replica
   and a rolling restart with zero client-visible failures.
 - ``sweep_resume``  — a SIGTERMed sweep resumes from its journal.
+- ``fleet_preempt`` — a fleet agent SIGKILLed mid-rung: its trials
+  migrate and resume elastically on the survivors.
 - ``smoke``         — a fast composite (nan_grad + torn_ckpt + validated
   resume).
-
-The JAX package's ``fleet_preempt`` is not here: it drives the fleet
-scheduler (``experiments/fleet``), which the port does not have yet
-(ROADMAP Queue 1 item 7c).
 
 **Ranks are processes.** The JAX suite runs a data-parallel scenario's
 ``num_workers`` workers as virtual devices of one process. The port runs
@@ -78,7 +76,6 @@ import json
 import logging
 import os
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -127,8 +124,6 @@ def _bert_cfg(train_dir: str, **kw):
 
 #: seconds a launch of rank processes may take before it is killed
 RANK_TIMEOUT_S = 900.0
-#: seconds the other ranks get to leave after one rank failed
-_RANK_GRACE_S = 20.0
 
 
 @dataclasses.dataclass
@@ -226,12 +221,6 @@ def _train_rank(cfg: dict, device: str, train: bool = True,
     return rec, states
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _package_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -254,10 +243,15 @@ _RANK_LAUNCHES: Dict[str, int] = {}
 def _spawn_ranks(job: str, world: int, device: str, out_dir: str,
                  kwargs: dict) -> List[dict]:
     """Run :data:`_RANK_JOBS` ``[job](device=device, **kwargs)`` in
-    ``world`` rank processes of one torchrun world; returns each rank's
+    ``world`` rank processes of one torchrun world
+    (:class:`..parallel.launch.RankProcesses`); returns each rank's
     record. Rank 0's state trees land in ``out_dir/states_<name>.npz``.
     A rank that fails fails the launch with its log's tail; the others
-    then get :data:`_RANK_GRACE_S` to leave before they are killed."""
+    then get the launcher's grace to leave before they are killed."""
+    from pytorch_distributed_nn_tpu_torch.parallel.launch import (
+        RankProcesses,
+    )
+
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "job.json"), "w") as f:
         json.dump({"job": job, "device": device, "kwargs": kwargs}, f)
@@ -267,49 +261,23 @@ def _spawn_ranks(job: str, world: int, device: str, out_dir: str,
         [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     if device == "cpu":
         env["OMP_NUM_THREADS"] = "1"  # as _one_thread says
-    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
-    procs = []
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
+    ranks = RankProcesses.start(
+        [sys.executable, "-m", __name__, "--rank-job", out_dir], world, env,
+        logs=logs)
     try:
-        for r in range(world):
-            log = open(os.path.join(out_dir, f"rank{r}.log"), "wb")
-            try:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", __name__, "--rank-job", out_dir],
-                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                    stdout=log, stderr=subprocess.STDOUT,
-                    start_new_session=True))
-            finally:
-                log.close()
-        deadline = time.monotonic() + RANK_TIMEOUT_S
-        failed = None
-        while True:
-            rcs = [p.poll() for p in procs]
-            if failed is None:
-                bad = [r for r, rc in enumerate(rcs) if rc not in (None, 0)]
-                if bad:
-                    failed = bad[0]
-                    deadline = min(deadline,
-                                   time.monotonic() + _RANK_GRACE_S)
-            if all(rc is not None for rc in rcs):
-                break
-            if time.monotonic() > deadline:
-                break
-            time.sleep(0.05)
-        if failed is None and any(p.poll() is None for p in procs):
+        ranks.join(RANK_TIMEOUT_S)
+        if ranks.exitcode is None:
             raise RuntimeError(
                 f"chaos ranks of {job!r} did not finish in "
                 f"{RANK_TIMEOUT_S:.0f}s; rank logs under {out_dir}")
-        if failed is not None:
+        if ranks.failed is not None:
             raise RuntimeError(
-                f"chaos rank {failed} of {world} ({job!r}) exited "
-                f"{procs[failed].returncode}; its log ends:\n"
-                + _log_tail(os.path.join(out_dir, f"rank{failed}.log")))
+                f"chaos rank {ranks.failed} of {world} ({job!r}) exited "
+                f"{ranks.procs[ranks.failed].returncode}; its log ends:\n"
+                + _log_tail(logs[ranks.failed]))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        ranks.kill()
     records = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2122,6 +2090,313 @@ def scenario_sweep_resume(workdir: str, device: str) -> List[Check]:
     return checks
 
 
+def scenario_fleet_preempt(workdir: str, device: str,
+                           cases=None) -> List[Check]:
+    """Fleet scheduler under host preemption (experiments/fleet/,
+    docs/experiments.md "Fleet"): an agent SIGKILLed mid-rung — the
+    whole process group, the local model of losing the machine — has its
+    in-flight trials migrated to surviving hosts and elastically
+    resumed, with the journal/obs trail proving every transition.
+
+    Two cases, splitting the acceptance criterion along what floating
+    point can actually promise:
+
+    - ``synthetic`` — 3 local agents, 12-trial ASHA sweep over the
+      synthetic trial main (loss a pure function of (lr, seed, step), so
+      migration is math-invariant BY CONSTRUCTION): one agent killed
+      mid-rung, zero trials lost, zero retry budget spent, and the final
+      ASHA leaderboard BYTE-identical to an uninterrupted single-host
+      run — rank, steps and bitwise losses.
+    - ``elastic`` — real LeNet trials on agents exposing DIFFERENT
+      device counts (4/2/2). The victim's in-flight trial (checkpoint
+      published) migrates to a 2-device host and resumes through the
+      reshard-on-load path — typed ``elastic_resume`` event with old
+      devices=4 -> new devices=2 in the trial's own stream — and the
+      leaderboard matches the uninterrupted reference in rank with
+      losses inside the documented elastic tolerance (params reshard
+      bitwise at restore; the dp-degree change reorders the grad
+      reduction, docs/resilience.md#elastic-resume).
+
+    On the port a trial is one process per rank: on the CPU the elastic
+    agents' trials are 4, 2 and 2 gloo rank processes, on the card 8
+    cards (:data:`RANKS`), and the reference trains each trial on one
+    rank of ``device``. The ``synthetic`` case's trials touch no device:
+    its agents run on the CPU whatever ``device`` is.
+    """
+    import json
+    import threading
+    import time
+
+    from pytorch_distributed_nn_tpu_torch.experiments import (
+        RunnerConfig,
+        SweepRunner,
+        SweepSpec,
+        load_journal,
+        trial_dir,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.fleet import (
+        FleetConfig,
+        FleetScheduler,
+        LocalTransport,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments.runner import (
+        synthetic_trial_main,
+    )
+    from pytorch_distributed_nn_tpu_torch.observability import reader
+    from pytorch_distributed_nn_tpu_torch.observability.promexport import (
+        validate_exposition,
+    )
+
+    cases = tuple(cases) if cases else ("synthetic", "elastic")
+    bad = [c for c in cases if c not in ("synthetic", "elastic")]
+    if bad:
+        return [Check(f"unknown fleet_preempt case(s) {bad}", False,
+                      "have: synthetic, elastic")]
+    checks: List[Check] = []
+
+    def run_fleet_with_kill(sdir, spec, base, fcfg, devices,
+                            kill_ready, label):
+        """Drive a FleetScheduler in a thread; SIGKILL agent0's process
+        group once ``kill_ready(journal, victim)`` opens; return
+        (result, killed, error)."""
+        transport = LocalTransport(
+            fleet_dir=os.path.join(sdir, "fleet"), agents=3,
+            devices=devices, capacity=1, device=fcfg.device,
+            lease=fcfg.lease, call_timeout=fcfg.call_timeout,
+        )
+        fs = FleetScheduler(spec, base, fcfg, transport=transport)
+        result, err = {}, []
+
+        def drive():
+            try:
+                result.update(fs.run())
+            except Exception as e:
+                err.append(e)
+
+        thread = threading.Thread(target=drive, name=f"fleet-{label}")
+        thread.start()
+        victim = "agent0"
+        killed = False
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline and thread.is_alive():
+            j = load_journal(sdir)
+            if j is not None and kill_ready(j, victim):
+                transport.kill_agent(victim)
+                killed = True
+                break
+            time.sleep(0.1)
+        thread.join(300)
+        return fs, result, killed, err, victim
+
+    def rows_key(rows):
+        return [(r["trial"], r["steps"], r["loss"]) for r in rows]
+
+    def inflight_with_stream(j, victim, sdir):
+        for idx, st in j.trials.items():
+            if not (st.in_flight and st.host == victim):
+                continue
+            tpath = os.path.join(
+                trial_dir(sdir, idx), "telemetry.jsonl"
+            )
+            if os.path.isfile(tpath) and os.path.getsize(tpath) > 0:
+                return True
+        return False
+
+    # --- synthetic: byte-identical ASHA leaderboard across a kill -------
+    if "synthetic" in cases:
+        lrs = ("0.4,0.2,0.1,0.05,0.025,0.0125,0.00625,"
+               "0.3,0.15,0.075,0.0375,2.0")  # 12 trials, one divergent
+        spec = SweepSpec.parse(f"lr={lrs}")
+        base = {"network": "SynthNet", "lr": 0.1, "faults": None,
+                "step_sleep": 0.3}
+        ref = SweepRunner(
+            spec, base,
+            RunnerConfig(sweep_dir=os.path.join(workdir, "syn_ref"),
+                         max_steps=9, concurrency=3, scheduler="asha",
+                         eta=3, retries=1, retry_base_delay=0.01),
+            trial_main=synthetic_trial_main,
+        ).run()
+        sdir = os.path.join(workdir, "syn_fleet")
+        fs, result, killed, err, victim = run_fleet_with_kill(
+            sdir, spec, base,
+            FleetConfig(sweep_dir=sdir, max_steps=9, scheduler="asha",
+                        eta=3, retries=1, retry_base_delay=0.01,
+                        lease=1.5, call_timeout=0.5,
+                        trial_main_name="synthetic", device="cpu"),
+            devices=[1, 1, 1],
+            kill_ready=lambda j, v: inflight_with_stream(j, v, sdir),
+            label="synthetic",
+        )
+        checks.append(Check(
+            "synthetic: agent SIGKILLed mid-rung, ASHA sweep completed, "
+            "zero trials lost",
+            killed and not err and result.get("failed") == [],
+            f"killed={killed} err={err!r} failed={result.get('failed')}",
+        ))
+        j = load_journal(sdir)
+        migrated = sorted(
+            idx for idx, st in (j.trials if j else {}).items()
+            if st.migrations
+        )
+        checks.append(Check(
+            "synthetic: host_dead journaled, trials migrated with retry "
+            "budget untouched",
+            j is not None
+            and j.hosts.get(victim, {}).get("state") == "dead"
+            and len(migrated) >= 1
+            and all((j.trials[i].last_end or {}).get("attempt") == 0
+                    for i in migrated),
+            f"migrated={migrated} hosts={j.hosts if j else None}",
+        ))
+        checks.append(Check(
+            "synthetic: ASHA leaderboard BYTE-identical to the "
+            "uninterrupted run",
+            bool(result) and rows_key(result.get("leaderboard", []))
+            == rows_key(ref["leaderboard"]),
+            "rank/steps/loss triples diverge",
+        ))
+        summary = reader.summarize_run(reader.read_stream(sdir))
+        fl = summary.get("fleet") or {}
+        checks.append(Check(
+            "synthetic: every transition visible in obs summary "
+            "(fleet section) and the journal",
+            fl.get("dead") == 1
+            and len(fl.get("migrations") or []) >= 1
+            and all(
+                (fl.get("hosts") or {}).get(f"agent{k}", {}).get("trials")
+                for k in range(3)
+            ),
+            f"{fl}",
+        ))
+        prom_path = os.path.join(sdir, "metrics.prom")
+        try:
+            with open(prom_path) as f:
+                prom = f.read()
+            perrs = validate_exposition(prom)
+        except OSError as e:
+            prom, perrs = "", [repr(e)]
+        checks.append(Check(
+            "synthetic: pdtn_fleet_* gauges published and valid",
+            not perrs and 'pdtn_fleet_hosts{state="dead"} 1' in prom
+            and "pdtn_fleet_trials_inflight" in prom,
+            "; ".join(perrs[:3]),
+        ))
+
+    # --- elastic: real training migrates across device counts -----------
+    if "elastic" in cases:
+        from pytorch_distributed_nn_tpu_torch.data.datasets import load_dataset
+        from pytorch_distributed_nn_tpu_torch.data.streaming import (
+            export_image_dataset,
+        )
+        from pytorch_distributed_nn_tpu_torch.training.config import (
+            TrainConfig,
+        )
+
+        # streaming input so a resumed trial's batch sequence continues
+        # bitwise (the sweep_resume discipline); the only post-migration
+        # divergence left is the dp-degree change itself
+        shard_dir = os.path.join(workdir, "shards")
+        export_image_dataset(
+            load_dataset("MNIST", train=True, data_dir=workdir,
+                         synthetic_size=64),
+            shard_dir, shards=2,
+        )
+        steps, ck = 6, 3
+        spec = SweepSpec.parse("lr=0.1,0.05,0.01")
+        base = TrainConfig(
+            network="LeNet", dataset="MNIST", batch_size=32,
+            test_batch_size=32, num_workers=None, synthetic_size=64,
+            data_path=shard_dir, faults="delay@5:1.5s", seed=0,
+        )
+        ref = SweepRunner(
+            spec, base,
+            RunnerConfig(sweep_dir=os.path.join(workdir, "el_ref"),
+                         max_steps=steps, ckpt_every=ck, concurrency=3,
+                         retries=1, device=device),
+        ).run()
+
+        def ckpt_published(j, victim):
+            for idx, st in j.trials.items():
+                if st.in_flight and st.host == victim and os.path.exists(
+                    os.path.join(trial_dir(sdir, idx),
+                                 f"model_step_{ck}")
+                ):
+                    return True
+            return False
+
+        sdir = os.path.join(workdir, "el_fleet")
+        fs, result, killed, err, victim = run_fleet_with_kill(
+            sdir, spec, base,
+            FleetConfig(sweep_dir=sdir, max_steps=steps, ckpt_every=ck,
+                        retries=1, retry_base_delay=0.01,
+                        lease=2.0, call_timeout=0.5,
+                        trial_main_name="default", device=device),
+            devices=[4, 2, 2],
+            kill_ready=ckpt_published,
+            label="elastic",
+        )
+        checks.append(Check(
+            "elastic: 4-device agent SIGKILLed with a checkpointed trial "
+            "in flight; sweep completed, zero trials lost",
+            killed and not err and result.get("failed") == []
+            and all(r["steps"] == steps
+                    for r in result.get("leaderboard", [])),
+            f"killed={killed} err={err!r} failed={result.get('failed')}",
+        ))
+        j = load_journal(sdir)
+        migrated = sorted(
+            idx for idx, st in (j.trials if j else {}).items()
+            if st.migrations
+        )
+        checks.append(Check(
+            "elastic: host_dead + trial_migrate journaled; re-dispatch "
+            "landed on a surviving host",
+            j is not None
+            and j.hosts.get(victim, {}).get("state") == "dead"
+            and len(migrated) >= 1
+            and all(j.trials[i].host != victim for i in migrated),
+            f"migrated={migrated}",
+        ))
+        elastic_events = []
+        for idx in migrated:
+            rs = reader.read_stream(trial_dir(sdir, idx))
+            elastic_events += [
+                e for e in rs.events
+                if e.get("type") == "elastic_resume"
+            ]
+        checks.append(Check(
+            "elastic: migrated trial ELASTICALLY resumed on a different "
+            "device count (typed elastic_resume, 4d -> 2d)",
+            any(
+                (e.get("old") or {}).get("devices") == 4
+                and (e.get("new") or {}).get("devices") == 2
+                for e in elastic_events
+            ),
+            f"elastic events: {json.dumps(elastic_events)[:300]}",
+        ))
+        a = {r["trial"]: r for r in ref["leaderboard"]}
+        b = {r["trial"]: r
+             for r in result.get("leaderboard", [])} if result else {}
+        rank_same = (
+            [r["trial"] for r in ref["leaderboard"]]
+            == [r["trial"] for r in result.get("leaderboard", [])]
+        )
+        loss_close = bool(b) and all(
+            a[i]["loss"] is not None and b[i]["loss"] is not None
+            and abs(a[i]["loss"] - b[i]["loss"])
+            <= 1e-3 * max(abs(a[i]["loss"]), 1e-9)
+            for i in a
+        )
+        checks.append(Check(
+            "elastic: leaderboard rank identical, losses within the "
+            "elastic tolerance (<=1e-3 rtol)",
+            rank_same and loss_close,
+            f"rank_same={rank_same} a={[(i, a[i]['loss']) for i in sorted(a)]} "
+            f"b={[(i, b[i]['loss']) for i in sorted(b)]}",
+        ))
+    return checks
+
+
 class _HttpLoad:
     """``loadgen.run_http_load`` in a process of its own (this module's
     ``--http-load`` entry): the clients' 64 threads and their JSON
@@ -2471,12 +2746,14 @@ SCENARIOS: Dict[str, Callable[..., List[Check]]] = {
     "data_resume": scenario_data_resume,
     "elastic_resume": scenario_elastic_resume,
     "sweep_resume": scenario_sweep_resume,
+    "fleet_preempt": scenario_fleet_preempt,
 }
 
 #: the ranks each scenario trains on — on the card, the cards it needs —
 #: per case where its cases differ. The replicas of ``replica_loss`` and
 #: the trials of ``sweep_resume`` are processes of one rank each, on one
-#: card.
+#: card; ``fleet_preempt``'s elastic agents own 4 + 2 + 2 cards, and its
+#: synthetic trials touch none.
 RANKS: Dict[str, object] = {
     "smoke": 2, "crash_resume": 2, "preempt": 4, "straggler": 4,
     "torn_ckpt": 4, "nan_grad": 4, "async_ckpt": 4, "flightrec": 4,
@@ -2485,6 +2762,7 @@ RANKS: Dict[str, object] = {
     "generate": 1, "data_resume": 2,
     "elastic_resume": {"shrink": 8, "regrow": 4, "corrupt": 8},
     "sweep_resume": 1,
+    "fleet_preempt": {"synthetic": 0, "elastic": 8},
 }
 
 
@@ -2531,15 +2809,10 @@ def run_scenario(
 
     ``cases`` restricts a multi-case scenario to the named sub-cases.
     Returns a process exit code: 0 only when every invariant held, 1
-    when any failed, 2 for an unknown scenario, for ``fleet_preempt``,
-    and on the card for a scenario that needs more cards than there are
-    (refused before anything trains).
+    when any failed, 2 for an unknown scenario, and on the card for a
+    scenario that needs more cards than there are (refused before
+    anything trains or any agent starts).
     """
-    if name == "fleet_preempt":
-        print("fleet_preempt drives the fleet scheduler (experiments/"
-              "fleet), which the port does not have yet (ROADMAP Queue 1 "
-              "item 7c)")
-        return 2
     if name not in SCENARIOS:
         print(f"unknown scenario {name!r}; have: {', '.join(SCENARIOS)}")
         return 2

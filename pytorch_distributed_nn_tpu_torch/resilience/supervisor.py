@@ -129,6 +129,16 @@ def write_heartbeat(run_dir: str, step: int,
     os.replace(path + ".tmp", path)
 
 
+def read_heartbeat(run_dir: str) -> Optional[dict]:
+    """The run's last heartbeat (``{step, time, pid, ...}``), or None when
+    there is none yet or it cannot be read (a fleet agent relays it)."""
+    try:
+        with open(heartbeat_path(run_dir)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
 class Watchdog:
     """A daemon thread that flags the run as stalled when the heartbeat is
     older than ``grace`` seconds, once per stall episode (a fresh beat

@@ -18,9 +18,9 @@ import torch_cpu  # noqa: F401  (one intra-op thread)
 
 
 def test_registry_is_the_jax_one_less_fleet_preempt():
-    want = [n for n in jax_chaos.SCENARIOS if n != "fleet_preempt"]
+    want = list(jax_chaos.SCENARIOS)
     assert list(chaos.SCENARIOS) == want
-    assert len(want) == 15
+    assert len(want) == 16
     assert set(chaos.RANKS) == set(chaos.SCENARIOS)
     for name, fn in chaos.SCENARIOS.items():
         assert fn.__doc__, name
@@ -36,22 +36,22 @@ def test_list_names_every_scenario_in_order_with_its_cards(capsys):
     assert by_name["elastic_resume"].endswith(
         "[cards: shrink 8, regrow 4, corrupt 8]")
     assert by_name["live_reload"].endswith("[cards: swap 2, canary 1]")
+    assert by_name["fleet_preempt"].endswith(
+        "[cards: synthetic 0, elastic 8]")
 
 
-@pytest.mark.parametrize("name", ["nope", "fleet_preempt"])
+@pytest.mark.parametrize("name", ["nope"])
 def test_unknown_scenario_and_fleet_preempt_exit_2(name, capsys):
     assert main(["chaos", "--scenario", name, "--device", "cpu"]) == 2
     out = capsys.readouterr().out
-    if name == "fleet_preempt":
-        assert "experiments/fleet" in out and "7c" in out
-    else:
-        assert "unknown scenario 'nope'" in out
+    assert "unknown scenario 'nope'" in out
 
 
 @pytest.mark.parametrize("name,cases,need", [
     ("smoke", None, 2), ("preempt", None, 4), ("generate", None, 1),
     ("elastic_resume", None, 8), ("elastic_resume", ("regrow",), 4),
     ("live_reload", ("canary",), 1), ("live_reload", None, 2),
+    ("fleet_preempt", None, 8), ("fleet_preempt", ("synthetic",), 0),
 ])
 def test_ranks_needed(name, cases, need):
     assert chaos.ranks_needed(name, cases) == need
@@ -61,6 +61,8 @@ def test_ranks_needed(name, cases, need):
     (["--scenario", "smoke"], 2, 1),
     (["--scenario", "elastic_resume", "--cases", "regrow"], 4, 2),
     (["--scenario", "flightrec", "--device", "cuda:0"], 4, 3),
+    (["--scenario", "fleet_preempt"], 8, 4),
+    (["--scenario", "fleet_preempt", "--cases", "synthetic,elastic"], 8, 7),
 ])
 def test_too_few_cards_refused_before_any_cuda_call(
         monkeypatch, capsys, tmp_path, argv, need, found):
@@ -134,16 +136,18 @@ def test_a_failing_rank_fails_the_launch_with_its_log(tmp_path):
 
 def test_chaos_check_tool_records_each_run(tmp_path, capsys):
     """``tools/chaos_check.py`` runs each scenario through the CLI and
-    keeps one row a run: here two refusals, rc 2 and no checks."""
+    keeps one row a run: here two refusals, an unknown case (one failed
+    check, rc 1) and an unknown scenario (rc 2 and no checks)."""
     from pytorch_distributed_nn_tpu_torch.tools import chaos_check
 
     out = tmp_path / "runs.json"
-    assert chaos_check.main(["fleet_preempt", "nope", "--device", "cpu",
-                             "--out", str(out)]) == 1
+    assert chaos_check.main(["fleet_preempt --cases bogus", "nope",
+                             "--device", "cpu", "--out", str(out)]) == 1
     import json
 
     rows = json.loads(out.read_text())
     assert [(r["scenario"], r["run"], r["rc"], r["checks"]) for r in rows] \
-        == [("fleet_preempt", 1, 2, 0), ("nope", 1, 2, 0)]
-    assert "7c" in rows[0]["error_tail"]
+        == [("fleet_preempt --cases bogus", 1, 1, 1), ("nope", 1, 2, 0)]
+    assert rows[0]["failed"] == ["unknown fleet_preempt case(s) ['bogus'] "
+                                 "— have: synthetic, elastic"]
     assert "unknown scenario 'nope'" in rows[1]["error_tail"]
