@@ -11,8 +11,9 @@ simulator), and streaming input from ``.pdsr`` shards (``data export``,
 the checkpointable ``StreamingLoader``, the native augment engine and the
 loader's worker pool), dp x tp x sp training, and the deployment
 lifecycle (the registry, hot swap, shadow canaries and their router,
-SLOs, the replicated frontend and the ``obs`` tools), and the sweep
-(``sweep run``/``resume`` over spawned ResNet-18 trials).
+SLOs, the replicated frontend and the ``obs`` tools), the sweep
+(``sweep run``/``resume`` over spawned ResNet-18 trials), the fleet, the
+chaos suite and the cost model, calibration and planner (``analyze``).
 
     python3 chip_smoke.py [--seed 0] [--out report.json]
     python3 chip_smoke.py --step-times BertBase,ResNet18,ResNet18-saves
@@ -153,16 +154,19 @@ Phases, each printed on its own line:
    (within ``BERT_RESUME_TOL`` and ``RESUME_PARAM_TOL``), and two faulty
    resumes (the data stream a batch on; the dropout generator seeded
    once) that must fall outside both; meanwhile the ``evaluator``
-   subprocess polls the same train_dir (``--follow-latest --max-evals 2
-   --timeout 300``): its loss, acc1 and acc5 against
-   ``Trainer.evaluate()`` of the same state (within ``EVAL_TOL``, which
-   must be below the eval loss's move from step 2 to 4) and its
-   launch counts (12 flash forward and 26 LayerNorm forward a batch, no
-   backward); then a supervised ``train`` subprocess gets SIGTERM after
-   its first step, exits 0 and leaves an emergency checkpoint that
-   verifies. Checkpoint bytes (raw and PDTZ), write, stall and restore
-   ms, the evaluator's ms per checkpoint, and the step times of the 10
-   steps after an async save against 9 steps without one;
+   subprocess, started with the phase, polls the same train_dir
+   (``--follow-latest --max-evals 2 --timeout 900``): its loss, acc1 and
+   acc5 against ``Trainer.evaluate()`` of the same state (within
+   ``EVAL_TOL``, which must be below the eval loss's move from step 2 to
+   4) and its launch counts (12 flash forward and 26 LayerNorm forward a
+   batch, no backward); then a supervised ``train`` subprocess gets
+   SIGTERM after its first step, exits 0 and leaves an emergency
+   checkpoint that verifies. Checkpoint bytes (raw and PDTZ), write,
+   stall and restore ms, the evaluator's ms per checkpoint, and the step
+   times of the 10 steps after an async save against 9 steps without
+   one. BertBase's two writes (40-60 s each, the one-thread codec, the
+   card idle) are filled: phase 8's ResNet-18 part runs during step 2's,
+   phase 10's profiled runs during step 4's;
 8. single-pass serving of phase 7's checkpoints, each reading beside the
    card's name and power limit. ResNet-18 (11,173,962 parameters): exported
    with ``quantize`` none and int8, each served by the ``InferenceEngine``
@@ -195,9 +199,9 @@ Phases, each printed on its own line:
    and power limit: ResNet-18 as in phase 5 (host layout, cuDNN's
    deterministic algorithms) under ``FAULT_SPEC`` with
    ``--skip-nonfinite --supervise --flightrec default --heartbeat-grace
-   30 --eval-freq 2`` until its crash: each entry's ``fault_injected``
+   30 --eval-freq 6`` until its crash: each entry's ``fault_injected``
    once at its step, ``nonfinite_skip`` at step 3 with the state after it
-   bit for bit the state after step 2, one ``retry`` of step 4's publish,
+   bit for bit the state after step 2, one ``retry`` of step 12's publish,
    step 6's file convicted by its manifest, one quantize launch a step;
    one ``14-step_regression`` bundle whose ``torch.profiler`` trace
    holds one ``quant_group_kernel`` a captured step, and a ``report.md``;
@@ -211,8 +215,8 @@ Phases, each printed on its own line:
    kernel in the trace's summary 2 x its per-step launches, the
    wrappers' counters exact, ``device_step_time_ms`` within
    ``PROFILE_AGREE`` of ``device_rows`` of the same profile; profiled
-   step ms beside unprofiled and phase 5's; bf16 with ``--flightrec
-   default`` armed and idle;
+   step ms beside unprofiled and phase 5's (these two runs are made in
+   phase 7); bf16 with ``--flightrec default`` armed and idle;
 11. ``serve run --faults SERVE_FAULTS`` on phase 8's ResNet-18 artifact,
    one client in turn: request 12 reset with no response, 15-17 answered
    503, every other 200, the first 8 with ``infer_ms`` >= 200 and the
@@ -277,7 +281,8 @@ Phases, each printed on its own line:
    plain grouped quantizer's, its step ms beside phase 5's;
    ``grad_accum`` 2 against the full batch in f32, each leaf within
    ``SPMD_ACCUM_RTOL`` of its own largest gradient plus
-   ``SPMD_ACCUM_ATOL``; ring and Ulysses at sp = 1 against full attention;
+   ``SPMD_ACCUM_ATOL``; ring and Ulysses at sp = 1 against full attention
+   (these two time nothing and run while (e)'s CPU ranks write);
    (c) ``train --remat`` against the run without it (losses within
    ``REMAT_RTOL``, the peak of ``torch.cuda.max_memory_allocated``);
    (d) ``train --warm-start`` at vocabulary 30522 from a vocab-1024
@@ -349,10 +354,27 @@ Phases, each printed on its own line:
    2`` on one card refused (rc 2, both counts); each lifetime's wall,
    spawn to first step and median step ms, the kill-to-``host_dead``
    seconds, beside the card's name and power limit.
+21. the cost model (``cost_phase``; its walk-only parts start beside
+   phase 18 as ``analyze`` subprocesses, its calibration from phase 9
+   on, and its validated plan beside phase 18 once its reference run is
+   done): (a)
+   the step cost that phase 5's ResNet-18 run and phase 10's BertBase
+   bf16 and f32 runs stamped in their manifests (the walk of one step's
+   dispatched operations on the meta device), each run's FLOPs a step,
+   predicted and measured step ms and the median step's MFU, failing
+   without a step cost or with an MFU outside (0, 1]; (b) ``analyze
+   --calibrate`` from phase 10's bf16 trace, failing on a fitted ceiling
+   above the bf16 data-sheet peak, and from the microbenches on the
+   card; (c) ``analyze --plan`` of BertBase on 1 card validated as a
+   rank process (its flash and LayerNorm launches go into the kernels
+   line) and over 4 devices walked under a fake process group; (d)
+   GptMini's decode roofline beside phase 6's measured decode step; (e)
+   the sweep's ``mfu`` column from phase 18's trials; the trainer walks'
+   seconds.
    Then one JSON line listing the kernels (launches on the driven paths
-   of phases 4, 5, 8, 9, 10, 14, 15, 16, 17, 18 and 20, error against
-   the plain version, times, least possible time), and the result line
-   ``{"ok": true, "device": {...}}``.
+   of phases 4, 5, 8, 9, 10, 14, 15, 16, 17, 18, 20 and 21, error
+   against the plain version, times, least possible time), and the
+   result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each driven path (the served
 burst, each model's training steps and eval pass (BertBase bf16 and
@@ -362,7 +384,8 @@ phases 9, 10, 14, 15 and 16, the engines' batches and the swapped burst
 of phase 17, phase 18's in-process reference run) and read just after;
 the evaluator subprocess and each lifetime of a sweep's or a fleet's
 trial count their own from 0. Phase 18's line of the kernels counts the
-trials' launches, not its reference run's; phase 20 adds its trials'.
+trials' launches, not its reference run's; phase 20 adds its trials',
+and phase 21 its validation rank's (counted by that process).
 
 It needs one card and exits non-zero, printing no result, without one,
 when any phase fails, or when run outside the repository.
@@ -1667,7 +1690,7 @@ def check_int8_kernels(kernels, reference, gen, leaf_sizes):
                                     "dequantize_int8")}, stats
 
 
-def resnet_config(compression, steps, seed):
+def resnet_config(compression, steps, seed, **kw):
     from pytorch_distributed_nn_tpu_torch.training.config import TrainConfig
 
     return TrainConfig(
@@ -1675,7 +1698,7 @@ def resnet_config(compression, steps, seed):
         lr=RESNET_LR, momentum=0.9, lr_decay_steps=RESNET_DECAY_STEPS,
         dtype="bfloat16", compression=compression, data_layout="device",
         synthetic_size=RESNET_DATA, test_batch_size=1000, max_steps=steps,
-        seed=seed)
+        seed=seed, **kw)
 
 
 def resnet_leaves(model):
@@ -1687,16 +1710,19 @@ def resnet_leaves(model):
     return [p for p in model.parameters() if p.numel() >= QUANT_KERNEL_MIN_SIZE]
 
 
-def resnet_path(kernels, seed):
+def resnet_path(kernels, seed, metrics_path=None):
     """ResNet-18 on synthetic CIFAR-10 through the Trainer with int8 sync:
-    launch counts read around the steps and around the eval pass."""
+    launch counts read around the steps and around the eval pass. With
+    ``metrics_path`` the run writes its stream there (its manifest holds
+    the step cost that phase 21 reads)."""
     import math
 
     import torch
 
     from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(resnet_config("int8", RESNET_STEPS, seed))
+    trainer = Trainer(resnet_config("int8", RESNET_STEPS, seed,
+                                    metrics_path=metrics_path))
     # one grouped launch covers every kernel-sized leaf
     per_step = {"quantize_int8_scaled": 1}
     ev0 = trainer.evaluate()
@@ -1872,6 +1898,10 @@ RESUME_PARAM_TOL = 1e-6  # the parameters after step 4
 #: stays above. acc1 and acc5 read 0
 #: at this init, so the loss carries the comparison
 EVAL_TOL = 1e-5
+#: the evaluator's --timeout: it starts before the ResNet-18 part, and
+#: phase 8's ResNet-18 serving and phase 10's profiled runs fill the
+#: BertBase writes it waits on
+EVALUATOR_TIMEOUT = 900
 
 
 def first_difference(got, want, where=""):
@@ -2017,14 +2047,17 @@ def window_stats(ms):
 
 def start_evaluator(repo, model_dir, seed, log_path):
     """The polling evaluator as a subprocess on the BertBase train_dir,
-    started before the run writes: it follows the newest checkpoint."""
+    started before phase 7's ResNet-18 part, so that its start-up (torch,
+    the card, BertBase's weights) is not on BertBase's path: it polls a
+    directory that does not exist yet, then follows the newest checkpoint.
+    Returns (process, its log file); :func:`await_polling` waits for it."""
     cmd = [sys.executable, "-m", "pytorch_distributed_nn_tpu_torch",
            "evaluator", "--model-dir", model_dir, "--network", "BertBase",
            "--dataset", "MLMSynth", "--eval-freq", "2", "--follow-latest",
-           "--eval-interval", "0.5", "--max-evals", "2", "--timeout", "300",
-           "--test-batch-size", "16", "--eval-batches", "2", "--seed",
-           str(seed), "--attn-impl", "pallas", "--fused-ln", "--dtype",
-           "bfloat16"]
+           "--eval-interval", "0.5", "--max-evals", "2", "--timeout",
+           str(EVALUATOR_TIMEOUT), "--test-batch-size", "16",
+           "--eval-batches", "2", "--seed", str(seed), "--attn-impl",
+           "pallas", "--fused-ln", "--dtype", "bfloat16"]
     err = open(log_path, "w")
     try:
         proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
@@ -2032,17 +2065,18 @@ def start_evaluator(repo, model_dir, seed, log_path):
     except OSError:
         err.close()
         raise
-    # the run starts once the evaluator polls (it imports torch and builds
-    # its model first), so that it sees the first checkpoints
+    return proc, err
+
+
+def await_polling(proc, log_path):
+    """Wait until the evaluator polls (it imports torch and builds its
+    model first), so that it sees the first checkpoints."""
     deadline = time.monotonic() + 180
     while proc.poll() is None and time.monotonic() < deadline:
         with open(log_path) as f:
             if "Evaluator polling" in f.read():
-                return proc, err
+                return
         time.sleep(0.2)
-    proc.kill()
-    proc.communicate(timeout=60)
-    err.close()
     with open(log_path) as f:
         fail(f"the evaluator subprocess did not start polling: "
              f"{f.read()[-4000:]}")
@@ -2083,15 +2117,20 @@ def state_gaps(got, want):
     return gaps
 
 
-def bert_checkpoints(kernels, seed, root, repo):
+def bert_checkpoints(kernels, seed, root, evaluator, fills):
     """BertBase (phase 5's configuration): 2 steps at --eval-freq 2
     --keep-last 1, --resume to step 4 with exact launch counts, the
     resumed run against an uninterrupted 4-step run (its losses and its
     final state), two faulty resumes the check must tell apart (the data
     stream one batch on, the dropout generator seeded once and never
-    again, as the port's was), and the evaluator subprocess polling the
-    same train_dir meanwhile. The uninterrupted run trains while step 2's
-    file is written, and the faulty resumes while step 4's is."""
+    again, as the port's was), and the evaluator subprocess
+    (``evaluator``: its process, log file and log path) polling the same
+    train_dir meanwhile. The one-thread codec takes 40-60 s a BertBase
+    file and leaves the card idle: the uninterrupted run and then
+    ``fills[0]()`` run while step 2's file is written, the faulty resumes
+    and then ``fills[1]()`` while step 4's is. A fill launches no kernel
+    whose count this function reads, and reads no count itself across
+    this function's own launches."""
     import dataclasses
     import math
     import shutil
@@ -2104,8 +2143,8 @@ def bert_checkpoints(kernels, seed, root, repo):
 
     d = os.path.join(root, "bert")
     faulty_dir = os.path.join(root, "bert_faulty")
-    log_path = os.path.join(root, "evaluator.log")
-    proc, err = start_evaluator(repo, d, seed, log_path)
+    proc, err, log_path = evaluator
+    await_polling(proc, log_path)
     straight = None
     try:
         cfg = train_config("BertBase", 2, seed=seed, eval_freq=2,
@@ -2119,6 +2158,7 @@ def bert_checkpoints(kernels, seed, root, repo):
             straight = Trainer(train_config("BertBase", 4, seed=seed))
             want = straight.train()
             ref = [r["loss"] for r in want[2:4]]
+            fills[0]()
         finally:
             t1.close()
         path2 = checked_checkpoint(ckpt, d, [2], "BertBase")
@@ -2163,6 +2203,7 @@ def bert_checkpoints(kernels, seed, root, repo):
                     t.close()
                 del t
                 torch.cuda.empty_cache()
+            fills[1]()
         finally:
             t2.close()
         path = checked_checkpoint(ckpt, d, [4], "BertBase resumed")
@@ -2173,10 +2214,6 @@ def bert_checkpoints(kernels, seed, root, repo):
         restore_ms = (time.perf_counter() - t0) * 1e3
         out = finish_evaluator(proc, err, log_path)
     finally:
-        err.close()
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate(timeout=60)
         if straight is not None:
             straight.close()
     del straight, t2
@@ -2277,14 +2314,41 @@ def sigterm_run(repo, root):
             "bytes": os.path.getsize(path)}
 
 
-def checkpoint_phase(kernels, seed, smi, repo, root):
-    """Phase 7 in ``root``, whose train_dirs phase 8 exports from."""
+def checkpoint_phase(kernels, seed, smi, repo, root, fills):
+    """Phase 7 in ``root``, whose train_dirs phase 8 exports from;
+    ``fills`` run during BertBase's checkpoint writes
+    (:func:`bert_checkpoints`)."""
     from pytorch_distributed_nn_tpu_torch.ops import host_codec
 
     if not host_codec.available():
         fail("the native host codec (native/codec.cpp) did not build: the "
              "card's checkpoints must be PDTZ")
-    resnet = resnet_checkpoints(kernels, seed, root)
+    log_path = os.path.join(root, "evaluator.log")
+    proc, err = start_evaluator(repo, os.path.join(root, "bert"), seed,
+                                log_path)
+    sig_box = {}
+
+    def run_sigterm():
+        try:
+            sig_box["sig"] = sigterm_run(repo, root)
+        except BaseException as e:  # fail() in the thread: reported below
+            sig_box["error"] = repr(e)
+
+    try:
+        resnet = resnet_checkpoints(kernels, seed, root)
+        # the SIGTERM run (a subprocess) goes on while BertBase's
+        # checkpoints are written, which leave the card idle most of their
+        # time
+        sig_thread = threading.Thread(target=run_sigterm, daemon=True)
+        sig_thread.start()
+        bert = bert_checkpoints(kernels, seed, root, (proc, err, log_path),
+                                fills)
+        sig_thread.join(timeout=600)
+    finally:
+        err.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
     rw = resnet["writes"]
     log(f"phase 7 codec: native/codec.cpp built; checkpoints are PDTZ "
         f"({smi})")
@@ -2314,20 +2378,6 @@ def checkpoint_phase(kernels, seed, smi, repo, root):
         f"{a['max']:.3f}; in order "
         f"{[round(x, 3) for x in resnet['steps_after_save_ms']]} "
         f"({smi})")
-    # the SIGTERM run (a subprocess) goes on while BertBase's checkpoints
-    # are written, which leave the card idle most of their time
-    sig_box = {}
-
-    def run_sigterm():
-        try:
-            sig_box["sig"] = sigterm_run(repo, root)
-        except BaseException as e:  # fail() in the thread: reported below
-            sig_box["error"] = repr(e)
-
-    sig_thread = threading.Thread(target=run_sigterm, daemon=True)
-    sig_thread.start()
-    bert = bert_checkpoints(kernels, seed, root, repo)
-    sig_thread.join(timeout=600)
     if "sig" not in sig_box:
         fail(f"phase 7 SIGTERM run: {sig_box.get('error', 'no result')}")
     log(f"phase 7 BertBase checkpoints (B=16, L=512, bf16, adam, 2 "
@@ -2814,8 +2864,9 @@ def bert_serving(kernels, reference, F, seed, root):
             "profile": prof, "ln": ln}
 
 
-def serving_phase(kernels, reference, F, seed, smi, repo, root):
-    resnet = resnet_serving(seed, repo, root)
+def serving_phase(kernels, reference, F, seed, smi, root, resnet):
+    """Phase 8: ``resnet``, :func:`resnet_serving`'s facts (it ran during
+    phase 7's BertBase step-2 write), logged, and BertBase served."""
     for q in ("none", "int8"):
         r = resnet[q]
         log(f"phase 8 ResNet18 artifact ({q}, step "
@@ -2919,15 +2970,20 @@ def first_batches(stream, n=FIRST_BATCHES):
 # -- phases 9-13: faults, the flight recorder, the profiler, TF32, elastic --
 
 #: phase 9's fault plan for ResNet-18 (1-indexed steps, checkpoints at
-#: every even step): a NaN batch, a failed first publish, a torn periodic
-#: checkpoint, a 1 s host delay, a torn emergency checkpoint and the crash
-#: that writes it. The resume's newest-first scan meets step 19's torn
-#: file (the emergency checkpoint of the crash), quarantines it and
-#: restores step 18; step 6's stays convicted by its manifest but unread
-FAULT_SPEC = ("nan_grad@3,flaky_io@4,torn_ckpt@6,delay@14:1.0s,"
+#: every FAULT_EVAL_FREQ-th step): a NaN batch, a torn periodic
+#: checkpoint, a failed first publish, a 1 s host delay, a torn emergency
+#: checkpoint and the crash that writes it. The resume's newest-first
+#: scan meets step 19's torn file (the emergency checkpoint of the
+#: crash), quarantines it and restores step 18; step 6's stays convicted
+#: by its manifest but unread
+FAULT_SPEC = ("nan_grad@3,torn_ckpt@6,flaky_io@12,delay@14:1.0s,"
               "torn_ckpt@19,crash@20")
+#: the checkpoint cadence: steps 6, 12 and 18 carry the plan's faults and
+#: the resume's restore point. A ResNet-18 file takes ~4 s to write, so at
+#: every second step each save waited ~3.5 s for the one before it
+FAULT_EVAL_FREQ = 6
 #: the fault plan's entries as (step, fault), and the resumed run's end
-FAULT_FIRED = [(3, "nan_grad"), (4, "flaky_io"), (6, "torn_ckpt"),
+FAULT_FIRED = [(3, "nan_grad"), (6, "torn_ckpt"), (12, "flaky_io"),
                (14, "delay"), (19, "torn_ckpt"), (20, "crash")]
 FAULT_STEPS = 26
 #: the resumed run's losses (steps 19-26) against an uninterrupted run
@@ -2966,7 +3022,7 @@ def step_records(stream):
 def fault_phase(kernels, seed, root):
     """Phase 9: ResNet-18 (phase 5's configuration, host layout) under
     FAULT_SPEC with --skip-nonfinite --supervise --flightrec default
-    --heartbeat-grace 30 --eval-freq 2 until its crash; --resume to step
+    --heartbeat-grace 30 --eval-freq 6 until its crash; --resume to step
     26; an uninterrupted run of the same faults but the crash."""
     import dataclasses
     import math
@@ -2990,8 +3046,9 @@ def fault_phase(kernels, seed, root):
     torch.backends.cudnn.deterministic = True
     try:
         trainer = Trainer(dataclasses.replace(
-            base, train_dir=d, eval_freq=2, faults=FAULT_SPEC,
-            supervise=True, flightrec="default", heartbeat_grace=30.0))
+            base, train_dir=d, eval_freq=FAULT_EVAL_FREQ,
+            faults=FAULT_SPEC, supervise=True, flightrec="default",
+            heartbeat_grace=30.0))
         snaps, inner = {}, trainer.step
 
         def step(batch):  # the state after steps 2 and 3 (NaN batch)
@@ -3027,8 +3084,8 @@ def fault_phase(kernels, seed, root):
         retries = [r.get("label", "") for r in events if r["type"] == "retry"]
         if skips != [3]:
             fail(f"phase 9 nonfinite_skip at steps {skips}, want [3]")
-        if len(retries) != 1 or "model_step_4" not in retries[0]:
-            fail(f"phase 9 retry events {retries}, want one for step 4")
+        if len(retries) != 1 or "model_step_12" not in retries[0]:
+            fail(f"phase 9 retry events {retries}, want one for step 12")
         diff = [k for k in snaps[2] if not torch.equal(snaps[2][k],
                                                        snaps[3][k])]
         if diff:
@@ -3062,7 +3119,8 @@ def fault_phase(kernels, seed, root):
             fail(f"phase 9 checkpoints before the resume: {verified}")
 
         trainer = Trainer(dataclasses.replace(
-            base, train_dir=d, eval_freq=2, resume=True, supervise=True))
+            base, train_dir=d, eval_freq=FAULT_EVAL_FREQ, resume=True,
+            supervise=True))
         start = trainer.start_step
         kernels.reset_launch_counts()
         try:
@@ -3130,11 +3188,12 @@ def fault_phase(kernels, seed, root):
                 for k in launches}}
 
 
-def profile_phase(kernels, seed, root):
-    """Phase 10: BertBase f32 (--attn-impl pallas) and bf16 (--fused-ln)
-    with --profile 2; the summary's kernel counts against the wrappers'
-    counters and its device time against device_rows of the same
-    profile; then bf16 with the flight recorder armed and idle."""
+def profile_runs(kernels, seed, root):
+    """Phase 10's profiled runs: BertBase f32 (--attn-impl pallas) and
+    bf16 (--fused-ln) with --profile 2; the summary's kernel counts
+    against the wrappers' counters and its device time against
+    device_rows of the same profile. They run during phase 7's BertBase
+    step-4 write (:func:`bert_checkpoints`)."""
     import torch
 
     from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
@@ -3156,9 +3215,11 @@ def profile_phase(kernels, seed, root):
     out, total = {}, {k: 0 for k in kernels.KERNELS}
     for dtype, flags in (("float32", F32_FLAGS), ("bfloat16", {})):
         d = os.path.join(root, f"profile_{dtype}")
+        # the stream's manifest holds the step cost phase 21 reads
         trainer = Trainer(train_config(
             "BertBase", PROFILE_STEPS, seed=seed, train_dir=d,
-            profile_steps=PROFILE_WINDOW, **flags))
+            profile_steps=PROFILE_WINDOW,
+            metrics_path=os.path.join(d, "telemetry.jsonl"), **flags))
         L = trainer.model.config.num_layers
         per = {"flash_attention_fwd": L, "flash_attention_dq": L,
                "flash_attention_dkv": L, "layer_norm": 2 * L + 2,
@@ -3214,7 +3275,18 @@ def profile_phase(kernels, seed, root):
                       "families": profiling.family_summary(summary)}
         del trainer
         torch.cuda.empty_cache()
-    # the flags off, then the flight recorder armed (and idle), back to back
+    out["launches"] = total
+    return out
+
+
+def armed_runs(kernels, seed, root):
+    """Phase 10's timed pair: BertBase bf16 with the flags off, then with
+    the flight recorder armed (and idle), back to back."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.training.trainer import Trainer
+
+    out, total = {}, {k: 0 for k in kernels.KERNELS}
     for name, flags in (("off", {}), ("armed", {"flightrec": "default"})):
         d = os.path.join(root, name)
         trainer = Trainer(train_config("BertBase", ARMED_STEPS, seed=seed,
@@ -4662,6 +4734,9 @@ def spmd_phase(kernels, reference, seed, smi, repo, root, phase5_ms):
     log(f"phase 16 train --warm-start ({smi}): BertBase vocab 30522 from a "
         f"vocab-1024 checkpoint: report {warm['report']}; losses "
         f"{warm['losses']}")
+    # the checks that time nothing, while the CPU ranks write
+    accum = spmd_accum_check(seed)
+    seq = spmd_seq_attn_check(gen)
     # the timed runs after the CPU ranks are done with the host's cores
     cpu.join(timeout=900)
     if "dirs" not in dirs_box:
@@ -4679,7 +4754,6 @@ def spmd_phase(kernels, reference, seed, smi, repo, root, phase5_ms):
             + (f"; one step's sync over {r['synced']} leaves through the "
                "kernel and the plain grouped quantizer: bit for bit equal"
                if "synced" in r else ""))
-    accum = spmd_accum_check(seed)
     log(f"phase 16 spmd grad_accum 2 vs the full batch ({smi}; BertBase "
         f"f32, B=16, L=512, dropout off; each leaf within rtol "
         f"{SPMD_ACCUM_RTOL} of its max |g| + atol {SPMD_ACCUM_ATOL}): "
@@ -4691,7 +4765,6 @@ def spmd_phase(kernels, reference, seed, smi, repo, root, phase5_ms):
         f"max |diff| of a leaf below it "
         f"{accum['floor_leaves_max_err'][0]:.3e} "
         f"({accum['floor_leaves_max_err'][1]}); losses {accum['losses']}")
-    seq = spmd_seq_attn_check(gen)
     log(f"phase 16 ring and Ulysses at sp=1 vs full attention ({smi}; f32, "
         f"B=4, L=512, H=12, D=64, causal and not, a pad mask): max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in seq.items())
@@ -6315,6 +6388,250 @@ def fleet_phase(seed, smi, repo, root, data_path):
             "resume_log_tail": resume_log[-2000:]}
 
 
+# -- phase 21: the cost model, calibration and planner -------------------
+
+#: the walk-only analyze runs of phase 21, started beside phase 18: the
+#: BertBase plan over 4 devices (walked under a fake process group) and
+#: GptMini's decode cost at the served shape
+COST_PLAN4 = ["analyze", "--plan", "--model", "bert_base", "--devices", "4"]
+COST_DECODE = ["analyze", "--cost", "--model", "gpt_mini", "--mesh", "1",
+               "--json"]
+
+
+def cost_walkers(repo, root, batch, cache_len):
+    """Start phase 21's walk-only runs (the meta device: no card) as
+    subprocesses, so that their CPU time does not share this process's
+    interpreter with phase 18's timed reference run."""
+    out = {}
+    for name, argv in (
+            ("plan4", COST_PLAN4 + ["--out", os.path.join(root,
+                                                          "plan4.json")]),
+            ("decode", COST_DECODE + [
+                "--batch-size", str(batch), "--seq-len", str(cache_len),
+                "--out", os.path.join(root, "decode.json")])):
+        out[name] = (run_cli(repo, argv), time.perf_counter())
+    return out
+
+
+def start_calibration(repo, root):
+    """Phase 21 (b)'s run, started once phase 10's bf16 trace exists:
+    ``analyze --calibrate`` from that trace (no new training), a
+    subprocess on the host (the walk needs no card)."""
+    return run_cli(repo, [
+        "analyze", "--calibrate", "--trace",
+        os.path.join(root, "profile_bfloat16", "profile"), "--trace-steps",
+        str(PROFILE_WINDOW), "--model", "bert_base", "--mesh", "1",
+        "--batch-size", "16", "--seq-len", "512", "--dtype", "bfloat16",
+        "--out", os.path.join(root, "calibration.json")]), time.perf_counter()
+
+
+def cost_card_runs(repo, root, calibration):
+    """Phase 21 (c)'s run beside phase 18 once its reference run is done:
+    ``analyze --plan`` of BertBase on 1 card, validated as a rank process
+    with the calibration of ``calibration`` (:func:`start_calibration`'s
+    process, waited for first). Returns their seconds (the calibration's
+    from its start to this wait)."""
+    proc, t0 = calibration
+    finish_cli(proc, "phase 21 (b) analyze --calibrate --trace")
+    t1 = time.perf_counter()
+    finish_cli(run_cli(repo, [
+        "analyze", "--plan", "--model", "bert_base", "--devices", "1",
+        "--validate", "--calibration", os.path.join(root, "calibration.json"),
+        "--batch-size", "16", "--seq-len", "512", "--out",
+        os.path.join(root, "plan1.json")]),
+        "phase 21 (c) analyze --plan --validate")
+    return {"calibrate_s": t1 - t0, "validate_s": time.perf_counter() - t1}
+
+
+def run_cost(path, what):
+    """(step_cost, efficiency) of a run's telemetry stream; fails without
+    a step cost or with an MFU outside (0, 1]. The MFU is the median
+    step's: phase 10's profiled steps carry the trace's export, which the
+    mean over all steps would average in."""
+    from pytorch_distributed_nn_tpu_torch.observability import reader
+
+    rs = reader.read_stream(path)
+    sc = (rs.manifest or {}).get("step_cost")
+    if not sc:
+        fail(f"phase 21 (a) {what}: no step_cost in {path}'s manifest")
+    eff = reader.summarize_run(rs).get("efficiency") or {}
+    mfu = (eff.get("mfu") or {}).get("p50")
+    if mfu is None or not 0.0 < mfu <= 1.0:
+        fail(f"phase 21 (a) {what}: MFU {mfu} outside (0, 1] "
+             f"(step_cost {sc}, efficiency {eff})")
+    return sc, eff
+
+
+def walk_seconds(*roots):
+    """(sum, count) of the trainer walks' seconds (``step_cost.walk_s``)
+    over every stream manifest left under ``roots``."""
+    total, n = 0.0, 0
+    for top in roots:
+        for d, _, files in os.walk(top):
+            for f in files:
+                if not f.endswith(".jsonl"):
+                    continue
+                try:
+                    with open(os.path.join(d, f)) as fh:
+                        for line in fh:
+                            rec = json.loads(line)
+                            sc = rec.get("step_cost") or {}
+                            if rec.get("kind") == "manifest" and \
+                                    "walk_s" in sc:
+                                total += float(sc["walk_s"])
+                                n += 1
+                except (OSError, ValueError):
+                    continue
+    return total, n
+
+
+def quiet_analyze(args, what):
+    """``analyze ARGS`` in this process, its printout kept; fails on a
+    non-zero rc."""
+    import contextlib
+    import io
+
+    from pytorch_distributed_nn_tpu_torch.cli import main_analyze
+
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = main_analyze(args)
+    if rc != 0:
+        fail(f"{what}: analyze {' '.join(args)}: rc {rc}: "
+             f"{buf.getvalue()[-500:]}")
+
+
+def cost_phase(smi, root, workdir, walkers, card_runs, decode_step_ms,
+               batch, cache_len):
+    """Phase 21: the MFU of phase 5's ResNet-18 and phase 10's BertBase
+    runs from their manifests' step cost, the calibration from phase 10's
+    bf16 trace and the BertBase plan on the card (one candidate, validated
+    as a rank process): ``card_runs``, their seconds
+    (:func:`cost_card_runs`);
+    the plan over 4 devices (walked: ``walkers``), GptMini's decode
+    roofline beside the measured decode step, and the sweep's mfu
+    column. Returns the facts (the validation's launches among them)."""
+    from pytorch_distributed_nn_tpu_torch.analysis import (
+        calibration,
+        planner,
+    )
+    from pytorch_distributed_nn_tpu_torch.analysis.calibration import (
+        H100_PEAK_FLOPS,
+        CalibrationProfile,
+    )
+    from pytorch_distributed_nn_tpu_torch.experiments import journal as jr
+    from pytorch_distributed_nn_tpu_torch.experiments import report
+
+    t_phase = time.perf_counter()
+    facts = {"runs": {}}
+    # (a) the MFU of runs already made
+    walks = []
+    for what, path in (
+            ("ResNet18 B=1024 bf16 int8 (phase 5)",
+             os.path.join(workdir, "resnet_telemetry.jsonl")),
+            ("BertBase B=16 L=512 bf16 (phase 10)",
+             os.path.join(root, "profile_bfloat16", "telemetry.jsonl")),
+            ("BertBase B=16 L=512 f32 (phase 10)",
+             os.path.join(root, "profile_float32", "telemetry.jsonl"))):
+        sc, eff = run_cost(path, what)
+        facts["runs"][what] = {"step_cost": sc, "efficiency": eff}
+        walks.append(f"{what} {sc['walk_s']:.3f} s")
+        log(f"phase 21 (a) {what} ({smi}): {sc['flops'] / 1e12:.6f} TFLOP "
+            f"a step, predicted {sc['predicted_ms']:.3f} ms "
+            f"({sc['calibration']}), measured p50 "
+            f"{eff['measured_p50_ms']:.3f} ms; MFU p50 "
+            f"{eff['mfu']['p50']:.6f} (over all steps "
+            f"{eff['mfu']['overall']:.6f}) of "
+            f"{sc['peak_flops_per_s'] / 1e12:g} TFLOP/s "
+            f"({sc['peak_dtype']}); HBM util {eff.get('hbm_util', 0.0):.6f}")
+    # (b) the calibration from phase 10's bf16 trace (no new training)
+    prof = CalibrationProfile.load(os.path.join(root, "calibration.json"))
+    peak = H100_PEAK_FLOPS["bfloat16"]
+    log(f"phase 21 (b) calibration from phase 10's bf16 trace "
+        f"({PROFILE_WINDOW} steps; {smi}): fitted ceilings "
+        + ", ".join(f"{f} {c / 1e12:.6f} TFLOP/s" for f, c in
+                    sorted(prof.compute_ceilings.items()))
+        + f"; HBM {prof.hbm_bytes_per_s / 1e9:.3f} GB/s (data sheet "
+        f"{peak / 1e12:g} TFLOP/s bf16, 3350 GB/s)")
+    over = {f: c for f, c in prof.compute_ceilings.items() if c > peak}
+    if over:
+        fail(f"phase 21 (b): fitted ceilings above the bf16 data-sheet "
+             f"peak {peak:g}: {over} (the step's count is wrong)")
+    facts["calibration"] = prof.to_dict()
+    bench = os.path.join(root, "microbench.json")
+    quiet_analyze(["--calibrate", "--microbench", "--dtype", "bfloat16",
+                   "--out", bench], "phase 21 (b) microbench")
+    mb = CalibrationProfile.load(bench)
+    ceiling = max(mb.compute_ceilings.values())
+    # a timed rate of an exact count: the card's clock, not a count, sets
+    # it, so it is reported beside the data sheet and not held to it
+    log(f"phase 21 (b) microbench ({smi}): a chain of 4 bf16 matmuls of "
+        f"{calibration.MICROBENCH_N['cuda']} {ceiling / 1e12:.6f} TFLOP/s "
+        f"({ceiling / peak:.4f} of the data sheet), a device copy "
+        f"{mb.hbm_bytes_per_s / 1e9:.3f} GB/s (read + write)")
+    facts["microbench"] = mb.to_dict()
+    # (c) the plan on the card: one candidate, validated
+    with open(os.path.join(root, "plan1.json")) as f:
+        plan1 = json.load(f)
+    cand = plan1["candidates"][0]
+    launches = cand.get("launches") or {}
+    if cand.get("measured_ms") is None or not all(
+            launches.get(k) for k in ("flash_attention_fwd",
+                                      "flash_attention_dq",
+                                      "flash_attention_dkv", "layer_norm",
+                                      "layer_norm_bwd")):
+        fail(f"phase 21 (c): the validated candidate {cand}")
+    facts["plan1"], facts["launches"] = plan1, launches
+    log(f"phase 21 (c) plan BertBase B=16 L=512 on 1 card, validated as a "
+        f"rank process beside phase 18's trials ({smi}): predicted "
+        f"{cand['predicted_ms']:.3f} ms "
+        f"({plan1['profile']['name']}), measured {cand['measured_ms']:.3f} "
+        f"ms (median of steps {planner.MEASURE_WARMUP + 1}-"
+        f"{planner.MEASURE_STEPS}); launches {launches}")
+    # the walk-only runs started beside phase 18
+    for name, (proc, t0) in walkers.items():
+        finish_cli(proc, f"phase 21 analyze ({name})")
+        facts[f"{name}_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "plan4.json")) as f:
+        plan4 = json.load(f)
+    facts["plan4"] = plan4
+    for line in planner.render_plan(plan4).splitlines():
+        log(f"phase 21 (c) plan over 4 devices, walked under a fake "
+            f"group ({smi}): {line}")
+    # (d) decode
+    with open(os.path.join(root, "decode.json")) as f:
+        dec = json.load(f)["decode_cost"]
+    measured = 1e3 / decode_step_ms
+    facts["decode"] = {**dec, "measured_tokens_per_s": measured}
+    log(f"phase 21 (d) GptMini decode at B={batch}, cache {cache_len} "
+        f"({smi}): roofline {dec['predicted_tokens_per_s']:.1f} tokens/s a "
+        f"sequence ({dec['flops_per_token'] / 1e6:.3f} MFLOP and "
+        f"{dec['hbm_bytes_per_token'] / 1e6:.3f} MB a token, data sheet); "
+        f"measured decode step {decode_step_ms:.3f} ms = {measured:.1f} "
+        f"tokens/s a sequence (phase 6)")
+    # (e) the sweep's mfu column
+    sdir = os.path.join(root, "sweep")
+    rows = report.leaderboard(sdir, jr.load_journal(sdir))
+    if not rows or any(not (r["mfu"] is not None and 0.0 < r["mfu"] <= 1.0)
+                       for r in rows if r["status"] == jr.STATUS_COMPLETED):
+        fail(f"phase 21 (e): the sweep's mfu column {rows}")
+    facts["sweep_mfu"] = {r["trial"]: r["mfu"] for r in rows}
+    log(f"phase 21 (e) the sweep's mfu column ({smi}): " + ", ".join(
+        f"trial {r['trial']} ({r['status']}) "
+        + ("-" if r["mfu"] is None else f"{r['mfu']:.6f}") for r in rows))
+    total, n = walk_seconds(root, workdir)
+    facts["walks"] = {"seconds": total, "count": n}
+    facts["card_runs"] = card_runs
+    log(f"phase 21 trainer walks: {'; '.join(walks)}; {n} walks in the "
+        f"manifests left under the script's directories, {total:.3f} s in "
+        f"all; beside phase 18: the walk-only analyze runs "
+        f"{facts['plan4_s']:.3f} and {facts['decode_s']:.3f} s (to their "
+        f"collection), the validated plan {card_runs['validate_s']:.3f} s; "
+        f"the calibration from phase 9 on {card_runs['calibrate_s']:.3f} s "
+        f"(to its collection); phase 21 "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return facts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6700,7 +7017,8 @@ def main() -> int:
     log(f"phase 5 train GptMini (causal flash, B=16, L=128, bf16): losses "
         f"{[round(x, 4) for x in gpt['losses']]}; launches "
         f"{gpt['launches']}; eval launches {gpt['eval_launches']}")
-    resnet = resnet_path(kernels, args.seed)
+    resnet = resnet_path(kernels, args.seed, metrics_path=os.path.join(
+        workdir, "resnet_telemetry.jsonl"))
     log(f"phase 5 train ResNet18 (B={RESNET_B}, bf16, SGD lr {RESNET_LR} "
         f"momentum 0.9 decayed 10x every {RESNET_DECAY_STEPS} steps, int8 "
         f"sync, NCCL world of "
@@ -6926,17 +7244,29 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as root:
         # -- 7. checkpoints, resume, the evaluator, SIGTERM ---------------
-        mark("7")
-        report["checkpoints"] = checkpoint_phase(kernels, args.seed, smi,
-                                                 repo, root)
+        # phase 8's ResNet-18 serving and phase 10's profiled runs fill
+        # BertBase's checkpoint writes, which leave the card idle
+        mark("7, with 8's ResNet-18 serving and 10's profiled runs in it")
+        filled = {}
+        report["checkpoints"] = checkpoint_phase(
+            kernels, args.seed, smi, repo, root, fills=(
+                lambda: filled.update(resnet=resnet_serving(
+                    args.seed, repo, root)),
+                lambda: filled.update(prof=profile_runs(
+                    kernels, args.seed, root))))
         # -- 8. single-pass serving of phase 7's checkpoints --------------
-        mark("8")
-        serving = serving_phase(kernels, reference, F, args.seed, smi, repo,
-                                root)
+        mark("8's BertBase")
+        serving = serving_phase(kernels, reference, F, args.seed, smi, root,
+                                filled["resnet"])
         # -- 9-10. faults, the flight recorder, the profiler --------------
         mark("9")
+        # 21's calibration reads 10's bf16 trace, made in phase 7
+        calibration = start_calibration(repo, root)
         faults = fault_phase(kernels, args.seed, root)
-        prof = profile_phase(kernels, args.seed, root)
+        armed = armed_runs(kernels, args.seed, root)
+        prof = {**filled["prof"], **armed, "launches": {
+            k: filled["prof"]["launches"][k] + armed["launches"][k]
+            for k in kernels.KERNELS}}
         # 11-13 (serving faults, TF32, elastic) run beside phase 18 below
         # -- 14. the gradient sync ----------------------------------------
         mark("14")
@@ -6958,14 +7288,17 @@ def main() -> int:
         # 200 ms), each mostly waiting on subprocesses, as phase 18 does
         # once its in-process reference run is done: they start then, so
         # no launch of theirs falls in that run's counts
-        mark("18, with 11-13 beside it")
+        mark("18, with 11-13 and 21's validated plan beside it")
         from concurrent.futures import ThreadPoolExecutor
 
         # 20, the fleet, runs beside 18 from its start: both wait on
         # trials in subprocesses, and 20's uninterrupted reference is
         # 18's in-process run (the same spec, seeds and configuration)
         futures = []
-        with ThreadPoolExecutor(4) as pool:
+        # 21's walk-only runs (subprocesses, no card) start here too, and
+        # its validated plan after the reference run
+        walkers = cost_walkers(repo, root, B, S)
+        with ThreadPoolExecutor(5) as pool:
             fleet_future = pool.submit(
                 fleet_phase, args.seed, smi, repo, root,
                 os.path.join(root, "cifar10_shards"))
@@ -6973,11 +7306,14 @@ def main() -> int:
                 kernels, reference, args.seed, smi, repo, root,
                 os.path.join(root, "cifar10_shards"), resnet["step_ms"],
                 after_reference=lambda: futures.extend(
-                    pool.submit(fn, repo, root) for fn in (
-                        serve_fault_phase, tf32_phase, elastic_phase)))
+                    [pool.submit(fn, repo, root) for fn in (
+                        serve_fault_phase, tf32_phase, elastic_phase)]
+                    + [pool.submit(cost_card_runs, repo, root,
+                                   calibration)]))
             mark("11-13 and 20, the rest after phase 18")
         # a phase's fail() is re-raised here
-        serve_faults, tf32, elastic = (f.result() for f in futures)
+        serve_faults, tf32, elastic, card_runs = (f.result()
+                                                  for f in futures)
         fleet_facts = fleet_future.result()
         want = sweep_facts["reference_losses"]
         got = [(life["lifetime"], step, loss)
@@ -6997,17 +7333,22 @@ def main() -> int:
         # -- 19. the chaos suite ------------------------------------------
         mark("19")
         chaos_facts = chaos_phase(kernels, smi, repo, root)
+        # -- 21. the cost model, calibration and planner ------------------
+        mark("21")
+        torch.cuda.empty_cache()
+        cost = cost_phase(smi, root, workdir, walkers, card_runs,
+                          decode_step_ms, B, S)
     report["serving"] = serving
     report["sync"] = sync
     report.update(faults=faults, profiler=prof, serve_faults=serve_faults,
                   tf32=tf32, elastic=elastic, stream=stream, spmd=spmd_run,
                   deploy=deploy, sweep=sweep_facts, chaos=chaos_facts,
-                  fleet=fleet_facts)
+                  fleet=fleet_facts, cost=cost)
     log(f"phase 9 faults ResNet18 (B={RESNET_B}, bf16, int8 sync, host "
         f"layout, cuDNN deterministic; {smi}): --faults {FAULT_SPEC} fired "
         f"once each at {faults['fired']}; nonfinite_skip at step 3 with the "
         f"state after it bit for bit the state after step 2; one retry of "
-        f"step 4's publish; the crash's emergency checkpoint (step 19, torn) "
+        f"step 12's publish; the crash's emergency checkpoint (step 19, torn) "
         f"quarantined on --resume, which restored step 18 and ran to "
         f"{FAULT_STEPS}; resumed losses against an uninterrupted run max abs "
         f"diff {faults['resume_err']:.3e}, steps 1-18 "
@@ -7070,7 +7411,8 @@ def main() -> int:
                           + deploy["launches"].get(e["name"], 0)
                           + sweep_facts["launches"].get(e["name"], 0)
                           + chaos_facts["launches"].get(e["name"], 0)
-                          + fleet_facts["launches"].get(e["name"], 0))
+                          + fleet_facts["launches"].get(e["name"], 0)
+                          + cost["launches"].get(e["name"], 0))
     ln_entry = entries[1]
     ln_entry["launches"] += serving["bert"]["launches"]["layer_norm"]
     ln_entry["max_abs_err"] = max(

@@ -147,8 +147,9 @@ flags, journal (``S/sweep.jsonl``), trial directories and exit codes (0;
 ``sweep resume``). Each trial attempt is a spawned process training the
 port's ``Trainer`` on ``--device`` (default: the card); the orchestrating
 process imports no torch. ``sweep run`` adds ``--compress-grad`` to the
-JAX base flags and refuses ``--plan-mesh`` until the cost model is
-ported.
+JAX base flags; ``--plan-mesh N`` plans each network's mesh for N
+devices in a spawned subprocess (the roofline planner, ``analyze
+--plan``).
 
     python -m pytorch_distributed_nn_tpu_torch fleet agent \
         [--listen HOST:PORT] [--devices N] [--device cuda|cpu] ...
@@ -165,8 +166,21 @@ codes (3: interrupted, or every host dead, with the resume recipe). An
 agent of ``--device cuda --devices N`` runs its trials on N cards of
 its own (a trial of several ranks is that many rank processes, rank r
 on the r-th card); ``--device cpu`` on gloo rank processes. The
-orchestrator and the agents import no torch; ``--plan-hosts`` is
-refused until the cost model is ported.
+orchestrator and the agents import no torch; ``--plan-hosts`` plans
+each host's mesh in a spawned subprocess and caches the plan.
+
+    python -m pytorch_distributed_nn_tpu_torch analyze [--model M] \
+        [--mesh 4x2] [--cost] [--json] [--device cpu]
+    python -m pytorch_distributed_nn_tpu_torch analyze --plan \
+        --model M --devices N [--validate] [--calibration F] [--device cpu]
+    python -m pytorch_distributed_nn_tpu_torch analyze --calibrate \
+        [--trace DIR --trace-steps K] [--microbench] [--out F]
+
+is the JAX ``analyze`` by a walk of the step's dispatched operations on
+the meta device (:mod:`.analysis.costmodel`; no card for the walk):
+the collective inventory and step cost of a mesh, the mesh planner and
+the roofline calibration. ``--validate`` and ``--microbench`` run on the
+card unless ``--device cpu``; the HLO auditor's flags exit 2.
 """
 
 from __future__ import annotations
@@ -1277,8 +1291,9 @@ def main_sweep(argv: Optional[Sequence[str]] = None) -> int:
     pr.add_argument("--resume", action="store_true",
                     help="continue this sweep-dir's journal")
     pr.add_argument("--plan-mesh", type=int, default=0, metavar="DEVICES",
-                    help="the JAX package's planner hook; refused until "
-                         "the port has its cost model (ROADMAP item 7d)")
+                    help="plan each network's mesh for this many devices "
+                         "with the roofline planner (in a subprocess); 0 "
+                         "keeps the base mesh")
     # base config: every trial starts from these and applies its overrides
     pr.add_argument("--network", default="LeNet")
     pr.add_argument("--dataset", default="MNIST",
@@ -1471,9 +1486,8 @@ def main_fleet(argv: Optional[Sequence[str]] = None) -> int:
     - ``run``    — the sweep orchestrator over a fleet: trials placed by
       host capacity, meshes capped to each host, dead hosts'
       in-flight trials migrated to survivors and elastically resumed
-      from their last valid checkpoint. ``--plan-hosts`` is refused
-      (exit 2) until the port has its planner (ROADMAP Queue 1 item
-      7d). ``--resume`` continues an interrupted fleet sweep from its
+      from their last valid checkpoint. ``--plan-hosts`` plans each
+      host's mesh (in a subprocess, cached). ``--resume`` continues an interrupted fleet sweep from its
       journal — including after the ORCHESTRATOR died.
     - ``status`` — journal-reconstructed fleet + trial state.
     - ``agents`` — probe ``--hosts`` agents live (hello each).
@@ -1546,9 +1560,9 @@ def main_fleet(argv: Optional[Sequence[str]] = None) -> int:
         sp.add_argument("--call-timeout", type=float, default=2.0,
                         help="per-RPC socket timeout")
         sp.add_argument("--plan-hosts", action="store_true",
-                        help="the JAX package's planner-assigned mesh per "
-                             "host; refused until the port has its cost "
-                             "model (ROADMAP Queue 1 item 7d)")
+                        help="planner-assigned mesh per host profile "
+                             "(the roofline planner, in a subprocess, "
+                             "cached in the fleet cache)")
 
     pr = sub.add_parser("run", help="run a sweep over the fleet")
     pr.add_argument("--sweep-dir", required=True)
@@ -1809,6 +1823,322 @@ def main_chaos(argv: Optional[Sequence[str]] = None) -> int:
                               cases=cases)
 
 
+#: the HLO auditor's flags of the JAX ``analyze``: the port has no HLO
+_AUDITOR_FLAGS = ("--fail-on", "--suppress", "--check-recompile",
+                  "--check-donation")
+
+_MODEL_ALIASES = {"bert_tiny": "BertTiny", "bert_base": "BertBase",
+                  "lenet": "LeNet", "gpt_tiny": "GptTiny",
+                  "gpt_mini": "GptMini"}
+
+
+def _parse_mesh_arg(mesh_arg: str):
+    """'4x2' -> (data=4, model=2, seq=1); '2x2x2' -> (data, model, seq)."""
+    try:
+        parts = [int(p) for p in mesh_arg.lower().split("x")]
+    except ValueError:
+        raise SystemExit(f"--mesh must look like '8', '4x2' or '2x2x2', "
+                         f"got {mesh_arg!r}")
+    if not 1 <= len(parts) <= 3 or any(p < 1 for p in parts):
+        raise SystemExit(f"--mesh must have 1-3 positive extents, "
+                         f"got {mesh_arg!r}")
+    parts += [1] * (3 - len(parts))
+    return tuple(parts)  # (data, model, seq)
+
+
+def _analyze_model_kw(args) -> dict:
+    return {k: v for k, v in {
+        "vocab_size": args.vocab_size,
+        "max_len": args.seq_len,
+        "d_model": args.d_model,
+        "num_layers": args.num_layers,
+        "num_heads": args.num_heads,
+        "d_ff": args.d_ff,
+        "dtype": args.dtype,
+    }.items() if v is not None}
+
+
+def _analyze_dtype(args) -> str:
+    """``--dtype``, else the model's own compute dtype (the CNN zoo's:
+    float32)."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.models import (
+        build_model,
+        is_text_model,
+    )
+
+    model_name = _MODEL_ALIASES.get(args.model, args.model)
+    if args.dtype or not is_text_model(model_name):
+        return args.dtype or "float32"
+    with torch.device("meta"):
+        cfg = build_model(model_name, **_analyze_model_kw(args)).config
+    return str(cfg.dtype).split(".")[-1]
+
+
+def _decode_cost_block(args, model_name):
+    """The decode-phase roofline of ``analyze --cost`` for causal
+    decoders (the JAX CLI's block): per-token FLOPs and KV-cache bytes
+    from the closed form, and the predicted tokens/s under the
+    ``--device`` backend's profile; None for other models."""
+    import torch
+
+    from pytorch_distributed_nn_tpu_torch.analysis.calibration import (
+        default_profile,
+    )
+    from pytorch_distributed_nn_tpu_torch.analysis.costmodel import (
+        decode_phase_cost,
+    )
+    from pytorch_distributed_nn_tpu_torch.models import (
+        build_model,
+        is_generative_model,
+    )
+
+    if not is_generative_model(model_name):
+        return None
+    with torch.device("meta"):
+        cfg = build_model(model_name, **_analyze_model_kw(args)).config
+    cache_len = args.seq_len or cfg.max_len
+    batch = args.batch_size or 8
+    dc = decode_phase_cost(
+        num_layers=cfg.num_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        vocab_size=cfg.vocab_size, cache_len=cache_len, batch=batch,
+        weight_bytes_per_param=4,
+        kv_bytes_per_elem=torch.empty((), dtype=cfg.dtype).element_size(),
+    )
+    prof = default_profile(args.device, _analyze_dtype(args))
+    pred = dc.predicted_tokens_per_s(
+        prof.peak_flops_per_s, prof.hbm_peak_bytes_per_s
+    )
+    out = dc.to_dict()
+    out["predicted_tokens_per_s"] = round(pred, 1)
+    out["calibration_backend"] = prof.backend
+    out["text"] = (
+        dc.to_text()
+        + f"\n  roofline tokens/s (per sequence, {prof.name} "
+        f"calibration): {pred:,.0f}"
+    )
+    return out
+
+
+def _analyze_walk(args, num_data, num_model, num_seq):
+    """The walk of rank 0's step of ``--model`` over the mesh
+    (:func:`..analysis.costmodel.walk_step`): its
+    :class:`..analysis.report.Report` (its cost included), or None after
+    a message for a combination that cannot be built."""
+    from pytorch_distributed_nn_tpu_torch.analysis import costmodel
+    from pytorch_distributed_nn_tpu_torch.analysis.report import (
+        Report,
+        summarize_collectives,
+    )
+    from pytorch_distributed_nn_tpu_torch.models import is_text_model
+
+    model_name = _MODEL_ALIASES.get(args.model, args.model)
+    model_kw = (_analyze_model_kw(args) if is_text_model(model_name)
+                else {"dtype": args.dtype or "float32"})
+    try:
+        cost, params = costmodel.walk_step(
+            model_name, (num_data, num_model, num_seq),
+            args.batch_size or 2 * num_data, args.optimizer, args.seq_len,
+            model_kw, args.seq_attn, args.compress_grad, args.grad_accum)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return None
+    return Report(
+        mesh_shape={"data": num_data, "model": num_model, "seq": num_seq},
+        collectives=summarize_collectives(cost.collectives),
+        num_params=len(params),
+        param_bytes=int(sum(p.numel() * p.element_size() for p in params)),
+        cost=cost,
+    )
+
+
+def _analyze_plan(args) -> int:
+    """``analyze --plan``: the ranked mesh table under the roofline."""
+    import json as _json
+
+    from pytorch_distributed_nn_tpu_torch.analysis import planner
+    from pytorch_distributed_nn_tpu_torch.analysis.calibration import (
+        CalibrationProfile,
+    )
+
+    profile = (CalibrationProfile.load(args.calibration)
+               if args.calibration else None)
+    try:
+        result = planner.plan(
+            args.model, args.devices, profile=profile,
+            batch_size=args.batch_size, optimizer=args.optimizer,
+            seq_len=args.seq_len, model_kw=_analyze_model_kw(args),
+            validate=args.validate, seq_attn=args.seq_attn,
+            device=args.device,
+        )
+    except ValueError as e:
+        print(f"plan: {e}", file=sys.stderr)
+        return 2
+    payload = _json.dumps(result, indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(payload + "\n")
+    print(payload if args.json else planner.render_plan(result))
+    if args.check:
+        live = [c for c in result["candidates"] if not c.get("skipped")]
+        ok = (result.get("top") is not None and len(live) >= 2
+              and all(c["predicted_ms"] > 0 for c in live))
+        print(f"plan --check: {'PASS' if ok else 'FAIL'}", file=sys.stderr)
+        return 0 if ok else 1
+    return 0
+
+
+def _analyze_calibrate(args, num_data, num_model, num_seq) -> int:
+    """``analyze --calibrate``: fit and write a calibration.json."""
+    from pytorch_distributed_nn_tpu_torch.analysis import calibration
+
+    dtype = _analyze_dtype(args)
+    prof = calibration.default_profile(args.device, dtype)
+    if args.trace:
+        report = _analyze_walk(args, num_data, num_model, num_seq)
+        if report is None:
+            return 2
+        try:
+            prof = calibration.fit_from_trace(
+                args.trace, report.cost.to_dict(), args.trace_steps,
+                base=prof)
+        except (ValueError, FileNotFoundError) as e:
+            print(f"calibrate: trace fit failed: {e}", file=sys.stderr)
+            return 2
+    if args.microbench:
+        prof = calibration.fit_microbench(base=prof, device=args.device,
+                                          dtype=dtype)
+    out = args.out or calibration.CALIBRATION_BASENAME
+    prof.save(out)
+    print(f"wrote {out}: profile {prof.name} (source {prof.source}), "
+          f"peak {prof.peak_flops_per_s / 1e12:.2f} TFLOP/s, "
+          f"HBM {prof.hbm_bytes_per_s / 1e9:.1f} GB/s, "
+          f"ICI {prof.ici_bytes_per_s / 1e9:.1f} GB/s")
+    return 0
+
+
+def main_analyze(argv: Optional[Sequence[str]] = None) -> int:
+    """The step's static cost, its collectives and the mesh planner (the
+    JAX ``analyze``, by a walk of the step's dispatched operations on the
+    meta device: no card needed; ``--validate`` and ``--microbench`` run
+    on ``--device``). Without ``--plan`` or ``--calibrate`` it prints the
+    mesh's collective inventory and step cost. The JAX HLO auditor's
+    flags exit 2: the port has no HLO to lint."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for flag in _AUDITOR_FLAGS:
+        if any(a == flag or a.startswith(flag + "=") for a in argv):
+            print(f"analyze: {flag} belongs to the JAX package's HLO "
+                  "auditor (the SL rules), which has no counterpart in the "
+                  "port (it has no HLO)", file=sys.stderr)
+            return 2
+    p = argparse.ArgumentParser("pdtn-analyze",
+                                description=main_analyze.__doc__)
+    p.add_argument("--model", default="bert_tiny",
+                   help="model zoo name (bert_tiny/bert_base/lenet/"
+                        "gpt_tiny/gpt_mini aliases or any registry name; "
+                        "image models walk the data-parallel step)")
+    p.add_argument("--mesh", default="4x2",
+                   help="data[xmodel[xseq]] extents of the walked mesh, "
+                        "e.g. 8, 4x2, 2x2x2 (a fake process group)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="global batch (default: 2 per data-parallel rank)")
+    p.add_argument("--seq-len", type=int, default=None,
+                   help="text models: sequence length (default: model spec)")
+    p.add_argument("--vocab-size", type=int, default=None)
+    p.add_argument("--d-model", type=int, default=None)
+    p.add_argument("--num-layers", type=int, default=None)
+    p.add_argument("--num-heads", type=int, default=None)
+    p.add_argument("--d-ff", type=int, default=None)
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="the model's compute dtype (default: the model's); "
+                        "it picks the MFU peak and the card profile")
+    p.add_argument("--optimizer", choices=["sgd", "adam"], default="adam")
+    p.add_argument("--seq-attn", choices=["ring", "ulysses"], default="ring",
+                   help="attention impl when the seq mesh axis is > 1")
+    p.add_argument("--compress-grad", choices=["none", "int8"],
+                   default="none")
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--cost", action="store_true",
+                   help="print the step's static FLOPs/bytes "
+                        "(analysis/costmodel.py), and for a decoder the "
+                        "decode-phase roofline (always in --json)")
+    p.add_argument("--plan", action="store_true",
+                   help="rank mesh factorizations x rule overrides for "
+                        "--model over --devices devices under the "
+                        "calibrated roofline; --validate also measures")
+    p.add_argument("--devices", type=int, default=8,
+                   help="--plan: device count to plan for")
+    p.add_argument("--validate", action="store_true",
+                   help="--plan: train every candidate a few steps as rank "
+                        "processes on --device and report measured ms")
+    p.add_argument("--check", action="store_true",
+                   help="--plan: the CPU smoke (LeNet over 2 devices, the "
+                        "default calibration, no measurement) and the "
+                        "table's invariants")
+    p.add_argument("--calibrate", action="store_true",
+                   help="fit per-family ceilings into a calibration.json "
+                        "from a --profile run's trace (--trace, with "
+                        "--model/--mesh for the step's cost) and/or the "
+                        "microbenches (--microbench)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="--calibrate: a torch.profiler trace directory")
+    p.add_argument("--trace-steps", type=int, default=1,
+                   help="--calibrate: how many steps the trace covers")
+    p.add_argument("--microbench", action="store_true",
+                   help="--calibrate: time one matmul chain and one copy "
+                        "on --device")
+    p.add_argument("--calibration", default=None, metavar="FILE",
+                   help="--plan: ceilings from this calibration.json")
+    p.add_argument("--json", action="store_true",
+                   help="emit the report (or plan) as JSON on stdout")
+    p.add_argument("--out", default=None,
+                   help="also write the JSON (--calibrate: the profile) "
+                        "to this file")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where --validate and --microbench run, and the "
+                        "default profile's backend (default: the card)")
+    args = p.parse_args(argv)
+
+    if args.check and not args.plan:
+        print("--check only applies with --plan", file=sys.stderr)
+        return 2
+    if args.plan and args.check:
+        # the CPU smoke: tiny model, 2 ranks, default calibration, no
+        # measurement — seconds
+        args.model, args.devices, args.validate = "lenet", 2, False
+        args.device = "cpu"
+    if args.plan:
+        return _analyze_plan(args)
+    num_data, num_model, num_seq = _parse_mesh_arg(args.mesh)
+    if args.calibrate:
+        return _analyze_calibrate(args, num_data, num_model, num_seq)
+    report = _analyze_walk(args, num_data, num_model, num_seq)
+    if report is None:
+        return 2
+    import json as _json
+
+    doc = report.to_dict()
+    decode_cost = (_decode_cost_block(
+        args, _MODEL_ALIASES.get(args.model, args.model))
+        if args.cost else None)
+    if decode_cost is not None:
+        doc["decode_cost"] = {k: v for k, v in decode_cost.items()
+                              if k != "text"}
+    payload = _json.dumps(doc)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(payload + "\n")
+    print(payload if args.json else report.to_text())
+    if args.cost and not args.json:
+        print()
+        print(report.cost.to_text())
+        if decode_cost is not None:
+            print()
+            print(decode_cost["text"])
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pytorch_distributed_nn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1842,6 +2172,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("chaos", add_help=False,
                    help="canned fault scenarios with CI-gateable "
                         "invariants (--scenario list)")
+    sub.add_parser("analyze", add_help=False,
+                   help="the step's static cost, its collectives, "
+                        "calibration and the mesh planner (a walk on the "
+                        "meta device)")
     return p
 
 
@@ -1863,6 +2197,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return main_fleet(argv[1:])
     if argv[:1] == ["chaos"]:
         return main_chaos(argv[1:])
+    if argv[:1] == ["analyze"]:
+        return main_analyze(argv[1:])
     args = build_parser().parse_args(argv)
     if args.cmd in ("train", "single"):
         return _train(args)

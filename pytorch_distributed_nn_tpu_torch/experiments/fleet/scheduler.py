@@ -12,12 +12,14 @@ remotely instead of spawned locally. What that buys:
   the alive, non-draining host with a free slot, preferring hosts with
   enough devices for the trial's requested mesh, then the most idle
   capacity; deterministic tie-break on agent id.
-- **per-host mesh assignment** (:func:`host_mesh_overrides`): a plan
-  for the host's profile (backend + device count) found in the shared
-  :class:`~.cache.FleetCache` (content-addressed by model, devices and
-  torch version) lands its dp/tp/sp in the trial's config; the port has
-  no planner yet to compute one (``FleetConfig(plan_hosts=True)`` is
-  refused until ROADMAP Queue 1 item 7d). An explicit ``num_workers``
+- **per-host mesh assignment** (:func:`host_mesh_overrides`): with
+  ``plan_hosts`` the roofline planner ranks meshes for the host's profile
+  (backend + device count) in a spawned subprocess
+  (:func:`..runner.plan_in_subprocess`: the orchestrator imports no
+  torch), memoized in the shared :class:`~.cache.FleetCache`
+  (content-addressed by model, devices, backend and torch version); the
+  top candidate's dp/tp/sp land in the trial's config, unless the sweep
+  names a mesh axis itself. An explicit ``num_workers``
   larger than the host is capped through the elastic policy
   (``derive_data_parallel``), so a fresh trial can never launch more
   ranks than its host has devices.
@@ -66,6 +68,7 @@ from pytorch_distributed_nn_tpu_torch.experiments.runner import (
     SweepRunner,
     _Attempt,
     _Running,
+    plan_in_subprocess,
 )
 from pytorch_distributed_nn_tpu_torch.observability import tracing
 
@@ -85,18 +88,8 @@ class FleetConfig(RunnerConfig):
     hosts: Tuple[str, ...] = ()  # tcp: host:port addresses
     lease: float = 10.0  # seconds of silence before a host is dead
     call_timeout: float = 2.0  # per-RPC socket timeout
-    # planner-assigned mesh per host profile; refused until the port has
-    # its cost model and planner (ROADMAP Queue 1 item 7d)
-    plan_hosts: bool = False
+    plan_hosts: bool = False  # planner-assigned mesh per host profile
     trial_main_name: str = "default"  # default | synthetic (wire name)
-
-    def __post_init__(self):
-        super().__post_init__()
-        if self.plan_hosts:
-            raise ValueError(
-                "--plan-hosts needs the cost model and its planner, which "
-                "the port does not have yet (ROADMAP Queue 1 item 7d); "
-                "run without it")
 
 
 def place_trial(
@@ -137,13 +130,13 @@ def host_mesh_overrides(
     host: AgentInfo,
     cache: Optional[FleetCache] = None,
     plan: bool = False,
+    plan_timeout: float = 300.0,
 ) -> dict:
     """Per-host mesh factors for one trial config (host-side, no torch).
 
-    With ``plan=True`` a plan for (network, host devices) is read from
-    the fleet cache under (model, devices, backend, torch version); the
-    port has no planner to compute a missing one yet (ROADMAP Queue 1
-    item 7d), so a miss leaves the base mesh. The fallback contract
+    With ``plan=True`` the roofline planner ranks meshes for (network,
+    host devices) — in a spawned subprocess, memoized in the fleet cache
+    under (model, devices, backend, torch version). The fallback contract
     either way: an explicit ``num_workers`` beyond the host's devices is
     walked down through the elastic K-of-N policy (batch divisibility
     preserved), so placement on a smaller host yields a runnable mesh
@@ -156,17 +149,17 @@ def host_mesh_overrides(
     network = cfg.get("network")
     overrides: dict = {}
     if plan and network and cache is not None:
-        plan_rec = cache.get(
-            "plan", model=str(network), devices=int(host.devices),
-            backend=str(host.profile.get("backend") or "cpu"),
-            torch=torch_version(),
-        )
+        backend = str(host.profile.get("backend") or "cpu")
+        ident = dict(model=str(network), devices=int(host.devices),
+                     backend=backend, torch=torch_version())
+        plan_rec = cache.get("plan", **ident)
         if plan_rec is None:
-            logger.warning(
-                "fleet: no cached plan for %s on %d device(s) and no "
-                "planner to make one (ROADMAP Queue 1 item 7d): the trial "
-                "keeps its base mesh", network, host.devices)
-        else:
+            plan_rec = plan_in_subprocess(
+                cfg, host.devices, "cpu" if backend == "cpu" else None,
+                timeout=plan_timeout)
+            if plan_rec is not None:
+                cache.put("plan", plan_rec, **ident)
+        if plan_rec:
             overrides.update({
                 k: int(plan_rec[k])
                 for k in ("num_workers", "tensor_parallel", "seq_parallel")
@@ -393,9 +386,16 @@ class FleetScheduler(SweepRunner):
         tdir = jr.trial_dir(c.sweep_dir, trial.index)
         os.makedirs(tdir, exist_ok=True)
         cfg = self._trial_config(trial, rung, att)
-        # no planner (plan_hosts is refused until item 7d): the elastic
-        # cap alone fits the trial's mesh to the host
-        cfg.update(host_mesh_overrides(cfg, host))
+        # an explicitly-swept mesh axis beats the planner (the sweep is
+        # the experiment); the elastic cap inside host_mesh_overrides
+        # still protects it on a smaller host
+        plan = c.plan_hosts and not any(
+            k in trial.overrides
+            for k in ("num_workers", "tensor_parallel", "seq_parallel")
+        )
+        cfg.update(host_mesh_overrides(
+            cfg, host, cache=self.cache, plan=plan,
+        ))
         env = {}
         # trace relay over the wire: the agent applies this env before the
         # trial spawn, so the trial's manifest derives its child span from

@@ -44,8 +44,8 @@ def trailing_loss(steps: List[dict], tail: int = 10) -> Optional[float]:
 def trial_metrics(tdir: str, tail: int = 10) -> Optional[dict]:
     """loss / steps / step-rate / MFU for one trial directory, from its
     telemetry stream. None when the trial never opened a stream. ``mfu``
-    is None on the port's trials: its trainer stamps no ``step_cost`` in
-    the manifest until the cost model is ported."""
+    comes from the ``step_cost`` the trainer stamps in the manifest (None
+    without one: a synthetic trial)."""
     from pytorch_distributed_nn_tpu_torch.observability import reader
 
     try:

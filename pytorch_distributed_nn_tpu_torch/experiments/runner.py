@@ -83,8 +83,8 @@ class RunnerConfig:
     eta: int = 3
     min_steps: Optional[int] = None  # asha: first-rung budget override
     resume: bool = False
-    # device budget of the JAX --plan-mesh hook; the port refuses any
-    # value but 0 until its cost model and planner exist (ROADMAP item 7d)
+    # device budget of the --plan-mesh hook (0 = off): the roofline
+    # planner picks each network's mesh, in a subprocess
     plan_mesh: int = 0
     retry_base_delay: float = 0.25  # backoff base between attempts
     # Heartbeat-staleness conviction (the supervisor Watchdog grace,
@@ -97,13 +97,6 @@ class RunnerConfig:
     heartbeat_grace: Optional[float] = None
     # the trials' torch device: None = the card, "cpu" = the CPU
     device: Optional[str] = None
-
-    def __post_init__(self):
-        if self.plan_mesh:
-            raise ValueError(
-                "--plan-mesh needs the cost model and its planner, which "
-                "the port does not have yet (ROADMAP Queue 1 item 7d); "
-                "run without it")
 
 
 def default_trial_main(trial_dir: str, cfg: dict,
@@ -344,6 +337,7 @@ class SweepRunner:
         self._retries_total = 0
         self.journal: Optional[object] = None
         self._completed_count = 0
+        self._mesh_cache: Dict[str, dict] = {}
 
     # -- lifecycle --------------------------------------------------------
 
@@ -643,6 +637,9 @@ class SweepRunner:
         c = self.cfg
         tdir = jr.trial_dir(c.sweep_dir, trial.index)
         cfg = dict(self._base_dict)
+        cfg.update(self._plan_mesh_overrides(
+            trial.overrides.get("network") or cfg.get("network")
+        ))
         cfg.update(trial.overrides)
         budget = rung.budget
         eval_freq = (
@@ -669,6 +666,32 @@ class SweepRunner:
             warm_start=None,
         )
         return cfg
+
+    def _plan_mesh_overrides(self, network: Optional[str]) -> dict:
+        """The ``--plan-mesh`` hook: the roofline planner's
+        predicted-fastest mesh for this trial's model on the configured
+        device budget, planned in a spawned subprocess (this process
+        imports no torch). Best effort: an unplannable model keeps the
+        base mesh."""
+        c = self.cfg
+        if not c.plan_mesh or not network:
+            return {}
+        if network not in self._mesh_cache:
+            rec = plan_in_subprocess(dict(self._base_dict, network=network),
+                                     c.plan_mesh, c.device)
+            overrides = {} if rec is None else {
+                k: rec[k] for k in ("num_workers", "tensor_parallel",
+                                    "seq_parallel")}
+            if overrides:
+                logger.info(
+                    "plan-mesh: %s on %d device(s) -> dp=%d tp=%d sp=%d",
+                    network, c.plan_mesh, overrides["num_workers"],
+                    overrides["tensor_parallel"], overrides["seq_parallel"])
+            else:
+                logger.warning("plan-mesh: planner failed for %s (trials "
+                               "keep the base mesh)", network)
+            self._mesh_cache[network] = overrides
+        return self._mesh_cache[network]
 
     def _reap(self, proc, timed_out: bool) -> None:
         if timed_out and proc.is_alive():
@@ -798,3 +821,61 @@ class SweepRunner:
             )
         except OSError:  # pragma: no cover - scrape surface best-effort
             logger.exception("sweep metrics.prom write failed")
+
+
+def plan_in_subprocess(cfg: dict, devices: int, device: Optional[str] = None,
+                       timeout: float = 300.0) -> Optional[dict]:
+    """The roofline planner's top candidate for ``cfg``'s network on
+    ``devices`` devices, planned in a SPAWNED process (the orchestrator
+    imports no torch): ``{"num_workers", "tensor_parallel",
+    "seq_parallel", "predicted_ms"}``, or None when planning failed or
+    timed out. ``device`` ("cpu", or None for the card) picks the
+    planner's default profile."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=_plan_worker,
+                    args=(dict(cfg), int(devices), device or "cuda", q),
+                    daemon=True)
+    p.start()
+    try:
+        return q.get(timeout=timeout)
+    except Exception:
+        logger.warning("plan-mesh: the planner gave no plan in %g s",
+                       timeout)
+        return None
+    finally:
+        p.join(5)
+        if p.is_alive():  # pragma: no cover - planner hang guard
+            p.kill()
+            p.join(5)
+
+
+def _plan_worker(cfg: dict, devices: int, device: str, q) -> None:
+    """Child entry: torch and the planner live HERE."""
+    try:
+        from pytorch_distributed_nn_tpu_torch.analysis import planner
+
+        result = planner.plan(
+            cfg.get("network"), devices,
+            batch_size=cfg.get("batch_size"),
+            optimizer=cfg.get("optimizer") or "sgd",
+            seq_len=cfg.get("seq_len"),
+            device=device,
+        )
+        top = next((c for c in result.get("candidates", [])
+                    if not c.get("skipped")), None)
+        if top is None:
+            q.put(None)
+            return
+        mesh = top.get("mesh") or {}
+        q.put({
+            "num_workers": int(mesh.get("data") or 1),
+            "tensor_parallel": int(mesh.get("model") or 1),
+            "seq_parallel": int(mesh.get("seq") or 1),
+            "predicted_ms": top.get("predicted_ms"),
+        })
+    except Exception as e:
+        logging.getLogger(__name__).warning("plan worker: %r", e)
+        q.put(None)

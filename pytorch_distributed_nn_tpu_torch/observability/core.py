@@ -347,6 +347,17 @@ class TelemetrySink:
                 self._file = None
 
 
+def step_seconds(r: dict) -> Optional[float]:
+    """A step record's step time in seconds: the JAX trainer's
+    ``step_time``, else the port trainer's ``step_ms``; None without
+    either."""
+    if "step_time" in r:
+        return float(r["step_time"])
+    if "step_ms" in r:
+        return float(r["step_ms"]) / 1000.0
+    return None
+
+
 def run_manifest(
     config: Optional[dict] = None,
     mesh_shape: Optional[dict] = None,
@@ -564,12 +575,11 @@ class Telemetry:
         family contract `obs summary`/`compare` rely on.
         """
         sc = (self.manifest or {}).get("step_cost")
-        st = rec.get("step_time")
-        if not sc or not st:
+        if not sc:
             return
         try:
-            st = float(st)
-            if st <= 0:
+            st = step_seconds(rec)  # the JAX step_time or the port's step_ms
+            if not st or st <= 0:
                 return
             reg = self.registry
             flops = float(sc.get("flops") or 0.0)

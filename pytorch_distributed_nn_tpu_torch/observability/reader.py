@@ -41,6 +41,7 @@ from pytorch_distributed_nn_tpu_torch.observability.core import (
     MetricRegistry,
     Telemetry,
     run_manifest,
+    step_seconds,
     stream_basename,
 )
 
@@ -183,17 +184,6 @@ def phase_stats(values: List[float]) -> Optional[dict]:
         "p99": percentile(values, 99),
         "total": sum(values),
     }
-
-
-def step_seconds(r: dict) -> Optional[float]:
-    """A step record's step time in seconds: the JAX trainer's
-    ``step_time``, else the port trainer's ``step_ms``; None without
-    either."""
-    if "step_time" in r:
-        return float(r["step_time"])
-    if "step_ms" in r:
-        return float(r["step_ms"]) / 1000.0
-    return None
 
 
 def _rate(records: List[dict]) -> float:
@@ -491,10 +481,8 @@ def efficiency_summary(rs: RunStream, skip: int = 1) -> Optional[dict]:
     if not flops:
         return None
     timed = rs.steps[skip:] if len(rs.steps) > skip else rs.steps
-    times = [
-        float(r["step_time"]) for r in timed
-        if r.get("step_time") and float(r["step_time"]) > 0
-    ]
+    # either trainer's step time: the JAX step_time, the port's step_ms
+    times = [t for t in map(step_seconds, timed) if t and t > 0]
     if not times:
         return None
     flops = float(flops)

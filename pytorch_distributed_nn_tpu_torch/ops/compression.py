@@ -90,8 +90,11 @@ def psum_mean(grads: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
 def leaf_noise(shape, seed: int, device) -> torch.Tensor:
     """u ~ U[0, 1) f32 of the small-leaf formula, from a generator on
     ``device`` seeded with ``seed`` (the same draws on every rank of one
-    device type)."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    device type). The meta device (the cost walk's) has no generator: a
+    CPU one drives its draw."""
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device).manual_seed(
+        int(seed))
     return torch.rand(shape, generator=gen, device=device,
                       dtype=torch.float32)
 

@@ -35,10 +35,20 @@ build or launch raises; nothing falls back to the plain version.
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else, so a run can show that its path went through
 the kernels (:func:`reset_launch_counts`, :func:`launch_counts`).
+
+Meta tensors are the cost walk's (:mod:`..analysis.costmodel`): a
+wrapper given them makes its outputs on the meta device, launches
+nothing, counts nothing, and reports its call to the walk's hook
+(:func:`charging`) by its count name, with its operands and outputs.
+The kernels are bound with ctypes, so a dispatch mode never sees them:
+this report is how the walk charges them. Without a walk, meta tensors
+raise. The flash backward's ``delta`` is then not computed: the walk
+charges the function's whole backward to the two backward kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Dict, List, Optional, Sequence
@@ -181,13 +191,48 @@ def _dtype_code(t: torch.Tensor, what: str) -> int:
     return code
 
 
-def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+#: the running cost walk's charge hook (:func:`charging`), else None
+_WALK = None
+
+
+@contextlib.contextmanager
+def charging(hook):
+    """While the block runs, a wrapper given meta tensors calls
+    ``hook(name, inputs, outputs, **attrs)`` (``name`` its count name,
+    ``attrs`` e.g. ``causal``) in place of a launch (module doc)."""
+    global _WALK
+    prev, _WALK = _WALK, hook
+    try:
+        yield
+    finally:
+        _WALK = prev
+
+
+def _charge(name: str, inputs, outputs, **attrs):
+    """The meta branch's report to the walk; returns ``outputs``."""
+    if _WALK is None:
+        raise RuntimeError(f"{name}: meta tensors outside a cost walk "
+                           "(analysis.costmodel.step_cost_from_walk)")
+    _WALK(name, [t for t in inputs if torch.is_tensor(t)],
+          [t for t in outputs if torch.is_tensor(t)], **attrs)
+    return outputs
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _on_cpu(*tensors: Optional[torch.Tensor]) -> Optional[bool]:
+    """True on the CPU, False on one card, None on the meta device (a
+    cost walk); raises for a mix."""
     tensors = [t for t in tensors if t is not None]
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
         return True
     if devs == {"cuda"} and len({t.device for t in tensors}) == 1:
         return False
+    if devs == {"meta"}:
+        return None
     raise ValueError(f"tensors must all lie on one CPU or CUDA device, got "
                      f"{sorted(str(t.device) for t in tensors)}")
 
@@ -274,8 +319,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-position decode attention: q (B, 1, H, D), k/v (B, S, H, D)
     in q's dtype, positions (B,) int32 -> (B, 1, H, D). The cache is read
     in place through its strides (its last axis must be contiguous)."""
-    if _on_cpu(q, k, v, positions):
+    where = _on_cpu(q, k, v, positions)
+    if where:
         return reference.decode_attention(q, k, v, positions)
+    if where is None:
+        return _charge("decode_attention", (q, k, v, positions),
+                       (_meta(q.shape, q.dtype),))[0]
     B, one, H, D = q.shape
     S = k.shape[1]
     if one != 1 or k.shape != (B, S, H, D) or v.shape != k.shape:
@@ -341,6 +390,14 @@ def layer_norm_fwd_vectorised(x: torch.Tensor, y: torch.Tensor,
 _LN_FWD = None  # the bound C entry, looked up at the first launch
 
 
+def _ln_meta(x, gamma, beta, out_dtype, with_stats: bool):
+    y = _meta(x.shape, x.dtype if out_dtype is None else out_dtype)
+    stats = ((_meta(x.shape[:-1], torch.float32),
+              _meta(x.shape[:-1], torch.float32)) if with_stats else ())
+    _charge("layer_norm", (x, gamma, beta), (y, *stats))
+    return (y, *stats) if with_stats else (y, None, None)
+
+
 def _ln_forward(x, gamma, beta, eps, out_dtype, with_stats: bool):
     global _LN_FWD
     out_dtype = x.dtype if out_dtype is None else out_dtype
@@ -378,8 +435,11 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """(y, mu, rs): the forward kernel with the statistics the backward
     needs (mu, rs f32 of x's leading shape). One count per call; the
     kernel is chosen by :func:`layer_norm_fwd_vectorised`."""
-    if _on_cpu(x, gamma, beta):
+    where = _on_cpu(x, gamma, beta)
+    if where:
         return reference.layer_norm_fwd(x, gamma, beta, eps, out_dtype)
+    if where is None:
+        return _ln_meta(x, gamma, beta, out_dtype, with_stats=True)
     return _ln_forward(x, gamma, beta, eps, out_dtype, with_stats=True)
 
 
@@ -401,8 +461,15 @@ def layer_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, mu: torch.Tensor,
     by its second kernel (the JAX package sums its partials outside the
     kernel). One count per call; the kernel is chosen by
     :func:`layer_norm_bwd_vectorised`."""
-    if _on_cpu(x, gamma, mu, rs, dy):
+    where = _on_cpu(x, gamma, mu, rs, dy)
+    if where:
         return reference.layer_norm_bwd(x, gamma, mu, rs, dy)
+    if where is None:
+        D = x.shape[-1]
+        return tuple(_charge(
+            "layer_norm_bwd", (x, gamma, mu, rs, dy),
+            (_meta(x.shape, x.dtype), _meta((D,), torch.float32),
+             _meta((D,), torch.float32))))
     D, N = _ln_params(x, gamma)
     if dy.shape != x.shape or mu.shape != x.shape[:-1] \
             or rs.shape != mu.shape:
@@ -463,8 +530,11 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                     or beta.requires_grad):
         _on_cpu(x, gamma, beta)
         return _LayerNorm.apply(x, gamma, beta, eps, out_dtype)
-    if _on_cpu(x, gamma, beta):
+    where = _on_cpu(x, gamma, beta)
+    if where:
         return reference.layer_norm(x, gamma, beta, eps, out_dtype)
+    if where is None:
+        return _ln_meta(x, gamma, beta, out_dtype, with_stats=False)[0]
     return _ln_forward(x, gamma, beta, eps, out_dtype, with_stats=False)[0]
 
 
@@ -525,8 +595,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(out (B, L, H, D), lse (B, H, L) f32) of the forward kernel (bf16,
     or f32 as three TF32 products). q, k and v are read in place through
     their strides (see :func:`_flash_operand`)."""
-    if _on_cpu(q, k, v, mask):
+    where = _on_cpu(q, k, v, mask)
+    if where:
         return reference.flash_attention_fwd(q, k, v, mask, causal)
+    if where is None:
+        B, L, H, _ = q.shape
+        return _charge("flash_attention_fwd", (q, k, v, mask),
+                       (_meta(q.shape, q.dtype),
+                        _meta((B, H, L), torch.float32)), causal=causal)
     q, k, v = map(_flash_operand, (q, k, v))
     B, L, H, D, code = _flash_check(q, k, v)
     bias = _pad_bias(mask, B, L, q.device)
@@ -558,9 +634,13 @@ def _bwd_operands(q, k, v, mask, lse, delta, dout):
 def flash_attention_dq(q, k, v, mask, lse, delta, dout, causal=False):
     """dq (B, L, H, D) of the dq kernel, from the forward's lse and
     delta = rowsum(dO * O) (both (B, H, L) f32)."""
-    if _on_cpu(q, k, v, mask, lse, delta, dout):
+    where = _on_cpu(q, k, v, mask, lse, delta, dout)
+    if where:
         return reference.flash_attention_dq(q, k, v, mask, lse, delta, dout,
                                             causal)
+    if where is None:
+        return _charge("flash_attention_dq", (q, k, v, mask, lse, delta, dout),
+                       (_meta(q.shape, q.dtype),), causal=causal)[0]
     q, k, v, dout, bias, lse, delta, (B, L, H, D, code) = _bwd_operands(
         q, k, v, mask, lse, delta, dout)
     dq = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
@@ -577,9 +657,15 @@ def flash_attention_dq(q, k, v, mask, lse, delta, dout, causal=False):
 
 def flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal=False):
     """(dk, dv), each (B, L, H, D), of the dk/dv kernel."""
-    if _on_cpu(q, k, v, mask, lse, delta, dout):
+    where = _on_cpu(q, k, v, mask, lse, delta, dout)
+    if where:
         return reference.flash_attention_dkv(q, k, v, mask, lse, delta,
                                              dout, causal)
+    if where is None:
+        return tuple(_charge(
+            "flash_attention_dkv", (q, k, v, mask, lse, delta, dout),
+            (_meta(q.shape, q.dtype), _meta(q.shape, q.dtype)),
+            causal=causal))
     q, k, v, dout, bias, lse, delta, (B, L, H, D, code) = _bwd_operands(
         q, k, v, mask, lse, delta, dout)
     dk = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
@@ -606,7 +692,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        delta = reference.flash_attention_delta(out, dout)
+        delta = (_meta(lse.shape, torch.float32) if out.is_meta
+                 else reference.flash_attention_delta(out, dout))
         dq = flash_attention_dq(q, k, v, mask, lse, delta, dout, ctx.causal)
         dk, dv = flash_attention_dkv(q, k, v, mask, lse, delta, dout,
                                      ctx.causal)
@@ -670,9 +757,13 @@ def quantize_int8_scaled_group(xs: Sequence[torch.Tensor], scales,
                          f"{len(scales)} scales, {len(seeds)} seeds")
     if not xs:
         return []
-    if _on_cpu(*xs, *(s for s in scales if torch.is_tensor(s))):
+    where = _on_cpu(*xs, *(s for s in scales if torch.is_tensor(s)))
+    if where:
         return reference.quantize_int8_scaled_group(xs, scales, seeds,
                                                     firsts=firsts)
+    if where is None:
+        return _charge("quantize_int8_scaled", (*xs, *scales),
+                       [_meta(x.shape, torch.int8) for x in xs])
     device = xs[0].device
     xs = [_int8_operands(x, "quantize_int8_scaled") for x in xs]
     scales = [_scale_tensor(s, device) for s in scales]
@@ -736,8 +827,12 @@ def quantize_int8(x: torch.Tensor, seed: int):
     x) and the rounding of :func:`quantize_int8_scaled`. One cooperative
     launch, its grid sized by the C entry; its per-block partial amax
     scratch is written before it is read, so nothing is zeroed first."""
-    if _on_cpu(x):
+    where = _on_cpu(x)
+    if where:
         return reference.quantize_int8(x, seed=seed)
+    if where is None:
+        return _charge("quantize_int8", (x,), (_meta(x.shape, torch.int8),
+                                               _meta((), torch.float32)))
     x2 = _int8_operands(x, "quantize_int8")
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.ones((), dtype=torch.float32, device=x.device)
@@ -759,8 +854,12 @@ def quantize_int8(x: torch.Tensor, seed: int):
 
 def dequantize_int8(q: torch.Tensor, scale) -> torch.Tensor:
     """``q * scale`` in f32, q int8 of any shape, scale one f32 value."""
-    if _on_cpu(q) and not (torch.is_tensor(scale) and scale.is_cuda):
+    where = _on_cpu(q)
+    if where and not (torch.is_tensor(scale) and scale.is_cuda):
         return reference.dequantize_int8(q, scale)
+    if where is None:
+        return _charge("dequantize_int8", (q, scale),
+                       (_meta(q.shape, torch.float32),))[0]
     if q.device.type != "cuda":
         raise ValueError(f"dequantize_int8: q on {q.device}, scale on the "
                          "card")

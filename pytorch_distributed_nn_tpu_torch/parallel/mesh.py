@@ -76,10 +76,37 @@ def env_ranks() -> Tuple[int, int, int]:
     return rank, world, local
 
 
+def fake_group(rank: int, world: int):
+    """A process group of ``world`` ranks whose collectives move nothing
+    and return at once (the ``FakeProcessGroup`` backend, on the CPU and
+    meta devices): the cost walk's (:mod:`..analysis.costmodel`). Its
+    collectives reach a dispatch mode as a real group's do."""
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    group = dist.ProcessGroup(dist.HashStore(), rank, world)
+    backend = FakeProcessGroup._create_internal(
+        rank, world, FakeProcessGroup.Options())
+    custom = dist.ProcessGroup.BackendType.CUSTOM
+    group._set_default_backend(custom)
+    for dev in ("cpu", "meta"):
+        group._register_backend(torch.device(dev), custom, backend)
+    return register_fake(group, rank, world)
+
+
+def register_fake(group, rank: int, world: int):
+    """Record ``group`` (a fake group) so that :func:`make_mesh` builds
+    fake axis groups over it on the meta device."""
+    _ORIGINS[group] = (dist.HashStore(), rank, world, torch.device("meta"),
+                       0.0)
+    return group
+
+
 def new_group(store, rank: int, world: int, device: torch.device,
               timeout_s: float = 600.0):
     """A process group over ``store``: NCCL for a CUDA ``device``, gloo
-    for the CPU."""
+    for the CPU, a fake group (:func:`fake_group`) on the meta device."""
+    if device.type == "meta":
+        return fake_group(rank, world)
     if device.type == "cuda":
         if not hasattr(dist, "ProcessGroupNCCL"):
             raise RuntimeError("this torch build has no NCCL")

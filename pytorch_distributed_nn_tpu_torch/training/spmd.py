@@ -39,8 +39,10 @@ Three bodies, as in the JAX ``build_spmd_train_step``:
 The JAX step's refusals stand: compression other than none or int8, and
 int8 with ``grad_accum > 1``.
 
-``abstract_spmd_state`` and ``spmd_audit_bundle`` feed only the JAX
-package's HLO auditor and are not ported.
+:func:`spmd_audit_bundle` builds the step of the cost walk
+(:mod:`..analysis.costmodel`) on the meta device, over a mesh of fake
+groups; ``abstract_spmd_state`` feeds only the JAX package's HLO auditor
+(the shardings it lints) and has no counterpart.
 """
 
 from __future__ import annotations
@@ -263,3 +265,24 @@ def build_spmd_eval_step(mesh):
             _pack(_sums(state.model, tokens, labels)), mesh))
 
     return eval_step
+
+
+def spmd_audit_bundle(model: torch.nn.Module, build_opt: Callable, mesh,
+                      tokens_shape, compression: str = "none",
+                      grad_accum: int = 1, seed: int = 0) -> dict:
+    """The dp x tp x sp step of the cost walk (the JAX
+    ``spmd_audit_bundle``): ``model`` built with ``mesh`` (a mesh of fake
+    groups, :func:`..parallel.mesh.fake_group`) on the meta device,
+    its optimizer from ``build_opt`` and :func:`build_spmd_train_step`,
+    on this rank's data rows of a global ``tokens_shape`` = (B, L) batch.
+    Returns ``{"step_fn", "args", "mesh", "params"}``."""
+    B, L = tokens_shape
+    dp = mesh.shape[DATA_AXIS]
+    if B % dp:
+        raise ValueError(f"global batch {B} not divisible by dp={dp}")
+    state = create_spmd_state(model, build_opt, mesh, "meta", seed=seed)
+    step = build_spmd_train_step(mesh, compression=compression,
+                                 grad_accum=grad_accum)
+    tok = torch.zeros((B // dp, L), dtype=torch.int64, device="meta")
+    return {"step_fn": step, "args": (state, (tok, tok), seed + 1),
+            "mesh": mesh, "params": list(state.model.parameters())}

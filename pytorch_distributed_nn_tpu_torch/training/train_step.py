@@ -112,10 +112,12 @@ def create_train_state(model: torch.nn.Module, build_opt: Callable,
     """Move ``model`` to ``device``, build its optimizer with
     ``build_opt(params)``, and give it a dropout generator on the device
     that each step re-seeds from ``(seed, rank, step)``; and, given a
-    ``grad_sync`` with topk compression, zero residuals."""
+    ``grad_sync`` with topk compression, zero residuals. On the meta
+    device (the cost walk's) the generator is a CPU one: the meta
+    device has none, and meta draws take any generator."""
     device = torch.device(device)
     model = model.to(device)
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     model.set_dropout_generator(gen)
     ef, replicas = None, 1
     if grad_sync is not None:
@@ -282,13 +284,14 @@ def build_image_train_step(grad_sync, bn_stats_sync: str = "mean",
                            nonfinite_guard: bool = False):
     """``step(state, batch, seed) -> metrics``: one data-parallel update of
     ``state`` in place from this rank's ``batch = (images, labels)``, with
-    the step's sync ``seed`` (:func:`sync_seed`). ``grad_accum = K`` splits
+    the step's sync ``seed`` (:func:`sync_seed`); without ``grad_sync``,
+    one device and no sync. ``grad_accum = K`` splits
     the batch into K microbatches whose gradients are summed and divided
     by K before the one sync (BatchNorm statistics move once per
     microbatch, as K small steps would move them)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    group = grad_sync.group
+    group = None if grad_sync is None else grad_sync.group
 
     def step(state: TrainState, batch, seed: int) -> Dict[str, torch.Tensor]:
         with f32_context(state.model):
@@ -380,3 +383,38 @@ def run_eval_pass(eval_step, state: TrainState, loader) -> Dict[str, float]:
     if n == 0:
         return {}
     return {k: float(v) / n for k, v in totals.items()}
+
+
+def dp_audit_bundle(model: torch.nn.Module, build_opt: Callable, grad_sync,
+                    input_shape, global_batch: int, text: bool = False,
+                    seed: int = 0, **build_kw) -> dict:
+    """The data-parallel step of the cost walk (the JAX
+    ``dp_audit_bundle``, :mod:`..analysis.costmodel`): ``model`` (built
+    on the meta device, or moved there), its optimizer from
+    ``build_opt``, and the step of its family (:func:`build_train_step`
+    for a text model, :func:`build_image_train_step` else, with
+    ``build_kw``) over ``grad_sync``'s group (a fake group on the meta
+    device; ``None``: one device, no sync), on this rank's rows of
+    ``global_batch`` inputs of ``input_shape`` (f32 images NHWC, or
+    int64 token ids). Returns ``{"step_fn", "args", "params"}``: the walk
+    runs ``step_fn(*args)``."""
+    n = 1 if grad_sync is None else world_size(grad_sync.group)
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"dp={n}")
+    state = create_train_state(model, build_opt, "meta", seed=seed,
+                               rank=rank(None if grad_sync is None
+                                         else grad_sync.group),
+                               grad_sync=grad_sync)
+    rows = global_batch // n
+    if text:
+        step = build_train_step(grad_sync, **build_kw)
+        tok = torch.zeros((rows, *input_shape), dtype=torch.int64,
+                          device="meta")
+        batch = (tok, tok)
+    else:
+        step = build_image_train_step(grad_sync, **build_kw)
+        batch = (torch.zeros((rows, *input_shape), device="meta"),
+                 torch.zeros((rows,), dtype=torch.int64, device="meta"))
+    return {"step_fn": step, "args": (state, batch, sync_seed(seed + 1, 0)),
+            "params": list(state.model.parameters())}

@@ -363,7 +363,8 @@ def check_heads(c: TrainConfig, num_heads: int) -> None:
 
 def build_train_model(c: TrainConfig) -> torch.nn.Module:
     """A fresh model of ``c``'s network and model flags, its weights drawn
-    from ``c.seed`` (on the CPU)."""
+    from ``c.seed`` (on the CPU, or under ``torch.device("meta")`` on the
+    meta device: the cost walk's model)."""
     if is_text_model(c.network):
         model_kw = text_model_kw(c)
         if c.attn_impl == "pallas":
@@ -415,6 +416,7 @@ class Trainer:
                 c.optimizer, params, schedule, momentum=c.momentum,
                 weight_decay=c.weight_decay, nesterov=c.nesterov)
 
+        self._build_opt = build_opt
         self._init_sync(group, multihost)
         if self.is_text:
             self._init_text(build_opt)
@@ -522,11 +524,16 @@ class Trainer:
         if self.spmd:  # the spmd step syncs over the mesh itself
             self.grad_sync = None
             return
-        self.grad_sync = make_grad_sync(
-            self.group, c.sync_mode, num_aggregate=c.num_aggregate,
+        self.grad_sync = self._make_sync(self.group, self._straggler_sim)
+
+    def _make_sync(self, group, straggler):
+        """The run's gradient sync over ``group``."""
+        c = self.config
+        return make_grad_sync(
+            group, c.sync_mode, num_aggregate=c.num_aggregate,
             compression=c.compression, topk_ratio=c.topk_ratio,
             kill_ranks=tuple(c.kill_ranks), bucket_bytes=c.bucket_bytes,
-            straggler=self._straggler_sim)
+            straggler=straggler)
 
     def _init_text(self, build_opt) -> None:
         c = self.config
@@ -818,13 +825,30 @@ class Trainer:
             path = os.path.join(c.train_dir, obs.STREAM_BASENAME)
         if self.rank != 0:
             path = None
+        sync_bytes = (None if self.grad_sync is None else
+                      self.grad_sync.estimate_sync_bytes(
+                          list(self.model.parameters())))
+        # the step's static cost (analysis/costmodel.py), for the MFU,
+        # HBM and ICI gauges and ``obs summary``'s efficiency section;
+        # sink-less runs (other ranks, unit tests) skip the walk, as the
+        # JAX trainer skips its lowering
+        step_cost = None
+        if path is not None:
+            try:
+                step_cost = self._static_step_cost(sync_bytes)
+            except Exception:
+                logger.exception(
+                    "static step-cost accounting failed (run continues "
+                    "without efficiency telemetry)")
         manifest = obs.run_manifest(
             config=dataclasses.asdict(c),
             geometry=self._geometry,
             param_count=param_count(self.model),
             param_bytes=int(sum(p.numel() * p.element_size()
                                 for p in self.model.parameters())),
+            sync_bytes_per_step=sync_bytes,
             start_step=self.start_step,
+            step_cost=step_cost,
             device=str(self.device),
         )
         manifest["rank"] = self.rank
@@ -835,6 +859,109 @@ class Trainer:
         # emit into this run's stream
         self._prev_telemetry = obs.install(self.telemetry)
         self.metrics = MetricsLogger(telemetry=self.telemetry)
+
+    def _walk_bundle(self) -> dict:
+        """The world-size-1 step of this run's configuration at the GLOBAL
+        batch, on the meta device (the JAX record is global): a fresh
+        model and optimizer of the config, the step of the run's path
+        with its sync over a fake group of one rank (the int8 codec is
+        in it; the non-finite guard, a host read, is not: analysis/
+        costmodel.py). Not :func:`..analysis.costmodel.walk_step`, which
+        walks a zoo model by name: this is the run's own model, sync,
+        straggler simulator, BatchNorm sync and seed."""
+        from pytorch_distributed_nn_tpu_torch.parallel.mesh import (
+            fake_group,
+        )
+        from pytorch_distributed_nn_tpu_torch.training.spmd import (
+            spmd_audit_bundle,
+        )
+        from pytorch_distributed_nn_tpu_torch.training.train_step import (
+            dp_audit_bundle,
+        )
+
+        c = self.config
+        with torch.device("meta"):
+            model = build_train_model(c)
+        if self.spmd:
+            return spmd_audit_bundle(
+                model, self._build_opt, make_mesh(None, 1, 1, 1),
+                (c.batch_size, self.seq_len), compression=c.compression,
+                grad_accum=c.grad_accum, seed=c.seed + 1)
+        straggler = None
+        if c.straggler_deadline is not None:
+            straggler = make_straggler_sim(
+                c.straggler_deadline, min_keep=c.straggler_min_keep)
+        sync = self._make_sync(fake_group(0, 1), straggler)
+        if self.is_text:
+            return dp_audit_bundle(
+                model, self._build_opt, sync, (self.seq_len,),
+                c.batch_size, text=True, seed=c.seed + 1,
+                grad_accum=c.grad_accum)
+        return dp_audit_bundle(
+            model, self._build_opt, sync, input_spec(c.network),
+            c.batch_size, seed=c.seed + 1, bn_stats_sync=c.bn_stats_sync,
+            grad_accum=c.grad_accum)
+
+    def _static_step_cost(self, sync_bytes) -> dict:
+        """The manifest's ``step_cost`` (the JAX trainer's keys): the
+        walk's FLOPs and bytes of one GLOBAL step
+        (:meth:`_walk_bundle`), the ICI bytes of the sync's payload by
+        the ring estimate, the peaks of the run's devices at its compute
+        dtype, and the roofline's prediction over one device's share.
+        Adds ``peak_dtype`` (the MFU peak follows the dtype) and
+        ``walk_s`` (the walk's seconds)."""
+        from pytorch_distributed_nn_tpu_torch.analysis import costmodel
+        from pytorch_distributed_nn_tpu_torch.analysis.calibration import (
+            default_profile,
+            peak_flops_per_device,
+            predict_step_ms,
+        )
+
+        c = self.config
+        t0 = time.perf_counter()
+        bundle = self._walk_bundle()
+        ici = None
+        if sync_bytes and self.n_workers > 1:
+            n = self.n_workers
+            ici = 2.0 * float(sync_bytes) * (n - 1) / n
+        cost = costmodel.step_cost_from_walk(
+            bundle["step_fn"], bundle["args"], ici_bytes=ici)
+        walk_s = time.perf_counter() - t0
+        devices = self.world
+        on_card = self.device.type == "cuda"
+        backend = "gpu" if on_card else "cpu"
+        kind = torch.cuda.get_device_name(self.device) if on_card else "cpu"
+        peak_dev = peak_flops_per_device(backend, kind, c.dtype)
+        prof = default_profile(backend, c.dtype)
+        d = cost.to_dict()
+        scale = 1.0 / max(devices, 1)
+        per_dev = dict(d)
+        per_dev["flops"] = d["flops"] * scale
+        per_dev["hbm_bytes"] = d["hbm_bytes"] * scale
+        per_dev["families"] = {
+            f: {**fc, "flops": fc["flops"] * scale,
+                "hbm_bytes": fc["hbm_bytes"] * scale}
+            for f, fc in (d.get("families") or {}).items()
+        }
+        pred = predict_step_ms(per_dev, prof, devices=devices)
+        logger.info("Static step cost: %.4g GFLOP a global step, walked in "
+                    "%.3f s", d["flops"] / 1e9, walk_s)
+        return {
+            "flops": d["flops"],
+            "hbm_bytes": d["hbm_bytes"],
+            "ici_bytes": d["ici_bytes"],
+            "families": d["families"],
+            "source": d["source"],
+            "devices": devices,
+            "backend": backend,
+            "device_kind": kind,
+            "peak_flops_per_s": peak_dev * devices,
+            "peak_hbm_bytes_per_s": prof.hbm_peak_bytes_per_s * devices,
+            "predicted_ms": round(pred["predicted_ms"], 3),
+            "calibration": prof.name,
+            "peak_dtype": c.dtype,
+            "walk_s": round(walk_s, 3),
+        }
 
     def _restore_data_stream(self) -> None:
         """A resumed MLM or streaming run continues its batch stream from

@@ -225,25 +225,48 @@ def is_compute_kernel(name: str) -> bool:
     return (bool(_COMPUTE_RE.search(outer)) or "gemm" in name.lower())
 
 
-def op_family(name: str) -> str:
-    """The family of a summary row's name (module doc)."""
-    if name.endswith(_FWD):
-        return "convert_reduce_fusion"
-    if name.endswith(_BWD):
-        return "multiply_add_fusion"
-    if is_port_kernel(name):
-        base = kernel_base_name(name)
-        if base.startswith(_PORT_FORWARD):
+#: the kinds of operation :func:`family` tells apart
+COMPUTE, KERNEL, OTHER, ELEMENTWISE = "compute", "kernel", "other", \
+    "elementwise"
+
+
+def family(kind: str, backward: bool = False, kernel: str = "") -> str:
+    """The family of one operation: the one rule that the trace
+    summaries (:func:`op_family`) and the cost walk
+    (:mod:`..analysis.costmodel`) both apply (module doc).
+
+    - ``COMPUTE`` (a GEMM or a convolution): ``multiply_add_fusion``
+      inside autograd's backward, else ``convert_reduce_fusion``;
+    - ``KERNEL`` (one of the port's kernels, ``kernel`` its base name):
+      forward or backward compute by its prefix, else ``other`` (the
+      int8 codec);
+    - ``OTHER`` (collectives, copies and memsets): ``other``;
+    - anything else: ``elementwise``."""
+    if kind == COMPUTE:
+        return "multiply_add_fusion" if backward else "convert_reduce_fusion"
+    if kind == KERNEL:
+        if kernel.startswith(_PORT_FORWARD):
             return "convert_reduce_fusion"
-        if base.startswith(_PORT_BACKWARD):
+        if kernel.startswith(_PORT_BACKWARD):
             return "multiply_add_fusion"
         return "other"
+    if kind == OTHER:
+        return "other"
+    return "elementwise"
+
+
+def op_family(name: str) -> str:
+    """The family of a summary row's name (module doc, :func:`family`)."""
+    if name.endswith((_FWD, _BWD)):
+        return family(COMPUTE, backward=name.endswith(_BWD))
+    if is_port_kernel(name):
+        return family(KERNEL, kernel=kernel_base_name(name))
     if (name.startswith(("Memcpy", "Memset", "(other "))
             or "nccl" in name.lower()):
-        return "other"
+        return family(OTHER)
     if is_compute_kernel(name):  # a raw name without its direction
-        return "convert_reduce_fusion"
-    return "elementwise"
+        return family(COMPUTE)
+    return family(ELEMENTWISE)
 
 
 def family_summary(summary: Dict[str, List[OpTime]]) -> Dict[str, dict]:

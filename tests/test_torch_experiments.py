@@ -350,6 +350,8 @@ def test_mini_sweep_grid_and_journal(tmp_path):
                for e in jstate.events)
     m = report.trial_metrics(trial_dir(sdir, 1))
     assert m is not None and m["steps"] == 8 and math.isfinite(m["loss"])
+    # a synthetic trial trains no model: its manifest has no step cost
+    # (a real trial's mfu: test_e2e_mini_sweep_real_trainer)
     assert m["mfu"] is None
     prom = open(os.path.join(sdir, "metrics.prom")).read()
     assert "pdtn_sweep_trials_total 3" in prom
@@ -406,8 +408,16 @@ def test_resume_requires_matching_spec(tmp_path):
                          resume=True),
             trial_main=synthetic_trial_main,
         ).run()
-    with pytest.raises(ValueError, match="7d"):
-        RunnerConfig(sweep_dir=sdir, plan_mesh=4)
+    # --plan-mesh is accepted now; a network the planner cannot build
+    # keeps the base mesh (the JAX runner's best effort), planned in a
+    # spawned subprocess
+    planned = SweepRunner(
+        SweepSpec.parse("lr=0.5"), SYNTH_BASE,
+        RunnerConfig(sweep_dir=sdir, max_steps=2, plan_mesh=4,
+                     device="cpu"),
+        trial_main=synthetic_trial_main,
+    )
+    assert planned._plan_mesh_overrides("SynthNet") == {}
 
 
 def test_asha_promotes_and_resumes_across_rungs(tmp_path):
@@ -454,7 +464,7 @@ def test_leaderboard_rendering(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_cli_sweep_rc_codes(tmp_path, capsys):
+def test_cli_sweep_rc_codes(tmp_path, capsys, monkeypatch):
     from pytorch_distributed_nn_tpu_torch.cli import main, main_sweep
 
     sdir = str(tmp_path / "s")
@@ -462,11 +472,22 @@ def test_cli_sweep_rc_codes(tmp_path, capsys):
                        "--spec", "not_a_field=1"]) == 2
     assert main_sweep(["run", "--sweep-dir", sdir,
                        "--spec", "lr=1e-4..1e-1"]) == 2
-    # the JAX planner hook is refused until the cost model exists
-    assert main(["sweep", "run", "--sweep-dir", sdir, "--spec", "lr=0.1",
-                 "--plan-mesh", "4", "--device", "cpu"]) == 2
-    assert "7d" in capsys.readouterr().err
     assert not os.path.exists(jr.journal_path(sdir))
+    # --plan-mesh plans LeNet's mesh for 2 devices in a subprocess, and
+    # the trial trains under it (the CPU profile's dp 1): rc 0
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    pdir = str(tmp_path / "planned")
+    assert main(["sweep", "run", "--sweep-dir", pdir, "--spec", "lr=0.01",
+                 "--plan-mesh", "2", "--device", "cpu", "--steps", "2",
+                 "--network", "LeNet", "--synthetic-size", "64",
+                 "--batch-size", "16", "--concurrency", "1",
+                 "--retries", "0"]) == 0
+    from pytorch_distributed_nn_tpu_torch.observability import reader
+
+    manifest = reader.read_stream(trial_dir(pdir, 0)).manifest
+    assert manifest["config"]["num_workers"] == 1
+    assert manifest["step_cost"]["source"] == "walk"
+    capsys.readouterr()
     for cmd in ("status", "report", "resume"):
         assert main_sweep([cmd, "--sweep-dir", sdir]) == 2
     assert main(["sweep", "--selftest"]) == 0
@@ -577,6 +598,55 @@ def test_e2e_mini_sweep_real_trainer(tmp_path, monkeypatch):
     assert summary["step_rate"]["overall"] == pytest.approx(
         len(timed) / wall, rel=1e-12)
     assert summary["phases"]["step"]["count"] == len(timed)
+    # the trainer stamped its step cost: the sweep's mfu column is filled
+    m = report.trial_metrics(trial_dir(sdir, 1))
+    assert m["mfu"] is not None and m["mfu"] > 0
+    assert rs.manifest["step_cost"]["source"] == "walk"
     # the JAX package reads the port's journal and trial streams too
     assert jax_jr.load_journal(sdir).results_at(0) == jstate.results_at(0)
     assert not torch.cuda.is_initialized()
+
+
+PLAN_MESH_SCRIPT = r"""
+import json, sys, tempfile
+from pytorch_distributed_nn_tpu_torch.experiments import (
+    RunnerConfig, SweepRunner, SweepSpec)
+from pytorch_distributed_nn_tpu_torch.experiments import scheduler
+from pytorch_distributed_nn_tpu_torch.experiments.runner import (
+    _Attempt, synthetic_trial_main)
+spec = SweepSpec.parse("lr=0.1")
+runner = SweepRunner(spec, json.loads(sys.argv[1]),
+                     RunnerConfig(sweep_dir=tempfile.mkdtemp(), max_steps=3,
+                                  plan_mesh=2, device="cpu"),
+                     trial_main=synthetic_trial_main)
+trial = spec.trials()[0]
+cfg = runner._trial_config(trial, scheduler.make_rungs("grid", 1, 3)[0],
+                           _Attempt(trial))
+print(json.dumps({"overrides": runner._plan_mesh_overrides("LeNet"),
+                  "cfg": {k: cfg.get(k) for k in ("num_workers",
+                          "tensor_parallel", "seq_parallel")},
+                  "had_torch": "torch" in sys.modules}))
+"""
+
+
+def test_plan_mesh_gives_lenet_the_jax_runners_overrides(tmp_path):
+    """``--plan-mesh 2 --device cpu``: the port's runner plans LeNet's
+    mesh in a spawned subprocess (the orchestrator imports no torch) and
+    its trials get the JAX runner's overrides for the same base config."""
+    base = {"network": "LeNet", "dataset": "MNIST", "batch_size": 16,
+            "optimizer": "sgd", "lr": 0.1, "faults": None}
+    out = subprocess.run(
+        [sys.executable, "-c", PLAN_MESH_SCRIPT, json.dumps(base)],
+        cwd=REPO, env=SUBPROCESS_ENV, capture_output=True, text=True,
+        timeout=180)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    want = jax_runner.SweepRunner(
+        jax_spec.SweepSpec.parse("lr=0.1"), base,
+        jax_runner.RunnerConfig(sweep_dir=str(tmp_path / "jax"),
+                                max_steps=3, plan_mesh=2),
+    )._plan_mesh_overrides("LeNet")
+    assert want == {"num_workers": 1, "tensor_parallel": 1,
+                    "seq_parallel": 1}
+    assert got == {"overrides": want, "cfg": want, "had_torch": False}
+

@@ -582,13 +582,39 @@ def test_cli_run_and_status_roundtrip(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_plan_hosts_is_refused_naming_7d(tmp_path):
-    with pytest.raises(ValueError, match="7d"):
-        FleetConfig(sweep_dir=str(tmp_path / "s"), plan_hosts=True)
+def test_plan_hosts_is_refused_naming_7d(tmp_path, monkeypatch):
+    """``--plan-hosts`` (refused before the cost model existed, hence the
+    name) now plans: the host's mesh comes from the roofline planner in
+    a spawned subprocess, is cached under (model, devices, backend, torch
+    version), and a second trial on a host of that profile reads the
+    cache without planning again."""
+    from pytorch_distributed_nn_tpu_torch.experiments.fleet import (
+        scheduler as fleet_scheduler,
+    )
+
+    assert FleetConfig(sweep_dir=str(tmp_path / "s"), plan_hosts=True)
+    cache = FleetCache(str(tmp_path / "cache"))
+    host = AgentInfo("a", "h", 1, devices=2, profile={"backend": "cpu"})
+    cfg = {"network": "LeNet", "batch_size": 16, "optimizer": "sgd"}
+    got = host_mesh_overrides(cfg, host, cache=cache, plan=True)
+    # the CPU profile's plan for LeNet on 2 devices: dp 1 first
+    assert got == {"num_workers": 1, "tensor_parallel": 1,
+                   "seq_parallel": 1}
+    rec = cache.get("plan", model="LeNet", devices=2, backend="cpu",
+                    torch=torch_version())
+    assert rec["num_workers"] == 1 and rec["predicted_ms"] > 0
+
+    def no_planning(*a, **kw):
+        raise AssertionError("planned again despite a cached plan")
+
+    monkeypatch.setattr(fleet_scheduler, "plan_in_subprocess", no_planning)
+    assert host_mesh_overrides(cfg, host, cache=cache, plan=True) == got
+    # the CLI accepts the flag and plans each host of the sweep
     out = _fleet_cli("run", "--sweep-dir", str(tmp_path / "s"),
-                     "--plan-hosts", "--synthetic-trials", "--agents", "1")
-    assert out.returncode == 2 and "7d" in out.stderr
-    assert not os.path.exists(tmp_path / "s" / jr.SWEEP_BASENAME)
+                     "--plan-hosts", "--synthetic-trials", "--agents", "1",
+                     "--steps", "2", timeout=180)
+    assert out.returncode == 0, out.stderr[-1500:]
+    assert os.path.exists(tmp_path / "s" / jr.SWEEP_BASENAME)
 
 
 def test_too_few_cards_refused_before_any_agent_starts(tmp_path):

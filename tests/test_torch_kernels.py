@@ -210,8 +210,19 @@ def test_wrappers_refuse_devices_without_a_kernel():
     q = torch.empty((1, 1, H, D), device="meta")
     k = torch.empty((1, 16, H, D), device="meta")
     pos = torch.empty((1,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+    # meta tensors are the cost walk's: outside one the wrapper refuses
+    # them, and inside one it reports its call and launches nothing
+    with pytest.raises(RuntimeError, match="outside a cost walk"):
         kernels.decode_attention(q, k, k, pos)
+    calls = []
+    with kernels.charging(lambda name, ins, outs, **kw: calls.append(
+            (name, len(ins), [tuple(o.shape) for o in outs]))):
+        out = kernels.decode_attention(q, k, k, pos)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert calls == [("decode_attention", 4, [tuple(q.shape)])]
+    assert not any(kernels.launch_counts().values())
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.decode_attention(q, k, k, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
         kernels.layer_norm(torch.empty((2, 8), device="meta"),
                            torch.ones(8), torch.zeros(8))
